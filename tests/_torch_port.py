@@ -1,0 +1,63 @@
+"""Shared inputs of the port's parity tests (tests/test_torch_*.py): random
+filter/topic corpora over a small vocabulary, and numpy/torch/JAX hand-offs.
+Everything is made from a seed; tensors are handed over as numpy arrays."""
+
+import random
+
+import numpy as np
+import torch
+
+WORDS = [f"w{i}" for i in range(150)]
+
+# word ids at the byte-plane edges of the coded operands (UNKNOWN_ID = -2
+# is a publish-side id: its planes are 254, 255(, 255))
+EDGE_IDS = np.array([0, 1, 2, 254, 255, 256, 65535, 65536], dtype=np.int32)
+UNKNOWN_ID = -2
+
+
+def rand_filter(rng: random.Random, max_len: int = 5):
+    f = [rng.choice(WORDS + ["+"]) for _ in range(rng.randint(1, max_len))]
+    if rng.random() < 0.2:
+        f.append("#")
+    return f
+
+
+def rand_topic(rng: random.Random, max_len: int = 5):
+    return [rng.choice(WORDS) for _ in range(rng.randint(1, max_len))]
+
+
+def norm(rows):
+    return sorted((tuple(f), str(k)) for f, k, _ in rows)
+
+
+def fill(rng: random.Random, n: int, *tables, prefix: str = "c"):
+    """Add the same n random filters to every table (anything with
+    ``add(filter, key, value)``)."""
+    for i in range(n):
+        f = rand_filter(rng)
+        for t in tables:
+            t.add(list(f), f"{prefix}{i}", None)
+
+
+def t(a) -> torch.Tensor:
+    """numpy (or JAX) array → CPU tensor (bf16 arrays via float32)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))
+
+
+def n(x) -> np.ndarray:
+    """JAX array or tensor → numpy (bf16 as float32, uint32 as int32)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.numpy()
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return a.astype(np.float32)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    return a

@@ -1,0 +1,318 @@
+"""Batched wildcard topic matching as PyTorch tensor code: the port of
+``vernemq_tpu/ops/match_kernel.py`` (same names, same array layouts).
+
+Subscriptions live on the device as padded rows of interned word ids
+(``PLUS_ID`` for ``+``, ``PAD_ID`` beyond the filter length, a trailing
+``#`` dropped into ``has_hash``), plus ``sub_eff_len`` (concrete levels),
+``first_wild`` and ``active``. A filter matches a publish iff every concrete
+level equals the publish word or is ``+``, the length rule holds (``==
+eff_len`` without ``#``, ``>= eff_len`` with it) and the ``$``-rule holds —
+``vmq_topic.erl:53-66`` + ``vmq_reg_trie.erl:283-288`` over a batch.
+
+The windowed production path (:func:`match_extract_windowed_flat`) matches
+three zones: region 0 densely (:func:`_dense_region0`, a float32
+``torch.matmul``), and the probe-A / probe-B windows through the hand
+kernel in ``ops/tile_match.py``. Results are compacted on the device into
+one flat buffer. Every function here runs on whatever device its tensors
+are on; nothing falls back to another device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+PAD_ID = 0
+PLUS_ID = 1
+HASH_ID = 2
+FIRST_WORD_ID = 3  # real words intern from here
+
+Parts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _planes(ids: torch.Tensor, id_bits: int):
+    """Byte planes of int32 word ids (arithmetic shifts, as in the
+    reference: UNKNOWN_ID = -2 splits into 254, 255(, 255))."""
+    planes = [ids & 255, (ids >> 8) & 255]
+    if id_bits != 16:
+        planes.append((ids >> 16) & 255)
+    return planes
+
+
+def build_operands(sub_words: torch.Tensor, sub_eff_len: torch.Tensor,
+                   id_bits: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coded match operands of a subscription table.
+
+    ``mismatch = G(pub) @ F(sub) + t1(sub)`` is 0 exactly when every
+    concrete level matches (the expansion of ``Σ_l w_l Σ_d (s−p)²``, with
+    ``w_l = 0`` on ``+`` levels and beyond eff_len):
+
+      16-bit ids (K = 5L):  F = [2wc₀, 2wc₁, 65536w, 256w, w]
+      24-bit ids (K = 6L):  F = [2wc₀, 2wc₁, 2wc₂, 65536w, 256w, w]
+
+    Every operand is an integer representable in bf16 and every product
+    and partial sum an integer below 2^24, so the float32 sum is exact in
+    any order. Returns ``(F_t bf16 [K, S], t1 f32 [S])`` (F transposed, as
+    the reference keeps it).
+    """
+    S, L = sub_words.shape
+    lvl = torch.arange(L, device=sub_words.device)
+    wf = ((sub_words != PLUS_ID)
+          & (lvl[None, :] < sub_eff_len[:, None])).to(torch.float32)
+    pf = [c.to(torch.float32) for c in _planes(sub_words, id_bits)]
+    parts = [2.0 * wf * c for c in pf] + [m * wf for m in (65536.0, 256.0, 1.0)]
+    F = torch.cat(parts, dim=1)  # [S, K]
+    t1 = sum((wf * c * c).sum(dim=1) for c in pf)
+    return F.t().contiguous().to(torch.bfloat16), t1.contiguous()
+
+
+def build_pub_operand(pub_words: torch.Tensor, id_bits: int = 16) -> torch.Tensor:
+    """``G bf16 [B, K]`` of a publish batch: ``[−p₀, −p₁(, −p₂), q»16,
+    (q»8)&255, q&255]`` with ``q = Σ_d p_d² < 2^18`` split into base-256
+    planes so every entry is bf16-exact."""
+    planes = _planes(pub_words, id_bits)
+    q = sum(c * c for c in planes)
+    G = torch.cat([-c for c in planes] + [q >> 16, (q >> 8) & 255, q & 255],
+                  dim=1)
+    return G.to(torch.bfloat16)
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, as int32 (SWAR on the unsigned value
+    widened to int64, so no step can overflow)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+
+
+def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
+    """``[B, S]`` bool → ``[B, S/32]`` int32 words, bit j of word w being
+    column 32w + j (the reference's uint32 words, same bits). Bit 31
+    weighs −2^31, so every sum is already the word's int32 value."""
+    B, S = mask.shape
+    bits = mask.reshape(B, S // 32, 32).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
+        << torch.arange(32, device=mask.device)
+    weights[31] = -(1 << 31)
+    return (bits * weights).sum(dim=2).to(torch.int32)
+
+
+def _select_bit(word: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Position of the set bit of rank ``rank`` (0-based) in each int32
+    word, by halving: keep the low half when it holds more than ``rank``
+    set bits, else step into the high half (5 popcount steps)."""
+    w = word.to(torch.int64) & 0xFFFFFFFF
+    r = rank.to(torch.int64)
+    pos = torch.zeros_like(w)
+    for width in (16, 8, 4, 2, 1):
+        low = w & ((1 << width) - 1)
+        n_low = _popcount(low).to(torch.int64)
+        high = r >= n_low
+        r = torch.where(high, r - n_low, r)
+        w = torch.where(high, w >> width, low)
+        pos += high * width
+    return pos
+
+
+def extract_indices_packed(packed: torch.Tensor, k: int) -> Parts:
+    """Sort-free compaction of a bit-packed mask (``[R, W]`` int32) into
+    the first ``k`` set positions of each row.
+
+    A prefix sum of word popcounts locates the word holding the j-th match
+    (``searchsorted``), and a bit select inside that word its position.
+    The reference's two-level block search exists to suit the TPU's lane
+    layout; the result is the same, so this version needs no block size.
+    Returns ``(idx [R, k] int32, valid [R, k] bool, count [R] int32)``;
+    ``idx`` is meaningful only where ``valid``, and ``count`` may exceed k.
+    """
+    R, W = packed.shape
+    dev = packed.device
+    cum = _popcount(packed).cumsum(dim=1, dtype=torch.int32)  # inclusive
+    count = cum[:, -1].contiguous()
+    targets = torch.arange(k, dtype=torch.int32, device=dev).expand(R, k)
+    w = torch.searchsorted(cum, targets.contiguous(), right=True)
+    w = w.clamp(max=W - 1)
+    before = torch.where(w > 0, cum.gather(1, (w - 1).clamp(min=0)), 0)
+    # rank of the target match inside its word (negative past the count:
+    # those entries are not valid and their position is never read)
+    pos = _select_bit(packed.gather(1, w), (targets - before).clamp(min=0))
+    idx = (w * 32 + pos).to(torch.int32)
+    valid = targets < count[:, None]
+    return idx, valid, count
+
+
+def match_mask_unrolled(sub_words, sub_eff_len, has_hash, first_wild, active,
+                        pub_words, pub_len, pub_dollar) -> torch.Tensor:
+    """Boolean match matrix ``[B, S]`` by a level-wise compare — the
+    oracle shape, used for tables too small to bucket."""
+    L = sub_words.shape[1]
+    acc = _epilogue(pub_len, pub_dollar, sub_eff_len, has_hash, first_wild,
+                    active)
+    for l in range(L):
+        ok_l = ((sub_words[:, l][None, :] == pub_words[:, l][:, None])
+                | (sub_words[:, l] == PLUS_ID)[None, :]
+                | (l >= sub_eff_len)[None, :])
+        acc &= ok_l
+    return acc
+
+
+def extract_indices(mask: torch.Tensor, k: int) -> Parts:
+    """Compaction of a ``[B, S]`` bool mask into its first ``k`` set
+    columns per row (same contract as :func:`extract_indices_packed`).
+
+    With :func:`match_mask_unrolled` this is the port's one path for the
+    unbucketed table, replacing both of the reference's
+    ``match_extract_mxu`` and ``match_extract`` (they differ only in how
+    the TPU computes the same mask)."""
+    B, S = mask.shape
+    cs = mask.to(torch.int32).cumsum(dim=1, dtype=torch.int32)
+    count = cs[:, -1].contiguous()
+    targets = torch.arange(k, dtype=torch.int32, device=mask.device) \
+        .expand(B, k).contiguous()
+    idx = torch.searchsorted(cs, targets + 1).clamp(max=S - 1)
+    return idx.to(torch.int32), targets < count[:, None], count
+
+
+def _epilogue(pub_len, pub_dollar, eff, hh, fw, act) -> torch.Tensor:
+    """Length / ``$``-rule / liveness mask ``[B, Sseg]``."""
+    len_ok = torch.where(hh[None, :], pub_len[:, None] >= eff[None, :],
+                         pub_len[:, None] == eff[None, :])
+    return len_ok & ~(pub_dollar[:, None] & fw[None, :]) & act[None, :]
+
+
+def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                   pub_words, pub_len, pub_dollar, *, id_bits, k, glob_pad,
+                   gc) -> Parts:
+    """Every publish against region 0 (filters whose first two levels are
+    wildcards), in ``gc`` publish chunks.
+
+    The product runs in float32 on operands upcast from bf16: a bf16
+    ``matmul`` returns bf16, which would round ``G@F`` before ``t1`` is
+    added and turn a large near-cancelling sum into a false match. In
+    float32 every partial sum is an exact integer, with or without TF32
+    (every operand has at most 8 significant bits)."""
+    B = pub_words.shape[0]
+    F0 = F_t[:, :glob_pad].to(torch.float32)
+    t10 = t1[:glob_pad]
+    ep = (sub_eff_len[:glob_pad], has_hash[:glob_pad],
+          first_wild[:glob_pad], active[:glob_pad])
+    outs = []
+    for c in range(0, B, gc):
+        sl = slice(c, c + gc)
+        G = build_pub_operand(pub_words[sl], id_bits).to(torch.float32)
+        mm = G @ F0 + t10
+        m = (mm == 0.0) & _epilogue(pub_len[sl], pub_dollar[sl], *ep)
+        outs.append(extract_indices_packed(_pack_mask(m), k))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _gather_parts(tidx, tvalid, tcount, tile, pos) -> Parts:
+    """Tile results back to publish order: publish i's probe result is tile
+    ``tile[i]`` slot ``pos[i]`` (``tile < 0``: no window in this probe)."""
+    ok = tile >= 0
+    tt = tile.clamp(min=0).long()
+    pp = pos.long()
+    idx = tidx[tt, pp]
+    valid = tvalid[tt, pp] & ok[:, None]
+    cnt = torch.where(ok, tcount[tt, pp], 0)
+    return idx, valid, cnt
+
+
+def _flat_combine(real, k, C, g: Parts, a: Parts, b: Parts):
+    """Flat compaction of the three per-publish parts: an exclusive prefix
+    sum over the k-clamped totals gives each real publish the range
+    ``[pre, pre+total)`` of one ``[C]`` buffer. Entries past ``C`` are
+    dropped (the reference's ``mode="drop"``) and flag ``overflow``."""
+    (gidx, gvalid, gcount), (aidx, avalid, acnt), (bidx, bvalid, bcnt) = \
+        g, a, b
+    clip = (gcount > k) | (acnt > k) | (bcnt > k)
+    gcnt = torch.where(real, gcount, 0).clamp(max=k)
+    acnt = torch.where(real, acnt, 0).clamp(max=k)
+    bcnt = torch.where(real, bcnt, 0).clamp(max=k)
+    total = (gcnt + acnt + bcnt).to(torch.int32)
+    pre = total.cumsum(0, dtype=torch.int32) - total
+    j = torch.arange(k, device=real.device)[None, :]
+    # one spare slot past the end takes every dropped entry (a masked
+    # scatter needs no device→host sync, unlike boolean indexing)
+    flat = torch.zeros(C + 1, dtype=torch.int32, device=real.device)
+    for base, idx, valid, cnt in ((pre, gidx, gvalid, gcnt),
+                                  (pre + gcnt, aidx, avalid, acnt),
+                                  (pre + gcnt + acnt, bidx, bvalid, bcnt)):
+        pos = base[:, None] + j
+        keep = valid & real[:, None] & (j < cnt[:, None]) & (pos < C)
+        flat.scatter_(0, torch.where(keep, pos, C).reshape(-1),
+                      idx.to(torch.int32).reshape(-1))
+    overflow = ((pre + total > C) | clip) & real
+    return flat[:C], pre, total, overflow
+
+
+def match_extract_windowed_flat(
+    F_t, t1, sub_eff_len, has_hash, first_wild, active,
+    pub_words, pub_len, pub_dollar, n_real: int,
+    t_sel, t_start, t2_sel, t2_start, a_tile, a_pos, b_tile, b_pos,
+    *, id_bits: int, k: int, glob_pad: int, seg_max: int, seg2_max: int,
+    gc: int, C: int,
+):
+    """The production match path: dense region 0, probe A (level-0 bucket
+    windows, concrete-first rows) and probe B (level-1 g-bucket windows,
+    wildcard-first rows), flat-compacted on the device.
+
+    Arguments and result follow the reference function of the same name:
+    ``(flat [C] int32, pre [B] int32, total [B] int32, overflow [B]
+    bool)``; publish i's matched slot ids are ``flat[pre[i]:pre[i] +
+    total[i]]`` unless ``overflow[i]`` (flat capacity exhausted or a part
+    clipped at k: the caller matches that publish on the host).
+    """
+    from .tile_match import _probe_tiles, row_flags
+
+    B = pub_words.shape[0]
+    real = torch.arange(B, device=pub_words.device) < n_real
+    g = _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                       pub_words, pub_len, pub_dollar, id_bits=id_bits, k=k,
+                       glob_pad=glob_pad, gc=gc)
+    flags = row_flags(has_hash, first_wild, active)
+    G_all = build_pub_operand(pub_words, id_bits)
+    pd = pub_dollar.to(torch.int32)
+    probe = dict(k=k, glob_pad=glob_pad)
+    a = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
+                                    pub_len, pd, t_sel, t_start,
+                                    seg_max=seg_max, wild_rows=False, **probe),
+                      a_tile, a_pos)
+    if seg2_max:
+        b = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
+                                        pub_len, pd, t2_sel, t2_start,
+                                        seg_max=seg2_max, wild_rows=True,
+                                        **probe),
+                          b_tile, b_pos)
+    else:
+        dev = pub_words.device
+        b = (torch.zeros((B, k), dtype=torch.int32, device=dev),
+             torch.zeros((B, k), dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev))
+    return _flat_combine(real, k, C, g, a, b)
+
+
+def apply_delta_fused_nometa(dev_arrays, operands, slots, d_words, d_eff_len,
+                             d_has_hash, d_first_wild, d_active, *,
+                             id_bits: int) -> None:
+    """Scatter dirty table rows into the device-resident state IN PLACE
+    (``index_copy_``): the five base arrays and the coded operand columns
+    (``operands`` is None when the ids are too wide to code), the latter
+    rebuilt for the dirty rows only. ``slots`` is an int64 index tensor on
+    the same device; repeated slots carry identical rows. Callers must not
+    let a match read these tensors concurrently (the matcher copies first
+    while a match is in flight)."""
+    words, eff, hh, fw, act = dev_arrays
+    words.index_copy_(0, slots, d_words)
+    eff.index_copy_(0, slots, d_eff_len)
+    hh.index_copy_(0, slots, d_has_hash)
+    fw.index_copy_(0, slots, d_first_wild)
+    act.index_copy_(0, slots, d_active)
+    if operands is not None:
+        F_t, t1 = operands
+        F_d, t1_d = build_operands(d_words, d_eff_len, id_bits)
+        F_t.index_copy_(1, slots, F_d)
+        t1.index_copy_(0, slots, t1_d)

@@ -1,0 +1,163 @@
+"""Probe-window tile matcher: the port of ``vernemq_tpu/ops/pallas_match.py``.
+
+For each probe tile t — TP publishes against a window of ``seg_max``
+contiguous table rows starting at ``start[t]`` — it computes the coded
+mismatch ``G[TP, K] @ F_t[K, rows] + t1`` (0 exactly when every concrete
+level matches, see ``match_kernel.build_operands``), the length / ``$`` /
+liveness epilogue, the region-0 guard ``row >= glob_pad``, the probe split
+(probe A keeps concrete-first rows, probe B wildcard-first rows) and packs
+the boolean mask 32 rows to an int32 word: bit j of word w is window row
+32·w + j, layout ``[T, TP, seg_max/32]``.
+
+Two versions of the one function:
+
+- :func:`window_tiles_packed` launches the hand-written CUDA kernel
+  (``csrc/tile_match.cu``) for CUDA tensors, and raises on what it cannot
+  take; it never falls back.
+- :func:`window_tiles_packed_ref` is the plain PyTorch version. The wrapper
+  uses it for tensors on the CPU only; on the card it is what the kernel is
+  held against.
+
+``launches`` counts kernel launches (reset it to read one run's count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .match_kernel import _pack_mask, extract_indices_packed
+
+launches = 0
+
+ROWS_PER_BLOCK = 256  # one CUDA block: 8 warps of 32 consecutive rows
+MAX_K = 96            # 6 planes x 16 levels: the widest operand compiled
+
+
+def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
+                            seg_max: int, glob_pad: int,
+                            wild_rows: bool) -> torch.Tensor:
+    """Plain PyTorch version of the tile matcher (one tile at a time)."""
+    T = Gt.shape[0]
+    j = torch.arange(seg_max, device=F_t.device)
+    out = []
+    for t in range(T):
+        rows = int(start[t]) + j
+        mm = Gt[t].to(torch.float32) @ F_t[:, rows].to(torch.float32) \
+            + t1[rows]
+        fl = flags[rows]
+        hh, fw, act = (fl & 1) > 0, (fl & 2) > 0, (fl & 4) > 0
+        plen = plt[t][:, None]
+        len_ok = torch.where(hh, plen >= eff[rows], plen == eff[rows])
+        m = (mm == 0.0) & len_ok & ~((pdt[t][:, None] > 0) & fw) & act
+        m &= (rows >= glob_pad) & (fw if wild_rows else ~fw)
+        out.append(_pack_mask(m))
+    return torch.stack(out)
+
+
+def _check(name, x, dtype, shape, dev):
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+            or not x.is_contiguous():
+        raise ValueError(
+            f"tile_match: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {dev}; got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})")
+
+
+def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
+                        seg_max: int, glob_pad: int,
+                        wild_rows: bool) -> torch.Tensor:
+    """Run the tile matcher: ``int32 [T, TP, seg_max/32]`` packed mask.
+
+    Inputs: ``F_t`` bf16 [K, S], ``t1`` f32 [S], ``eff`` / ``flags`` int32
+    [S] (flags: bit 0 has_hash, bit 1 first_wild, bit 2 active), ``Gt``
+    bf16 [T, TP, K], ``plt`` / ``pdt`` int32 [T, TP], ``start`` int32 [T]
+    (window start rows). On CUDA every window must lie inside the table.
+    """
+    global launches
+    dev = F_t.device
+    if dev.type == "cpu":
+        return window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt,
+                                       start, seg_max=seg_max,
+                                       glob_pad=glob_pad, wild_rows=wild_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"tile_match: unsupported device {dev}")
+    K, S = F_t.shape
+    T, TP, _ = Gt.shape
+    _check("F_t", F_t, torch.bfloat16, (K, S), dev)
+    for name, x, dt in (("t1", t1, torch.float32), ("eff", eff, torch.int32),
+                        ("flags", flags, torch.int32)):
+        _check(name, x, dt, (S,), dev)
+    _check("Gt", Gt, torch.bfloat16, (T, TP, K), dev)
+    _check("plt", plt, torch.int32, (T, TP), dev)
+    _check("pdt", pdt, torch.int32, (T, TP), dev)
+    _check("start", start, torch.int32, (T,), dev)
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"tile_match: K={K} outside 1..{MAX_K}")
+    if seg_max <= 0 or seg_max % ROWS_PER_BLOCK or seg_max > S:
+        raise ValueError(f"tile_match: seg_max={seg_max} must be a positive "
+                         f"multiple of {ROWS_PER_BLOCK} no larger than S={S}")
+    s = start.cpu()
+    if int(s.min()) < 0 or int(s.max()) + seg_max > S:
+        raise ValueError(f"tile_match: window starts {s.tolist()} + "
+                         f"seg_max {seg_max} leave the table (S={S})")
+    out = torch.empty((T, TP, seg_max // 32), dtype=torch.int32, device=dev)
+    lib = _build.load("tile_match")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tile_match_launch(
+            F_t.data_ptr(), t1.data_ptr(), eff.data_ptr(), flags.data_ptr(),
+            Gt.data_ptr(), plt.data_ptr(), pdt.data_ptr(), start.data_ptr(),
+            out.data_ptr(), T, TP, K, S, seg_max, glob_pad, int(wild_rows),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"tile_match kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.tile_match_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+_build.register("tile_match", _bind)
+
+
+def row_flags(has_hash, first_wild, active) -> torch.Tensor:
+    """The kernel's per-row flag word: bit 0 has_hash, bit 1 first_wild,
+    bit 2 active (int32)."""
+    return (has_hash.to(torch.int32) | (first_wild.to(torch.int32) << 1)
+            | (active.to(torch.int32) << 2))
+
+
+def tile_operands(G_all, pub_len, pub_dollar, t_sel):
+    """The tile publishes' kernel operands, gathered by the ``[T, TP]``
+    selectors: ``(Gt [T, TP, K], plt [T, TP], pdt [T, TP])``."""
+    T, TP = t_sel.shape
+    sel = t_sel.reshape(-1).long()
+    return (G_all.index_select(0, sel).reshape(T, TP, -1),
+            pub_len.index_select(0, sel).reshape(T, TP),
+            pub_dollar.index_select(0, sel).reshape(T, TP))
+
+
+def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
+                 t_sel, t_start, *, k: int, seg_max: int, glob_pad: int,
+                 wild_rows: bool):
+    """One probe (A or B): gather the tile publishes' operands, run the
+    tile matcher, extract the first ``k`` matches of every tile row and
+    make them absolute slot ids. Returns
+    ``(tidx [T, TP, k], tvalid, tcount [T, TP])`` — the contract of the
+    reference's ``_probe_pallas`` / ``_window_tiles_sel``."""
+    T, TP = t_sel.shape
+    Gt, plt, pdt = tile_operands(G_all, pub_len, pub_dollar, t_sel)
+    packed = window_tiles_packed(F_t, t1, sub_eff_len, flags, Gt, plt, pdt,
+                                 t_start, seg_max=seg_max, glob_pad=glob_pad,
+                                 wild_rows=wild_rows)
+    idx, valid, cnt = extract_indices_packed(packed.reshape(T * TP, -1), k)
+    idx = idx.reshape(T, TP, k) + t_start[:, None, None]
+    return idx, valid.reshape(T, TP, k), cnt.reshape(T, TP)
