@@ -8,9 +8,11 @@ kernels are built for sm_90a). It
 1. prints the card's name and power limit and builds every kernel of the
    port from the sources in the checkout (``nvcc``);
 2. holds the tile-match kernel against its plain PyTorch version, bit for
-   bit, at the headline probe-A and probe-B shapes (K = 40) and at a
-   24-bit-id shape (K = 48), on operands that include ids at the byte-plane
-   edges;
+   bit, at the headline probe-A and probe-B shapes (K = 40), at a
+   24-bit-id shape (K = 48) on operands that include ids at the byte-plane
+   edges, at K = 96 with every id 2^24 - 1 or 65535 (the largest partial
+   sums its exactness argument allows), and with publishes longer than L
+   and ``$`` publishes against wildcard-first rows;
 3. drives the port's main path — ``GpuRegView.fold_batch`` over a
    1,000,000-subscription table (the bench.py headline corpus: 60% exact,
    20% ``w0/+/w2``, 10% ``+/w1/w2``, 10% ``w0/w1/#``; L = 8, max_fanout 256,
@@ -19,9 +21,12 @@ kernels are built for sm_90a). It
    publishes of every batch, that no publish fell back to the host, and
    that the tile kernel was launched on that path;
 4. adds and removes 1,000 subscriptions, syncs and checks parity again;
-5. times the kernel (CUDA events), its plain version, a batched fp32
-   ``torch.bmm`` of the same product (a yardstick the port never calls),
-   a whole batch and the host encode/prep, and prints them beside the card.
+5. times the kernel (CUDA events) per probe and per batch beside its bound
+   (achieved TFLOP/s, share of the bound), its plain version, a batched
+   fp32 ``torch.bmm`` of the same product (a yardstick the port never
+   calls), the device path and its profile, a whole batch and the host
+   encode/prep, and prints them beside the card and the ptxas register /
+   spill report of every kernel template the run launched.
 
 Its last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it. Without CUDA it exits non-zero at once.
@@ -46,12 +51,25 @@ PARITY_PUBS = 1024
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 DEVICE = "cuda"
-# kernel phase: (label, id bits, L, S, T, TP, seg_max, wild_rows) — the
-# headline geometry (1M subs, L=8, B=4096: S rows, K=40, probe A 24 x 256 x
-# 262144, probe B 24 x 256 x 32768) and a 24-bit-id shape (K=48)
-KERNEL_SHAPES = [("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, False),
-                 ("probe B K=40", 16, 8, 1_613_824, 24, 256, 32_768, True),
-                 ("24-bit K=48", 24, 8, 1 << 20, 8, 256, 65_536, False)]
+# the tile kernel's first version (fp32 FMAs on the CUDA cores), probe A + B
+# per batch, measured by this script's first version on one H100 80GB HBM3 at
+# 700 W; printed for reference beside this run's time, never as this run's
+EARLIER_MS = 7.32
+# kernel phase: (label, id bits, L, S, T, TP, seg_max, wild_rows, options of
+# synthetic_probe) — the headline geometry (1M subs, L=8, B=4096: S rows,
+# K=40, probe A 24 x 256 x 262144, probe B 24 x 256 x 32768), a 24-bit-id
+# shape (K=48), K=96 at the largest partial sums (every id 2^24-1 or 65535,
+# every level weighted), and publishes longer than L (and than the kernel's
+# key clamp of 31) with $ publishes on wildcard-first rows
+KERNEL_SHAPES = [
+    ("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, False, {}),
+    ("probe B K=40", 16, 8, 1_613_824, 24, 256, 32_768, True, {}),
+    ("24-bit K=48", 24, 8, 1 << 20, 8, 256, 65_536, False, {}),
+    ("K=96 max ids", 24, 16, 1 << 20, 8, 256, 65_536, False,
+     dict(vocab=[(1 << 24) - 1, 65535], eff_lo=15)),
+    ("plen>L $ wild", 16, 8, 1 << 20, 8, 256, 65_536, True,
+     dict(long_pubs=0.3)),
+]
 
 
 def build_corpus(rng: random.Random, n_subs: int, add):
@@ -147,32 +165,71 @@ def mask_diff(x, y) -> int:
 
 
 def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
-                    seg: int, seed: int):
-    """Random tile-matcher operands on the card: a corpus-like vocabulary
-    plus byte-plane edge ids, tile publishes copied from rows of their own
-    window (so many rows match), ~5% unknown publish words."""
+                    seg: int, seed: int, vocab=None, eff_lo: int = 1,
+                    long_pubs: float = 0.0):
+    """Random tile-matcher operands on the card and the host copy of the
+    window starts. By default a corpus-like vocabulary plus byte-plane edge
+    ids, 20% ``+`` levels, eff 1..3, tile publishes copied from rows of
+    their own window (so many rows match), ~5% unknown publish words and
+    random lengths 1..3. With ``vocab`` every id is drawn from it (no ``+``,
+    no unknown words), eff from ``eff_lo``..L, and half the publishes take
+    their source row's length; ``long_pubs`` of them get a length in
+    L+1..L+39."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    edges = np.array([0, 1, 2, 254, 255, 256, 65535, 65536], np.int32)
-    vocab = np.concatenate([rng.integers(3, 1 << bits, 380).astype(np.int32),
-                            edges])
+    if vocab is None:
+        edges = np.array([0, 1, 2, 254, 255, 256, 65535, 65536], np.int32)
+        vocab = np.concatenate(
+            [rng.integers(3, 1 << bits, 380).astype(np.int32), edges])
+        plus, unknown, eff_hi = 0.2, 0.05, 4
+    else:
+        vocab = np.asarray(vocab, np.int32)
+        plus, unknown, eff_hi = 0.0, 0.0, L + 1
     words = rng.choice(vocab, (S, L)).astype(np.int32)
-    words[rng.random((S, L)) < 0.2] = TK.PLUS_ID
-    eff = rng.integers(1, 4, S, dtype=np.int32)
+    words[rng.random((S, L)) < plus] = TK.PLUS_ID
+    eff = rng.integers(eff_lo, eff_hi, S, dtype=np.int32)
     flags = ((rng.random(S) < 0.1) * 1 | (rng.random(S) < 0.3) * 2
              | (rng.random(S) < 0.95) * 4).astype(np.int32)
     start = rng.integers(0, S - seg + 1, T).astype(np.int32)
-    pw = words[(start[:, None] + rng.integers(0, seg, (T, TP)))]
+    src = start[:, None] + rng.integers(0, seg, (T, TP))
+    pw = words[src]
     pw[pw == TK.PLUS_ID] = vocab[0]
-    pw[rng.random(pw.shape) < 0.05] = -2  # UNKNOWN_ID
+    pw[rng.random(pw.shape) < unknown] = -2  # UNKNOWN_ID
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
     F_t, t1 = TK.build_operands(cuda(words), cuda(eff), bits)
     Gt = TK.build_pub_operand(cuda(pw.reshape(T * TP, L)), bits) \
         .reshape(T, TP, -1).contiguous()
-    plt = cuda(rng.integers(1, 4, (T, TP)).astype(np.int32))
+    plt = rng.integers(1, 4, (T, TP)).astype(np.int32)
+    if eff_lo > 1 or long_pubs:
+        plt = np.where(rng.random((T, TP)) < 0.5, eff[src], plt)
+        long = rng.random((T, TP)) < long_pubs
+        plt[long] = rng.integers(L + 1, L + 40, int(long.sum()))
     pdt = cuda((rng.random((T, TP)) < 0.1).astype(np.int32))
-    return (F_t, t1, cuda(eff), cuda(flags), Gt, plt, pdt, cuda(start))
+    return (F_t, t1, cuda(eff), cuda(flags), Gt, cuda(plt.astype(np.int32)),
+            pdt, cuda(start)), start
+
+
+def ptxas_report(text: str):
+    """{KP: (registers, spill-store bytes, spill-load bytes)} of every
+    tile_match_kernel<KP> in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, kp, spill = {}, None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"tile_match_kernelILi(\d+)E", ln)
+        if m and "Compiling entry function" in ln:
+            kp, spill = int(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and kp is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kp is not None:
+            out[kp] = (int(m.group(1)), *spill)
+            kp = None
+    return out
 
 
 def probe_bound(inputs, seg: int):
@@ -194,11 +251,13 @@ def probe_bound(inputs, seg: int):
     return nbytes, 2.0 * T * TP * seg * K
 
 
-def profile_device_path(torch, fn, card: str, reps: int = 3) -> None:
+def profile_device_path(torch, fn, card: str, path_ms: float,
+                        reps: int = 3) -> None:
     """Where the device path's time goes: torch.profiler over ``reps``
-    batches — the device-busy share of the window (kernel time over wall
-    time), the top operators by the device time of their kernels (with
-    input shapes), and the hand kernel's own rows."""
+    batches — the device-busy share (kernel time over the profiled window's
+    wall time, and over ``path_ms``, the path's time per batch measured
+    with CUDA events and no profiler), the top operators by the device time
+    of their kernels (with input shapes), and the hand kernel's own rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,7 +275,9 @@ def profile_device_path(torch, fn, card: str, reps: int = 3) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"[profile] {card} | device path x{reps}: wall {wall_ms:.2f} ms, "
           f"kernels {busy_ms:.2f} ms (device busy "
-          f"{100 * busy_ms / wall_ms:.1f}%)")
+          f"{100 * busy_ms / wall_ms:.1f}% of the profiled wall, "
+          f"{100 * busy_ms / reps / path_ms:.1f}% of the unprofiled "
+          f"{path_ms:.2f} ms per batch)")
     ops = [e for e in avg if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
@@ -249,30 +310,39 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    _build.build(["tile_match"])
-    print(f"[build] tile_match built in {time.perf_counter() - t0:.1f}s "
+    built = _build.build(["tile_match"])
+    print(f"[build] tile_match {'built' if built else 'up to date'} in "
+          f"{time.perf_counter() - t0:.1f}s "
           f"({_build.lib_path('tile_match')})", flush=True)
-    log = _build.log_path("tile_match")
-    if log.exists():
-        for ln in log.read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"[build] {ln.strip()}")
+    # registers and spills only from a compile of this run: an older log
+    # need not describe the library that is loaded
+    ptxas = ptxas_report(_build.log_path("tile_match").read_text()) \
+        if built else {}
 
     # ------------------------------------------------------- kernel phase
     kernel_err = 0
-    for i, (name, bits, L, S, T, TP, seg, wild) in enumerate(KERNEL_SHAPES):
-        x = synthetic_probe(torch, TK, bits, L, S, T, TP, seg, SEED + i)
+    launched_kp = set()  # compiled widths KP the run launched
+    for i, (name, bits, L, S, T, TP, seg, wild, opts) in \
+            enumerate(KERNEL_SHAPES):
+        x, start_host = synthetic_probe(torch, TK, bits, L, S, T, TP, seg,
+                                        SEED + i, **opts)
         kw = dict(seg_max=seg, glob_pad=2048, wild_rows=wild)
-        got = TM.window_tiles_packed(*x, **kw)
+        got = TM.window_tiles_packed(*x, **kw, start_host=start_host)
         want = TM.window_tiles_packed_ref(*x, **kw)
         torch.cuda.synchronize()
         err = mask_diff(got, want)
-        ones = int(TK._popcount(want).sum())
+        hits = TK._popcount(want).sum(dim=2)
+        ones = int(hits.sum())
+        long_hits = int(hits[x[5] > L].sum())
+        launched_kp.add(TM.padded_k(x[0].shape[0]))
         print(f"[kernel] {name}: T={T} TP={TP} seg={seg} K={x[0].shape[0]} "
-              f"set bits {ones} max_abs_err {err}", flush=True)
+              f"set bits {ones} (publishes longer than L: {long_hits}) "
+              f"max_abs_err {err}", flush=True)
         if err or not ones:
             fail(f"kernel disagrees with its plain version at {name}"
                  if err else f"no matches at {name}: comparison is vacuous")
+        if opts.get("long_pubs") and not long_hits:
+            fail(f"no match of a publish longer than L at {name}")
         kernel_err = max(kernel_err, err)
         del x, got, want
     torch.cuda.empty_cache()
@@ -366,6 +436,7 @@ def main() -> int:
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
     G_all = TK.build_pub_operand(cuda(args[0]), statics["id_bits"])
     pl, pd = cuda(args[1]), cuda(args[2]).to(torch.int32)
+    launched_kp.add(TM.padded_k(F_t.shape[0]))
     probes = []
     for name, sel, start, seg, wild in (
             ("A", args[4], args[5], statics["seg_max"], False),
@@ -375,14 +446,15 @@ def main() -> int:
         inputs = (F_t, t1d, eff, flags,
                   *TM.tile_operands(G_all, pl, pd, cuda(sel)), cuda(start))
         kw = dict(seg_max=seg, glob_pad=statics["glob_pad"], wild_rows=wild)
-        got = TM.window_tiles_packed(*inputs, **kw)
+        got = TM.window_tiles_packed(*inputs, **kw, start_host=start)
         want = TM.window_tiles_packed_ref(*inputs, **kw)
         torch.cuda.synchronize()
         if mask_diff(got, want):
             fail(f"kernel disagrees with its plain version on path probe "
                  f"{name}")
-        kernel_ms = event_ms(lambda: TM.window_tiles_packed(*inputs, **kw),
-                             20)
+        del got, want
+        kernel_ms = event_ms(lambda: TM.window_tiles_packed(
+            *inputs, **kw, start_host=start), 20)
         plain_ms = event_ms(
             lambda: TM.window_tiles_packed_ref(*inputs, **kw), 3)
         Gt = inputs[4].to(torch.float32)
@@ -392,23 +464,46 @@ def main() -> int:
         bmm_ms = event_ms(lambda: torch.bmm(Gt, Fw), 10)
         del Fw, rows
         nbytes, flop = probe_bound(inputs, seg)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S) * 1e3
         probes.append(dict(name=name, T=int(sel.shape[0]), seg=seg,
                            kernel_ms=kernel_ms, plain_ms=plain_ms,
-                           bmm_ms=bmm_ms, bytes=nbytes, flop=flop))
+                           bmm_ms=bmm_ms, bytes=nbytes, flop=flop,
+                           bound_ms=bound_ms))
         print(f"[time] {card} | probe {name} T={sel.shape[0]} "
-              f"TP={sel.shape[1]} seg={seg}: kernel {kernel_ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, fp32 bmm yardstick {bmm_ms:.3f} ms, "
-              f"bound {max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S) * 1e3:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP)", flush=True)
-    host = [cuda(a) for a in args[:3]] + [int(args[3])] \
-        + [cuda(a) for a in args[4:]]
+              f"TP={sel.shape[1]} seg={seg}: kernel {kernel_ms:.4f} ms "
+              f"({flop / kernel_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound_ms / kernel_ms:.1f}% of its bound "
+              f"{bound_ms:.4f} ms: {nbytes / 1e6:.1f} MB, "
+              f"{flop / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, fp32 bmm "
+              f"yardstick {bmm_ms:.3f} ms", flush=True)
+    k_ms = sum(p["kernel_ms"] for p in probes)
+    k_flop = sum(p["flop"] for p in probes)
+    nbytes = sum(p["bytes"] for p in probes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, k_flop / BF16_FLOP_PER_S
+    batch_bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"[time] {card} | tile kernel per batch (probes A + B): "
+          f"{k_ms:.4f} ms ({k_flop / k_ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * batch_bound_ms / k_ms:.1f}% of its bound "
+          f"{batch_bound_ms:.4f} ms), fp32 bmm yardstick "
+          f"{sum(p['bmm_ms'] for p in probes):.3f} ms (the CUDA-core "
+          f"kernel of the first slice, not timed here: {EARLIER_MS} ms)",
+          flush=True)
+    for kp in sorted(launched_kp):
+        regs, st_b, ld_b = ptxas.get(kp, (None, None, None))
+        print(f"[build] ptxas tile_match_kernel<KP={kp}> (launched): "
+              f"{regs} registers, {st_b} bytes spill stores, {ld_b} bytes "
+              f"spill loads", flush=True)
+    # the window starts (args[5], args[7]) stay on the host
+    host = [cuda(a) for a in args[:3]] + [int(args[3]), cuda(args[4]),
+                                          args[5], cuda(args[6]), args[7]] \
+        + [cuda(a) for a in args[8:]]
     flat_ms = event_ms(lambda: TK.match_extract_windowed_flat(
         F_t, t1d, eff, hh, fw, act, *host, **statics), 5)
     print(f"[time] {card} | device path per batch (dense region 0, both "
           f"probes, extraction, flat compaction): {flat_ms:.2f} ms",
           flush=True)
     profile_device_path(torch, lambda: TK.match_extract_windowed_flat(
-        F_t, t1d, eff, hh, fw, act, *host, **statics), card)
+        F_t, t1d, eff, hh, fw, act, *host, **statics), card, flat_ms)
     lat_s = sorted(lat)
     p50 = float(np.percentile(lat_s, 50))
     p99 = float(np.percentile(lat_s, 99))
@@ -418,9 +513,6 @@ def main() -> int:
     print(f"[time] {card} | host encode + window prep per batch: "
           f"{prep_ms:.2f} ms", flush=True)
 
-    nbytes = sum(p["bytes"] for p in probes)
-    flop = sum(p["flop"] for p in probes)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
     kernels = [{
         "name": "tile_match",
         "route": "cuda",
@@ -428,13 +520,19 @@ def main() -> int:
         "replaces": "vernemq_tpu/ops/pallas_match.py:117",
         "launches": path_launches,
         "max_abs_err": kernel_err,
-        "ms": sum(p["kernel_ms"] for p in probes),
+        "ms": k_ms,
         "plain_ms": sum(p["plain_ms"] for p in probes),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_ms": batch_bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "bmm_yardstick_ms": sum(p["bmm_ms"] for p in probes),
         "bit_equal": kernel_err == 0,
+        "design": "mma.sync",
+        "tflops": k_flop / k_ms / 1e9,
+        "per_probe": {p["name"]: {k: p[k] for k in (
+            "kernel_ms", "bound_ms", "plain_ms", "bmm_ms")} for p in probes},
+        "ptxas": {str(kp): ptxas.get(kp) for kp in sorted(launched_kp)}
+        if built else None,
         "per_batch": f"probe A + probe B launches of one {BATCH}-publish batch",
     }]
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)

@@ -49,6 +49,18 @@ def tile_inputs(seed, bits, L=4, T=3, TP=16, seg=4096, S=12288):
                 glob_pad=2048)
 
 
+def _pallas_words(x, wild_rows):
+    """The Pallas kernel's packed mask (interpret mode) as the port's int32
+    words."""
+    p16 = P.window_tiles_packed(
+        x["F_t"], x["t1"][None], x["eff"][None], x["flags"][None], x["Gt"],
+        x["plt"][..., None], x["pdt"][..., None], x["start"] // P.SEG_BLK,
+        seg_max=x["seg_max"], glob_pad=x["glob_pad"], wild_rows=wild_rows,
+        interpret=True)
+    p = np.asarray(p16).astype(np.uint32)
+    return (p[..., 0::2] | (p[..., 1::2] << 16)).view(np.int32)
+
+
 @pytest.mark.parametrize("wild_rows,bits", [(False, 16), (True, 16),
                                             (False, 24)])
 def test_ref_matches_pallas_kernel(wild_rows, bits):
@@ -57,12 +69,7 @@ def test_ref_matches_pallas_kernel(wild_rows, bits):
     (its 16-bit words joined into the 32-bit words of the port)."""
     x = tile_inputs(1 + bits + wild_rows, bits)
     seg, gp = x["seg_max"], x["glob_pad"]
-    p16 = P.window_tiles_packed(
-        x["F_t"], x["t1"][None], x["eff"][None], x["flags"][None], x["Gt"],
-        x["plt"][..., None], x["pdt"][..., None], x["start"] // P.SEG_BLK,
-        seg_max=seg, glob_pad=gp, wild_rows=wild_rows, interpret=True)
-    p = np.asarray(p16).astype(np.uint32)
-    want = (p[..., 0::2] | (p[..., 1::2] << 16)).view(np.int32)
+    want = _pallas_words(x, wild_rows)
     got = TM.window_tiles_packed_ref(
         *(t(x[k]) for k in ("F_t", "t1", "eff", "flags", "Gt", "plt", "pdt",
                             "start")),
@@ -72,19 +79,65 @@ def test_ref_matches_pallas_kernel(wild_rows, bits):
     assert np.unpackbits(want.view(np.uint8)).sum() > 50  # not vacuous
 
 
+@pytest.mark.parametrize("wild_rows", [False, True])
+def test_kernel_epilogue_masks_match_pallas_kernel(wild_rows):
+    """The CUDA kernel's operands and epilogue in plain form — t1 - 1 rides
+    in three extra bf16 F rows against G = 1, and a verdict is (product <
+    0) & bit pub_keys[p] of row_masks[r] — equal the Pallas kernel, with
+    publishes longer than L and than the key clamp among them."""
+    x = tile_inputs(31 + wild_rows, 16)
+    x["plt"][:, :6] = [0, 4, 5, 31, 32, 40]  # L = 4
+    want = _pallas_words(x, wild_rows)
+    cols = TM.t1_columns(t(x["t1"]))
+    assert torch.equal(cols.to(torch.bfloat16).to(torch.float32), cols)
+    F = torch.cat([t(x["F_t"]).to(torch.float32), cols])
+    eff, flags = t(x["eff"]), t(x["flags"])
+    seg = x["seg_max"]
+    words = []
+    for i in range(len(x["start"])):
+        rows = int(x["start"][i]) + torch.arange(seg)
+        G = t(x["Gt"][i]).to(torch.float32)
+        G = torch.cat([G, torch.ones(G.shape[0], TM.T1_COLS)], dim=1)
+        mm = G @ F[:, rows]
+        masks = TM.row_masks(eff, flags, rows, glob_pad=x["glob_pad"],
+                             wild_rows=wild_rows)
+        keys = TM.pub_keys(t(x["plt"][i]), t(x["pdt"][i]))
+        bit = (masks[None, :] >> keys.clamp(max=63)[:, None]) & 1
+        words.append(TK._pack_mask((mm < 0) & (bit > 0)
+                                   & (keys[:, None] < 64)))
+    np.testing.assert_array_equal(n(torch.stack(words)), want)
+    assert np.unpackbits(want[:, :6].view(np.uint8)).sum() > 0
+
+
 def test_wrapper_runs_plain_version_on_cpu_only():
     x = {k: (t(v) if isinstance(v, np.ndarray) else v)
          for k, v in tile_inputs(9, 16).items()}
     kw = dict(seg_max=x.pop("seg_max"), glob_pad=x.pop("glob_pad"),
               wild_rows=False)
+    start = n(x["start"])
     before = TM.launches
-    got = TM.window_tiles_packed(*x.values(), **kw)
+    got = TM.window_tiles_packed(*x.values(), **kw, start_host=start)
     assert TM.launches == before  # no kernel launch for CPU tensors
     np.testing.assert_array_equal(
         n(got), n(TM.window_tiles_packed_ref(*x.values(), **kw)))
     meta = [v.to("meta") for v in x.values()]
     with pytest.raises(ValueError, match="unsupported device"):
-        TM.window_tiles_packed(*meta, **kw)
+        TM.window_tiles_packed(*meta, **kw, start_host=start)
+
+
+@pytest.mark.parametrize("bad", ["past-the-end", "wrong-T"])
+def test_wrapper_checks_window_bounds_on_host_starts(bad):
+    """The window bounds are checked on the host starts, before any device
+    work: a window past the table's end, or a start array that is not one
+    start per tile, raises."""
+    x = {k: (t(v) if isinstance(v, np.ndarray) else v)
+         for k, v in tile_inputs(9, 16).items()}
+    kw = dict(seg_max=x.pop("seg_max"), glob_pad=x.pop("glob_pad"),
+              wild_rows=False)
+    start = n(x["start"])
+    start = start + 2048 if bad == "past-the-end" else start[:2]
+    with pytest.raises(ValueError, match="leave the table"):
+        TM.window_tiles_packed(*x.values(), **kw, start_host=start)
 
 
 def test_flat_path_matches_pallas_path():

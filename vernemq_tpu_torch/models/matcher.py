@@ -478,8 +478,11 @@ class GpuMatcher:
             reg_start, reg_end, glob_pad, bits, S, pw, pl, pd, pb, gb, n)
         dev = self.device
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        host = [put(a) for a in args[:3]] + [int(args[3])] \
-            + [put(a) for a in args[4:]]
+        # the window starts (args[5], args[7]) stay on the host, where the
+        # tile matcher checks their bounds without a device→host copy
+        host = [put(a) for a in args[:3]] + [int(args[3]), put(args[4]),
+                                            args[5], put(args[6]), args[7]] \
+            + [put(a) for a in args[8:]]
         flat, pre, total, overflow = K.match_extract_windowed_flat(
             F_t, t1, *dev_arrays[1:], *host, **statics)
         C, B = flat.shape[0], pre.shape[0]

@@ -15,7 +15,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -55,8 +55,10 @@ def _stale(name: str) -> bool:
     return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile the stale ones of ``names`` in parallel; raise on failure."""
+def build(names: Iterable[str]) -> List[str]:
+    """Compile the stale ones of ``names`` in parallel; raise on failure.
+    Returns the names compiled by this call (their :func:`log_path` holds
+    this build's compiler output)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
@@ -77,6 +79,7 @@ def build(names: Iterable[str]) -> None:
         os.replace(tmp, lib_path(name))  # atomic: no half-written library
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return [name for name, _, _ in procs]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -265,6 +265,9 @@ def match_extract_windowed_flat(
     bool)``; publish i's matched slot ids are ``flat[pre[i]:pre[i] +
     total[i]]`` unless ``overflow[i]`` (flat capacity exhausted or a part
     clipped at k: the caller matches that publish on the host).
+    The window starts ``t_start`` / ``t2_start`` stay on the host (numpy or
+    CPU tensors): the tile matcher checks its window bounds there, so
+    nothing here copies device→host.
     """
     from .tile_match import _probe_tiles, row_flags
 
@@ -279,7 +282,8 @@ def match_extract_windowed_flat(
     probe = dict(k=k, glob_pad=glob_pad)
     a = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
                                     pub_len, pd, t_sel, t_start,
-                                    seg_max=seg_max, wild_rows=False, **probe),
+                                    seg_max=seg_max, wild_rows=False,
+                                    **probe),
                       a_tile, a_pos)
     if seg2_max:
         b = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,

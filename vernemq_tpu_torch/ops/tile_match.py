@@ -18,13 +18,17 @@ Two versions of the one function:
   uses it for tensors on the CPU only; on the card it is what the kernel is
   held against.
 
-``launches`` counts kernel launches (reset it to read one run's count).
+The window bounds are checked on the host copy of the starts
+(``start_host``, the array the caller made ``start`` from), so a launch on
+the card costs no device→host copy. ``launches`` counts kernel launches (reset it to
+read one run's count).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -32,8 +36,17 @@ from .match_kernel import _pack_mask, extract_indices_packed
 
 launches = 0
 
-ROWS_PER_BLOCK = 256  # one CUDA block: 8 warps of 32 consecutive rows
-MAX_K = 96            # 6 planes x 16 levels: the widest operand compiled
+ROW_CHUNK = 256  # window rows per kernel chunk: 8 warps of 32 rows
+PUB_TILE = 16    # publishes per tensor-core tile (the mma's M)
+MAX_K = 96       # 6 planes x 16 levels: the widest operand compiled
+KEY_CLAMP = 31   # publish lengths clamp here in the kernel's row masks
+T1_COLS = 3      # K columns in which the kernel carries t1 - 1
+
+
+def padded_k(K: int) -> int:
+    """The kernel's compiled width for operands of width ``K``: ``K`` plus
+    the t1 columns, rounded up to the tensor-core k-step of 16."""
+    return (K + T1_COLS + 15) // 16 * 16
 
 
 def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
@@ -57,6 +70,42 @@ def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     return torch.stack(out)
 
 
+def row_masks(eff, flags, rows, *, glob_pad: int,
+              wild_rows: bool) -> torch.Tensor:
+    """The kernel's per-row epilogue as one int64 mask per row: bit
+    ``key`` (see :func:`pub_keys`) is set iff a publish of that key may
+    match the row — the length rule, the ``$`` rule (bits 32..63 are the
+    ``$`` publishes'), liveness, the region-0 guard and the probe split.
+    Exact for ``eff <= KEY_CLAMP - 1`` (the table's eff is at most L)."""
+    e = eff[rows].to(torch.int64)
+    fl = flags[rows]
+    hh, fw, act = (fl & 1) > 0, (fl & 2) > 0, (fl & 4) > 0
+    b = torch.arange(KEY_CLAMP + 1, dtype=torch.int64, device=eff.device)
+    ok = torch.where(hh[:, None], b[None, :] >= e[:, None],
+                     b[None, :] == e[:, None])
+    lo = (ok.to(torch.int64) << b).sum(dim=1)
+    row_ok = act & (rows >= glob_pad) & (fw if wild_rows else ~fw)
+    return torch.where(row_ok, lo | torch.where(fw, 0, lo << 32), 0)
+
+
+def t1_columns(t1) -> torch.Tensor:
+    """The kernel's extra F rows (``float32 [3, S]``, each entry
+    bf16-exact): ``t1 - 1`` in base-256 pieces ``(t & 255) - 1``,
+    ``t & 0xff00`` and ``t & ~0xffff`` of the integer ``t = t1``. Against
+    ``G = 1`` they add ``t1 - 1`` to the product, so a pair's result is
+    ``mismatch - 1``: negative exactly when the mismatch is 0."""
+    t = t1.to(torch.int64)
+    return torch.stack([(t & 255) - 1, t & 0xff00, t & ~0xffff]) \
+        .to(torch.float32)
+
+
+def pub_keys(plt, pdt) -> torch.Tensor:
+    """Each publish's bit in :func:`row_masks`: ``min(plen, KEY_CLAMP) +
+    32·(pd > 0)``, or 64 (no bit: never matches) for a negative length."""
+    k = plt.to(torch.int64).clamp(max=KEY_CLAMP) + 32 * (pdt > 0)
+    return torch.where(plt < 0, 64, k)
+
+
 def _check(name, x, dtype, shape, dev):
     if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
@@ -64,27 +113,39 @@ def _check(name, x, dtype, shape, dev):
             f"tile_match: {name} must be a contiguous {dtype} tensor of "
             f"shape {shape} on {dev}; got {x.dtype} {tuple(x.shape)} on "
             f"{x.device} (contiguous={x.is_contiguous()})")
+    if x.data_ptr() % 16:
+        raise ValueError(f"tile_match: {name} must start on a 16-byte "
+                         f"boundary (cp.async copies 16-byte pieces)")
 
 
 def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
-                        seg_max: int, glob_pad: int,
-                        wild_rows: bool) -> torch.Tensor:
+                        seg_max: int, glob_pad: int, wild_rows: bool,
+                        start_host) -> torch.Tensor:
     """Run the tile matcher: ``int32 [T, TP, seg_max/32]`` packed mask.
 
     Inputs: ``F_t`` bf16 [K, S], ``t1`` f32 [S], ``eff`` / ``flags`` int32
     [S] (flags: bit 0 has_hash, bit 1 first_wild, bit 2 active), ``Gt``
     bf16 [T, TP, K], ``plt`` / ``pdt`` int32 [T, TP], ``start`` int32 [T]
-    (window start rows). On CUDA every window must lie inside the table.
+    (window start rows, any row) and ``start_host``, its host copy (numpy
+    or a CPU tensor), on which every window is checked to lie inside the
+    table. On CUDA the kernel also needs ``S % 8 == 0``, ``TP % 16 == 0``
+    and ``seg_max % 256 == 0``.
     """
     global launches
     dev = F_t.device
+    S = F_t.shape[1]
+    s = np.asarray(start_host).reshape(-1)
+    if s.shape != (Gt.shape[0],) or (
+            s.size and (int(s.min()) < 0 or int(s.max()) + seg_max > S)):
+        raise ValueError(f"tile_match: window starts {s.tolist()} + "
+                         f"seg_max {seg_max} leave the table (S={S})")
     if dev.type == "cpu":
         return window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt,
                                        start, seg_max=seg_max,
                                        glob_pad=glob_pad, wild_rows=wild_rows)
     if dev.type != "cuda":
         raise ValueError(f"tile_match: unsupported device {dev}")
-    K, S = F_t.shape
+    K = F_t.shape[0]
     T, TP, _ = Gt.shape
     _check("F_t", F_t, torch.bfloat16, (K, S), dev)
     for name, x, dt in (("t1", t1, torch.float32), ("eff", eff, torch.int32),
@@ -96,13 +157,15 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     _check("start", start, torch.int32, (T,), dev)
     if not 0 < K <= MAX_K:
         raise ValueError(f"tile_match: K={K} outside 1..{MAX_K}")
-    if seg_max <= 0 or seg_max % ROWS_PER_BLOCK or seg_max > S:
+    if seg_max <= 0 or seg_max % ROW_CHUNK or seg_max > S:
         raise ValueError(f"tile_match: seg_max={seg_max} must be a positive "
-                         f"multiple of {ROWS_PER_BLOCK} no larger than S={S}")
-    s = start.cpu()
-    if int(s.min()) < 0 or int(s.max()) + seg_max > S:
-        raise ValueError(f"tile_match: window starts {s.tolist()} + "
-                         f"seg_max {seg_max} leave the table (S={S})")
+                         f"multiple of {ROW_CHUNK} no larger than S={S}")
+    if S % 8:
+        raise ValueError(f"tile_match: S={S} must be a multiple of 8 (F_t "
+                         f"rows are copied in 16-byte pieces)")
+    if TP % PUB_TILE:
+        raise ValueError(f"tile_match: TP={TP} must be a multiple of "
+                         f"{PUB_TILE} (the tensor-core tile)")
     out = torch.empty((T, TP, seg_max // 32), dtype=torch.int32, device=dev)
     lib = _build.load("tile_match")
     with torch.cuda.device(dev):
@@ -146,18 +209,22 @@ def tile_operands(G_all, pub_len, pub_dollar, t_sel):
 
 
 def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
-                 t_sel, t_start, *, k: int, seg_max: int, glob_pad: int,
+                 t_sel, start_host, *, k: int, seg_max: int, glob_pad: int,
                  wild_rows: bool):
     """One probe (A or B): gather the tile publishes' operands, run the
     tile matcher, extract the first ``k`` matches of every tile row and
-    make them absolute slot ids. Returns
+    make them absolute slot ids. ``start_host`` holds the window starts on
+    the host (numpy or a CPU tensor): the bounds are checked there and the
+    copy to the card does not wait for it. Returns
     ``(tidx [T, TP, k], tvalid, tcount [T, TP])`` — the contract of the
     reference's ``_probe_pallas`` / ``_window_tiles_sel``."""
     T, TP = t_sel.shape
+    t_start = torch.as_tensor(np.asarray(start_host, np.int32)).to(
+        F_t.device, non_blocking=True)
     Gt, plt, pdt = tile_operands(G_all, pub_len, pub_dollar, t_sel)
     packed = window_tiles_packed(F_t, t1, sub_eff_len, flags, Gt, plt, pdt,
                                  t_start, seg_max=seg_max, glob_pad=glob_pad,
-                                 wild_rows=wild_rows)
+                                 wild_rows=wild_rows, start_host=start_host)
     idx, valid, cnt = extract_indices_packed(packed.reshape(T * TP, -1), k)
     idx = idx.reshape(T, TP, k) + t_start[:, None, None]
     return idx, valid.reshape(T, TP, k), cnt.reshape(T, TP)
