@@ -26,7 +26,35 @@ kernels are built for sm_90a). It
    fp32 ``torch.bmm`` of the same product (a yardstick the port never
    calls), the device path and its profile, a whole batch and the host
    encode/prep, and prints them beside the card and the ptxas register /
-   spill report of every kernel template the run launched.
+   spill report of every kernel template the run launched;
+6. serves publish bursts through the serving layer's entry point, a
+   ``BatchCollector`` over the same view (200 µs window, windows of 4096,
+   super-batches of up to 8, host threshold 8, 500 ms lock bound): 4
+   rounds of 9 windows submitted at once, the first one included, with no
+   warm-up — two windows fill the two pipeline slots and the other seven
+   leave as one super-batch — with exact trie parity on 1024 publishes of
+   every window, release in submission order, every host-served counter at
+   0, and publishes/s, per-publish latency p50/p99, the dispatch EWMA, the
+   windows per super-batch and the ``stage_device_dispatch_ms`` histogram
+   printed;
+7. churn: 2 more rounds through a collector with the same 500 ms lock
+   bound while subscriptions are added and removed through ``on_delta``
+   on the event loop, so deltas reach the device between and during the
+   flushes: every host-served counter, ``busy_host_pubs`` first, at 0;
+8. holds ``match_many``'s ``[K, C + 3B]`` result for K = 8 windows of one
+   snapshot against K single dispatches element for element, and times
+   both (CUDA events) and ``fold_many`` against K ``fold_batch`` calls;
+9. breaker drill: a fault plan fails ``device.dispatch`` as often as the
+   breaker's threshold; the collector's flushes go to the trie with exact
+   parity and the breaker opens; with the plan cleared, one half-open
+   probe past the (short) backoff closes it and the kernel runs again;
+10. background-rebuild drill, on a second view of 100,000 subscriptions
+   (``initial_capacity`` 2^17), through a collector with the 500 ms lock
+   bound: subscriptions added through ``on_delta`` while the collector
+   submits grow the table past its capacity; flushes shed
+   ``RebuildInProgress`` to the trie with exact parity while the worker
+   thread builds on the card, after the install the device serves again,
+   and the ``stage_rebuild_ms`` histogram is printed.
 
 Its last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it. Without CUDA it exits non-zero at once.
@@ -47,6 +75,21 @@ BATCH = 4096
 BATCHES = 16
 DELTA = 1000
 PARITY_PUBS = 1024
+# serving phases: collector rounds of BURST_WINDOWS windows each (2 fill the
+# pipeline slots, the other 7 ride one super-batch of up to SUPER_K)
+SUPER_K = 8
+BURST_WINDOWS = 9
+BURST_ROUNDS = 4
+# churn phase: rounds, and subscriptions added (and, past CHURN_LIVE live
+# ones, removed) per step of the churn task on the event loop
+CHURN_ROUNDS = 2
+CHURN_STEP = 100
+CHURN_LIVE = 2000
+MANY_K = 8
+# drills: breaker backoff (s) and the smaller view of the rebuild drill
+DRILL_BACKOFF = 0.05
+DRILL_SUBS = 100_000
+DRILL_CAP = 1 << 17
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -287,6 +330,442 @@ def profile_device_path(torch, fn, card: str, path_ms: float,
               f"per batch  x{e.count // reps:<3d} {e.key[:44]} {shapes}")
 
 
+#: counters of the collector and the matcher that count publishes served by
+#: the host instead of the device: all 0 outside the drills
+COLLECTOR_HOST = ("degraded_host_pubs", "busy_host_pubs", "rebuild_host_pubs",
+                  "overload_host_pubs", "expired_host_pubs",
+                  "stalled_host_pubs", "host_hybrid_pubs")
+MATCHER_HOST = ("host_fallbacks", "degraded_sheds", "device_failures")
+
+
+def host_served(col, m, base=None):
+    """The host-served counters of a collector and a matcher (the matcher's
+    as deltas from ``base``)."""
+    out = {k: getattr(col, k) for k in COLLECTOR_HOST}
+    for k in MATCHER_HOST:
+        out[k] = getattr(m, k) - (base or {}).get(k, 0)
+    return out
+
+
+def settle_sync(m) -> int:
+    """Finish any pending table sync, waiting out a background rebuild;
+    returns how many rebuilds ran in the background."""
+    from vernemq_tpu_torch.models.matcher import RebuildInProgress
+
+    before = m.rebuilds_async
+    while True:
+        with m.lock:
+            try:
+                m.sync()
+                return m.rebuilds_async - before
+            except RebuildInProgress:
+                th = m._rebuild_thread
+        if th is not None:
+            th.join()
+
+
+def check_rows(trie, topics, rows, label: str) -> None:
+    """Exact (filter, key) equality with the trie on 1024 publishes of
+    every window of ``topics``."""
+    for w in range(0, len(topics), BATCH):
+        for i in range(w, min(w + PARITY_PUBS, len(topics))):
+            want = trie.match(list(topics[i]))
+            if sorted((f, str(k)) for f, k, _ in rows[i]) != \
+                    sorted((f, str(k)) for f, k, _ in want):
+                fail(f"{label}: topic {topics[i]} got {len(rows[i])} rows, "
+                     f"trie {len(want)}")
+
+
+async def serve(col, topics):
+    """Submit every topic at once and await them all. Returns (rows,
+    release order, per-publish latency ms from submit to result, wall s,
+    seconds spent in the submit loop)."""
+    import asyncio
+
+    n = len(topics)
+    order, sub_t, done_t = [], [0.0] * n, [0.0] * n
+
+    def done(_f, i):
+        order.append(i)
+        done_t[i] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    futs = []
+    for i, tp in enumerate(topics):
+        f = col.submit("", tp)
+        sub_t[i] = time.perf_counter()
+        f.add_done_callback(lambda f, i=i: done(f, i))
+        futs.append(f)
+    submit_s = time.perf_counter() - t0
+    rows = await asyncio.gather(*futs)
+    wall = time.perf_counter() - t0
+    return (rows, order, [(d - s) * 1e3 for s, d in zip(sub_t, done_t)],
+            wall, submit_s)
+
+
+def collector_kw() -> dict:
+    return dict(window_us=200, max_batch=BATCH, super_batch_k=SUPER_K,
+                host_threshold=8, lock_busy_shed_ms=500)
+
+
+def phase_burst(view, m, trie, rng, pools, card: str) -> int:
+    """Collector bursts at the headline width; returns the tile launches of
+    the measured rounds."""
+    import asyncio
+
+    import numpy as np
+
+    from vernemq_tpu_torch.models.matcher import BatchCollector
+    from vernemq_tpu_torch.observability import histogram as hist
+    from vernemq_tpu_torch.observability.profiler import profiler
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    # no warm-up: the first round is measured like the others
+    rounds = [zipf_topics(rng, pools, BURST_WINDOWS * BATCH)
+              for _ in range(BURST_ROUNDS)]
+    col = BatchCollector(view, **collector_kw())
+    base = {k: getattr(m, k) for k in MATCHER_HOST}
+    sd0 = m.super_dispatches
+
+    async def measured():
+        return [await serve(col, r) for r in rounds]
+
+    hist.reset_all()
+    profiler().reset()
+    TM.launches = 0
+    served = asyncio.run(measured())
+    launches = TM.launches
+    for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
+        check_rows(trie, topics, rows, f"burst round {r}")
+        if order != list(range(len(topics))):
+            fail(f"burst round {r}: results released out of submission "
+                 f"order")
+    hs = host_served(col, m, base)
+    if any(hs.values()):
+        fail(f"burst: publishes served by the host: {hs}")
+    if launches <= 0:
+        fail("burst: the collector never launched the tile kernel")
+    supers = m.super_dispatches - sd0
+    if col.super_batches < 1 or supers < 1:
+        fail(f"burst: no super-batch (collector {col.super_batches}, "
+             f"matcher {supers})")
+    lat = np.concatenate([np.asarray(x[2]) for x in served])
+    wall = sum(x[3] for x in served)
+    submit_ms = 1e3 * sum(x[4] for x in served) / len(served)
+    n_pubs = BURST_ROUNDS * BURST_WINDOWS * BATCH
+    per_super = col.super_batch_pubs / col.super_batches / BATCH
+    print(f"[burst] {card} | {BURST_ROUNDS} rounds x {BURST_WINDOWS} windows "
+          f"x {BATCH}: {n_pubs / wall:.0f} publishes/s end to end, "
+          f"per-publish latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+          f"{np.percentile(lat, 99):.1f} ms, dispatch EWMA "
+          f"{col.dispatch_ewma_ms:.1f} ms, round wall "
+          f"{1e3 * wall / len(served):.0f} ms (rounds "
+          f"{', '.join(f'{1e3 * x[3]:.0f}' for x in served)}, the first "
+          f"unwarmed) of which {submit_ms:.0f} ms in the submit loop, {col.super_batches} super-batches "
+          f"of {per_super:.2f} windows each ({supers} match_many "
+          f"dispatches), saturated merges {col.saturated_merges}; parity "
+          f"exact on {PARITY_PUBS} publishes per window, released in "
+          f"submission order, tile launches {launches}, host-served "
+          f"counters all 0", flush=True)
+    # the dispatch records (encode, window prep, device, download; no row
+    # resolve) of the measured rounds, by windows per dispatch
+    recs = profiler().snapshot(kind="match")
+    by_k = {}
+    for r in recs:
+        by_k.setdefault(r["k"], []).append(r["dur_ms"])
+    wait = hist.summary(hist.get("stage_collector_wait_ms").snapshot())
+    disp = hist.summary(hist.get("stage_device_dispatch_ms").snapshot())
+    print(f"[burst] {card} | dispatches without the row resolve: " + ", ".join(
+        f"{len(v)} x {k} window(s) mean {np.mean(v):.1f} ms"
+        for k, v in sorted(by_k.items())) + f"; stage_device_dispatch_ms "
+          f"mean {disp.get('mean_ms', 0):.1f} ms (log2-bucket p99 "
+          f"{disp.get('p99_ms', 0):.1f}) over {int(disp['count'])}; "
+          f"queue wait at flush start "
+          f"p50 {wait.get('p50_ms', 0):.1f} ms p99 "
+          f"{wait.get('p99_ms', 0):.1f} ms over {int(wait['count'])} "
+          f"flushes", flush=True)
+    return launches
+
+
+def phase_churn(view, m, trie, reg, rng, pools, card: str) -> int:
+    """Collector rounds under subscription churn, with the 500 ms lock
+    bound: a task on the event loop adds CHURN_STEP subscriptions through
+    on_delta at every step (and removes the oldest past CHURN_LIVE) while
+    the rounds run, so delta syncs land between and during the flushes.
+    The churned filters end in one of 64 words no publish carries, so the
+    trie's rows stay what the device must return and the word ids stay
+    within the table's id width. Every host-served counter must read 0 and
+    no rebuild may run, the final sync included; returns the tile launches
+    of the phase."""
+    import asyncio
+    import collections
+
+    import numpy as np
+
+    from vernemq_tpu_torch.models.matcher import BatchCollector
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    l0, l1, _ = pools
+    crng = random.Random(SEED + 2)
+    rounds = [zipf_topics(rng, pools, BURST_WINDOWS * BATCH)
+              for _ in range(CHURN_ROUNDS)]
+    col = BatchCollector(view, **collector_kw())
+    base = {k: getattr(m, k) for k in MATCHER_HOST}
+    rb0, cap0 = m.rebuilds_async, m.table.cap
+    live = collections.deque()
+    n = [0, 0]  # added, removed
+
+    async def churn(stop):
+        while not stop.is_set():
+            for _ in range(CHURN_STEP):
+                f = [crng.choice(l0), crng.choice([crng.choice(l1), "+"]),
+                     f"churn{n[0] % 64}"]
+                key = f"churn{n[0]}"
+                reg.add(f, key)
+                view.on_delta("add", "", f, key, None)
+                live.append((f, key))
+                n[0] += 1
+                if len(live) > CHURN_LIVE:
+                    f, key = live.popleft()
+                    reg.remove(f, key)
+                    view.on_delta("remove", "", f, key, None)
+                    n[1] += 1
+            await asyncio.sleep(0.005)
+
+    async def run():
+        stop = asyncio.Event()
+        task = asyncio.get_running_loop().create_task(churn(stop))
+        try:
+            return [await serve(col, r) for r in rounds]
+        finally:
+            stop.set()
+            await task
+
+    TM.launches = 0
+    served = asyncio.run(run())
+    launches = TM.launches
+    settle_sync(m)  # the deltas after the last flush
+    for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
+        check_rows(trie, topics, rows, f"churn round {r}")
+        if order != list(range(len(topics))):
+            fail(f"churn round {r}: results released out of submission "
+                 f"order")
+    hs = host_served(col, m, base)
+    if any(hs.values()) or m.rebuilds_async != rb0:
+        fail(f"churn: publishes served by the host: {hs} (rebuilds "
+             f"{m.rebuilds_async - rb0})")
+    if launches <= 0 or n[0] <= 0:
+        fail(f"churn: tile launches {launches}, subscriptions added {n[0]}")
+    lat = np.concatenate([np.asarray(x[2]) for x in served])
+    wall = sum(x[3] for x in served)
+    print(f"[churn] {card} | {CHURN_ROUNDS} rounds x {BURST_WINDOWS} windows "
+          f"x {BATCH} with 500 ms lock bound while +{n[0]}/-{n[1]} "
+          f"subscriptions went through on_delta (S {cap0} -> "
+          f"{m.table.cap}, no rebuild): "
+          f"{CHURN_ROUNDS * BURST_WINDOWS * BATCH / wall:.0f} publishes/s, "
+          f"p50 {np.percentile(lat, 50):.1f} ms p99 "
+          f"{np.percentile(lat, 99):.1f} ms, {col.super_batches} "
+          f"super-batches; parity exact, released in submission order, "
+          f"tile launches {launches}, busy_host_pubs 0 and every other "
+          f"host-served counter 0", flush=True)
+    return launches
+
+
+def phase_many(view, m, rng, pools, card: str) -> None:
+    """match_many's [K, C + 3B] result against K single dispatches of one
+    snapshot, element for element; its K launches under the sync check;
+    timings beside K single dispatches and K fold_batch calls."""
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.ops import match_kernel as TK
+
+    batches = [zipf_topics(rng, pools, BATCH) for _ in range(MANY_K)]
+    with m.lock:
+        m.sync()
+        layout = m._layout_locked()
+        encs = [m._encode_batch_ex(t) for t in batches]
+    S = int(m._operands[0].shape[1])
+    preps = [m._flat_prep(layout, S, *e, BATCH) for e in encs]
+    statics = preps[0][1]
+    if any(p[1] != statics for p in preps) or any(p[2] for p in preps):
+        fail("match_many: windows of one snapshot differ in geometry or "
+             "left publishes to the host")
+    args = [p[0] for p in preps]
+    table = (*m._operands, *m._dev_arrays[1:])
+    many = TK.call_match_many(*table, args, statics)
+    singles = np.stack([m._dispatch_flat(m._dev_arrays, m._operands, a,
+                                         statics) for a in args])
+    if many.shape != singles.shape or (many != singles).any():
+        fail(f"match_many differs from {MANY_K} single dispatches in "
+             f"{int((many != singles).sum())} elements")
+    staged = TK.stage_many(args, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a device→host sync raises
+    try:
+        out = TK.match_many_staged(*table, staged, args, statics)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not np.array_equal(out.cpu().numpy(), many):
+        fail("match_many_staged differs from call_match_many")
+    C = statics["C"]
+    matched = int(many[:, C + BATCH:C + 2 * BATCH].sum())
+    print(f"[many] K={MANY_K} windows of {BATCH} from one snapshot: "
+          f"[{MANY_K}, C + 3B] = {tuple(many.shape)} equal to {MANY_K} "
+          f"single dispatches element for element ({matched} matched "
+          f"slots); K launches free of host syncs", flush=True)
+    many_ms = event_ms(lambda: TK.call_match_many(*table, args, statics), 5)
+    single_ms = event_ms(lambda: [m._dispatch_flat(
+        m._dev_arrays, m._operands, a, statics) for a in args], 5)
+    staged_ms = event_ms(lambda: TK.match_many_staged(
+        *table, staged, args, statics), 5)
+    fm, fb = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        view.fold_many("", batches)
+        fm.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for b in batches:
+            view.fold_batch("", b)
+        fb.append((time.perf_counter() - t0) * 1e3)
+    print(f"[many] {card} | per {MANY_K} windows, CUDA events (stream time, "
+          f"transfers and host gaps included): match_many {many_ms:.2f} ms "
+          f"(one upload, {MANY_K} windows, one download) vs {MANY_K} single "
+          f"dispatches {single_ms:.2f} ms; the {MANY_K} windows alone from "
+          f"the staged block {staged_ms:.2f} ms", flush=True)
+    print(f"[many] {card} | wall per {MANY_K} windows: fold_many "
+          f"{min(fm):.1f} ms (runs {', '.join(f'{x:.1f}' for x in fm)}) vs "
+          f"{MANY_K} x fold_batch {min(fb):.1f} ms (runs "
+          f"{', '.join(f'{x:.1f}' for x in fb)})", flush=True)
+
+
+def phase_breaker(view, m, trie, rng, pools) -> None:
+    """Fail device.dispatch as often as the threshold: flushes go to the
+    trie and the breaker opens; cleared, one half-open probe closes it and
+    the kernel runs again."""
+    import asyncio
+
+    from vernemq_tpu_torch.models.matcher import BatchCollector
+    from vernemq_tpu_torch.observability import events
+    from vernemq_tpu_torch.ops import tile_match as TM
+    from vernemq_tpu_torch.robustness import faults
+
+    col = BatchCollector(view, **collector_kw())
+    thr = m.breaker.failure_threshold
+    closes0 = m.breaker.closes
+    t_drill = time.monotonic()
+
+    async def drill():
+        faults.install(faults.FaultPlan(
+            [faults.FaultRule("device.dispatch", count=thr)], seed=SEED))
+        try:
+            for i in range(thr):
+                topics = zipf_topics(rng, pools, BATCH)
+                rows = (await serve(col, topics))[0]
+                check_rows(trie, topics, rows, f"breaker drill flush {i}")
+            state = m.breaker.state_name
+        finally:
+            faults.clear()
+        await asyncio.sleep(3 * DRILL_BACKOFF)
+        TM.launches = 0
+        topics = zipf_topics(rng, pools, BATCH)
+        rows = (await serve(col, topics))[0]
+        check_rows(trie, topics, rows, "breaker drill probe")
+        return state, TM.launches
+
+    failures0 = m.device_failures
+    opened, launches = asyncio.run(drill())
+    failed = m.device_failures - failures0
+    if col.degraded_host_pubs != thr * BATCH or failed != thr \
+            or opened != "open":
+        fail(f"breaker drill: {col.degraded_host_pubs} publishes degraded, "
+             f"{failed} device failures, breaker {opened} after {thr} "
+             f"injected failures")
+    if m.breaker.state_name != "closed" or m.breaker.closes != closes0 + 1 \
+            or launches <= 0:
+        fail(f"breaker drill: breaker {m.breaker.state_name} after the "
+             f"probe, tile launches {launches}")
+    codes = [e["code"] for e in events.journal().snapshot(since=t_drill)]
+    if codes != ["breaker_open", "breaker_half_open", "breaker_close"]:
+        fail(f"breaker drill: event journal {codes}")
+    print(f"[breaker] {thr} injected device.dispatch failures: "
+          f"{col.degraded_host_pubs} publishes served by the trie with exact "
+          f"parity, breaker opened; cleared, the half-open probe after "
+          f"{3 * DRILL_BACKOFF:.2f}s closed it (closes {m.breaker.closes}) "
+          f"and the kernel ran again ({launches} launches); events "
+          f"{', '.join(codes)}", flush=True)
+
+
+def phase_rebuild(trie_cls, card: str) -> None:
+    """Grow a 100,000-subscription view past its capacity while the
+    collector submits: flushes shed RebuildInProgress to the trie while
+    the worker thread builds, then the device serves again."""
+    import asyncio
+
+    from vernemq_tpu_torch.models.matcher import BatchCollector, GpuRegView
+    from vernemq_tpu_torch.observability import histogram as hist
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    rng = random.Random(SEED + 3)
+    reg = Registry(trie_cls)
+    pools = build_corpus(rng, DRILL_SUBS, reg.add)
+    trie = reg.trie("")
+    view = GpuRegView(reg, max_levels=8, initial_capacity=DRILL_CAP,
+                      max_fanout=256, flat_avg=128, device=DEVICE)
+    m = view.matcher("")
+    view.fold_batch("", zipf_topics(rng, pools, 64))  # the first build
+    s0 = m.table.cap
+    col = BatchCollector(view, **collector_kw())
+    hist.get("stage_rebuild_ms").reset()
+
+    async def drill():
+        served = [0, 0]  # flushes on the device before / after the install
+        added = 0
+        while True:
+            topics = zipf_topics(rng, pools, BATCH)
+            shed0, l0 = col.rebuild_host_pubs, TM.launches
+            rows = (await serve(col, topics))[0]
+            check_rows(trie, topics, rows, "rebuild drill")
+            shed = col.rebuild_host_pubs > shed0
+            if not shed and TM.launches == l0:
+                fail("rebuild drill: a flush neither shed nor launched")
+            if m.rebuilds_async == 0:
+                served[0] += not shed
+                # grow one level-0 word's region until the spare is spent
+                # and the table must be rebuilt at a larger capacity
+                for _ in range(2000):
+                    f = [pools[0][0], "+", f"grow{added}"]
+                    reg.add(f, f"g{added}")
+                    view.on_delta("add", "", f, f"g{added}", None)
+                    added += 1
+                if added > 200_000:
+                    fail("rebuild drill: the table never outgrew its "
+                         "capacity")
+            elif not shed and m._rebuild_thread is None:
+                served[1] += 1
+                if served[1] == 2:
+                    return served, added
+
+    t0 = time.perf_counter()
+    served, added = asyncio.run(drill())
+    hs = {k: v for k, v in host_served(col, m).items()
+          if k not in ("rebuild_host_pubs", "host_fallbacks")}
+    if m.rebuilds_async < 1 or col.rebuild_host_pubs <= 0 or any(hs.values()):
+        fail(f"rebuild drill: rebuilds {m.rebuilds_async}, shed "
+             f"{col.rebuild_host_pubs}, other host-served {hs}")
+    print(f"[rebuild] {card} | {DRILL_SUBS} subscriptions, capacity "
+          f"{DRILL_CAP}: +{added} subscriptions through on_delta while "
+          f"serving; S {s0} -> {m.table.cap}, {m.rebuilds_async} background "
+          f"rebuild(s), {col.rebuild_host_pubs} publishes shed to the trie "
+          f"meanwhile (exact parity), device-served flushes before/after "
+          f"the install {served[0]}/{served[1]} (exact parity), "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    reb = hist.summary(hist.get("stage_rebuild_ms").snapshot())
+    print(f"[rebuild] {card} | stage_rebuild_ms (upload + operands) over "
+          f"{int(reb['count'])} build(s): mean {reb.get('mean_ms', 0):.1f} "
+          f"ms (log2-bucket p50 {reb.get('p50_ms', 0):.1f} ms)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -359,9 +838,12 @@ def main() -> int:
         corpus.append((f, key))
 
     pools = build_corpus(rng, N_SUBS, add)
+    # the breaker's backoff is short for the breaker drill (phase 8)
     view = GpuRegView(reg, max_levels=8,
                       initial_capacity=1 << (N_SUBS - 1).bit_length(),
-                      max_fanout=256, flat_avg=128, device=DEVICE)
+                      max_fanout=256, flat_avg=128, device=DEVICE,
+                      breaker_backoff_initial=DRILL_BACKOFF,
+                      breaker_backoff_max=DRILL_BACKOFF)
     m = view.matcher("")
     warm = zipf_topics(rng, pools, BATCH)
     view.fold_batch("", warm)  # first build + first use of every op
@@ -413,12 +895,14 @@ def main() -> int:
         f[drng.randrange(3)] = drng.choice(["+", f[0]])
         reg.add(f, f"delta{i}")
         view.on_delta("add", "", f, f"delta{i}", None)
+    rebuilt = settle_sync(m)  # a region may have outgrown the table
     TM.launches = 0
     drive(2, "delta")
     if TM.launches <= 0 or m.host_fallbacks != fb0:
         fail("delta phase: kernel not launched or host fallbacks")
-    print(f"[delta] -{DELTA}/+{DELTA} subscriptions synced; parity exact, "
-          f"tile launches {TM.launches}", flush=True)
+    print(f"[delta] -{DELTA}/+{DELTA} subscriptions synced ({rebuilt} "
+          f"background rebuilds); parity exact, tile launches "
+          f"{TM.launches}", flush=True)
 
     # -------------------------------------------------------------- timing
     topics = zipf_topics(rng, pools, BATCH)
@@ -427,8 +911,7 @@ def main() -> int:
         m.sync()
         enc = m._encode_batch_ex(topics)
         args, statics, left = m._flat_prep(
-            m._reg_start, m._reg_end, m._glob_pad, m._ops_bits,
-            int(tab.cap), *enc, len(topics))
+            m._layout_locked(), int(tab.cap), *enc, len(topics))
     prep_ms = (time.perf_counter() - t1) * 1e3
     F_t, t1d = m._operands
     _w, eff, hh, fw, act = m._dev_arrays
@@ -513,12 +996,21 @@ def main() -> int:
     print(f"[time] {card} | host encode + window prep per batch: "
           f"{prep_ms:.2f} ms", flush=True)
 
+    # ------------------------------------------------- the serving layer
+    burst_launches = phase_burst(view, m, trie, rng, pools, card)
+    churn_launches = phase_churn(view, m, trie, reg, rng, pools, card)
+    phase_many(view, m, rng, pools, card)
+    phase_breaker(view, m, trie, rng, pools)
+    phase_rebuild(SubscriptionTrie, card)
+
     kernels = [{
         "name": "tile_match",
         "route": "cuda",
         "source": "vernemq_tpu_torch/csrc/tile_match.cu",
         "replaces": "vernemq_tpu/ops/pallas_match.py:117",
         "launches": path_launches,
+        "collector_launches": burst_launches,
+        "churn_launches": churn_launches,
         "max_abs_err": kernel_err,
         "ms": k_ms,
         "plain_ms": sum(p["plain_ms"] for p in probes),

@@ -7,6 +7,10 @@ import random
 import numpy as np
 import torch
 
+# the suite runs several workers on one machine: small plain-PyTorch
+# matches gain nothing from intra-op threads, which only contend
+torch.set_num_threads(1)
+
 WORDS = [f"w{i}" for i in range(150)]
 
 # word ids at the byte-plane edges of the coded operands (UNKNOWN_ID = -2
@@ -61,3 +65,39 @@ def n(x) -> np.ndarray:
     if a.dtype == np.uint32:
         return a.view(np.int32)
     return a
+
+
+def bucket_filter(rng: random.Random):
+    """A bucketed-table corpus filter over r0..15 / d0..39 / m0..15:
+    concrete level-0 words dominate, with wildcard-first, '#' and
+    $-rooted filters mixed in."""
+    w = [f"r{rng.randrange(16)}", f"d{rng.randrange(40)}",
+         f"m{rng.randrange(16)}"]
+    r = rng.random()
+    if r < 0.5:
+        return w
+    if r < 0.65:
+        return [w[0], "+", w[2]]
+    if r < 0.75:
+        return ["+", w[1], w[2]]
+    if r < 0.85:
+        return [w[0], w[1], "#"]
+    if r < 0.92:
+        return [w[0], "+", "#"]
+    return ["$SYS", w[1], "#"]
+
+
+def bucket_corpus(n: int = 3000, seed: int = 101):
+    """The serving tests' corpus: n :func:`bucket_filter` s from one seed.
+    The robustness, match_many and collector files share it (and a table
+    capacity of 8192, max_fanout 64 and batches of 16), so the JAX
+    reference compiles each table and batch shape once per process."""
+    rng = random.Random(seed)
+    return [bucket_filter(rng) for _ in range(n)]
+
+
+def bucket_topics(rng: random.Random, n: int):
+    """Publish topics for :func:`bucket_filter` corpora (a few $SYS)."""
+    return [(("$SYS" if rng.random() < 0.05 else f"r{rng.randrange(16)}"),
+             f"d{rng.randrange(40)}", f"m{rng.randrange(16)}")
+            for _ in range(n)]

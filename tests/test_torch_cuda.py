@@ -1,4 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card,
+and the matcher's device paths that only a card can show: match_many equal
+to K match_batch dispatches with no host sync between its launches, a
+kernel library that fails to build raising from the matcher, and a kernel
+that faults on the card failing the collector's futures.
 
 Marked ``cuda``: without a card every test skips (a kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs
@@ -7,11 +11,21 @@ on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import json
+import os
+import pathlib
+import random
+import shutil
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import EDGE_IDS, UNKNOWN_ID
+from _torch_port import EDGE_IDS, UNKNOWN_ID, bucket_corpus, bucket_topics
+from vernemq_tpu_torch.models import matcher as GM
+from vernemq_tpu_torch.ops import _build
 from vernemq_tpu_torch.ops import match_kernel as TK
 from vernemq_tpu_torch.ops import tile_match as TM
 
@@ -131,3 +145,163 @@ def test_tile_match_rejects_what_it_cannot_take():
                                x[5][:, :24].contiguous(),
                                x[6][:, :24].contiguous(), x[7],
                                wild_rows=False, **kw)
+
+
+def _many_inputs(K=4, n=256):
+    """A CUDA matcher over the serving corpus and K windows of ``n``
+    publishes prepped from one snapshot at one Bpad."""
+    m = GM.GpuMatcher(max_levels=8, initial_capacity=8192, device="cuda")
+    for i, f in enumerate(bucket_corpus()):
+        m.table.add(f, i, None)
+    rng = random.Random(12)
+    batches = [bucket_topics(rng, n) for _ in range(K)]
+    with m.lock:
+        m.sync()
+        layout = m._layout_locked()
+        encs = [m._encode_batch_ex(b) for b in batches]
+    S = int(m._operands[0].shape[1])
+    preps = [m._flat_prep(layout, S, *e, n) for e in encs]
+    args, statics = [p[0] for p in preps], preps[0][1]
+    assert all(p[1] == statics for p in preps)
+    return m, batches, args, statics, (*m._operands, *m._dev_arrays[1:])
+
+
+@pytest.mark.cuda
+def test_match_many_equals_match_batch_on_card():
+    """The [K, C + 3B] result equals K single dispatches element for
+    element, and match_many's rows equal K match_batch calls."""
+    _card()
+    m, batches, args, statics, table = _many_inputs()
+    before = TM.launches
+    many = TK.call_match_many(*table, args, statics)
+    assert TM.launches > before  # the kernel ran
+    for row, a in zip(many, args):
+        single = m._dispatch_flat(m._dev_arrays, m._operands, a, statics)
+        np.testing.assert_array_equal(row, single)
+    C, B = statics["C"], args[0][0].shape[0]
+    assert int(many[:, C + B:C + 2 * B].sum()) > 100  # not vacuous
+    got = m.match_many(batches)
+    want = [m.match_batch(b) for b in batches]
+    assert [[[(f, k) for f, k, _ in r] for r in b] for b in got] == \
+        [[[(f, k) for f, k, _ in r] for r in b] for b in want]
+    assert m.super_dispatches == 1
+
+
+@pytest.mark.cuda
+def test_match_many_launches_without_host_sync():
+    """From after the staging upload to before the one download, match_many's
+    K device paths run under sync debug mode "error": nothing in them waits
+    for the card."""
+    _card()
+    m, _, args, statics, table = _many_inputs()
+    want = TK.call_match_many(*table, args, statics)  # builds, allocates
+    staged = TK.stage_many(args, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = TK.match_many_staged(*table, staged, args, statics)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_build_failure_raises_from_the_matcher(tmp_path,
+                                                      monkeypatch):
+    """A kernel library that does not build makes GpuMatcher and GpuRegView
+    raise when they are created: no matcher exists to serve, so the error
+    never reaches a breaker or a trie answer. The build is pointed at a
+    broken copy of the source in a temporary directory."""
+    _card()
+    src = tmp_path / "csrc"
+    src.mkdir()
+    shutil.copy(_build.CSRC / "tile_match.cu", src / "tile_match.cu")
+    with open(src / "tile_match.cu", "a") as f:
+        f.write("\nthis does not compile;\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        GM.GpuMatcher(device="cuda")
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        GM.GpuRegView(registry=None, device="cuda")
+
+
+# Run in a process of its own: a CUDA fault is sticky, and it would fail
+# every later test of this process.
+FAULT_SCRIPT = r"""
+import asyncio, json, random, sys
+import torch
+from _torch_port import bucket_corpus, bucket_topics
+from vernemq_tpu_torch.models import matcher as GM
+from vernemq_tpu_torch.models.trie import SubscriptionTrie
+from vernemq_tpu_torch.ops import tile_match as TM
+
+class Registry:
+    def __init__(self, trie):
+        self._trie = trie
+    def fold_subscriptions(self, mp):
+        return self._trie.entries()
+    def trie(self, mp):
+        return self._trie
+
+trie = SubscriptionTrie()
+for i, f in enumerate(bucket_corpus()):
+    trie.add(f, i, None)
+view = GM.GpuRegView(Registry(trie), max_levels=8, initial_capacity=8192,
+                     max_fanout=64, device="cuda", breaker_failure_threshold=1)
+m = view.matcher("")
+col = GM.BatchCollector(view, window_us=200, max_batch=16,
+                        lock_busy_shed_ms=500, super_batch_k=4)
+launch = TM.window_tiles_packed
+
+def out_of_range(*a, **kw):
+    # the host copy of the starts passes the bounds check; the kernel
+    # reads its windows from the device copy, 2^31 rows before the table
+    a = list(a)
+    a[7] = torch.full_like(a[7], -(1 << 31))
+    return launch(*a, **kw)
+
+async def main():
+    rng = random.Random(6)
+    healthy = await asyncio.gather(
+        *[col.submit("", t) for t in bucket_topics(rng, 16)])
+    TM.window_tiles_packed = out_of_range
+    outs = []
+    for n in (16, 16 * 6):  # one window; two slots and a super-batch
+        got = await asyncio.gather(
+            *[col.submit("", t) for t in bucket_topics(rng, n)],
+            return_exceptions=True)
+        outs.append(sorted({type(g).__name__ for g in got}))
+    return healthy, outs
+
+healthy, outs = asyncio.run(main())
+print(json.dumps(dict(
+    healthy=all(isinstance(r, list) for r in healthy), outs=outs,
+    host_pubs={k: getattr(col, k) for k in dir(col)
+               if k.endswith("_host_pubs")},
+    device_failures=m.device_failures, breaker=m.breaker.state_name,
+    launches=TM.launches)))
+"""
+
+
+@pytest.mark.cuda
+def test_kernel_fault_fails_the_collector_futures():
+    """A kernel that reads outside the table (a window start past the host
+    bounds check) faults on the card. The fault is sticky and surfaces from
+    later launches and copies, not from the launch: every future of the
+    collector fails with KernelError, none is answered from the trie, and
+    the breaker hears nothing."""
+    _card()
+    tests = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", FAULT_SCRIPT], capture_output=True,
+        text=True, timeout=600, cwd=tests.parent,
+        env={**os.environ,
+             "PYTHONPATH": f"{tests}:{tests.parent}"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["healthy"] and res["launches"] > 0
+    assert res["outs"] == [["KernelError"], ["KernelError"]], res
+    assert not any(res["host_pubs"].values()), res
+    assert res["device_failures"] == 0 and res["breaker"] == "closed"

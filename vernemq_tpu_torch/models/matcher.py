@@ -1,7 +1,7 @@
 """The GPU match engine: a device-resident subscription table and batched
 wildcard matching, behind the registry's reg-view seam.
 
-The port of ``vernemq_tpu/models/tpu_matcher.py``'s core: ``vmq_reg_trie``'s
+The port of ``vernemq_tpu/models/tpu_matcher.py``: ``vmq_reg_trie``'s
 ``fold_subscribers`` becomes one batched device call over thousands of
 concurrent PUBLISHes.
 
@@ -9,33 +9,80 @@ concurrent PUBLISHes.
   device (full upload on growth, in-place scatter of dirty rows otherwise)
   and serves ``match_batch``: a dense pass over region 0 plus probe-A /
   probe-B window tiles through the hand kernel (``ops/tile_match.py``),
-  compacted on the device into one flat buffer. Publishes the device cannot
-  serve exactly (window leftovers, fanout past ``max_fanout``, flat
-  capacity) are matched on the host against the same table snapshot.
+  compacted on the device into one flat buffer. ``match_many`` runs K
+  batches from one staged upload to one download. Publishes the device
+  cannot serve exactly (window leftovers, fanout past ``max_fanout``, flat
+  capacity) are matched on the host against the same table snapshot. Around
+  the device path sit the circuit breaker, the background rebuild and the
+  stall-watchdog hooks. A CUDA fault of the device path (a failed launch, an
+  illegal address) raises :class:`~..ops.tile_match.KernelError` to the
+  caller and never reaches the breaker or the trie.
 - :class:`GpuRegView` is the reg-view adapter over a registry that offers
-  ``fold_subscriptions(mountpoint)`` and ``trie(mountpoint)``.
+  ``fold_subscriptions(mountpoint)`` and ``trie(mountpoint)``: the
+  production seat (background rebuilds, breaker, watchdog).
+- :class:`BatchCollector` coalesces concurrent publishes into device calls
+  (windows, two in flight, super-batches under load) and sheds to the host
+  trie whenever the device cannot answer promptly.
 
-Not yet ported (ROADMAP): background rebuild, stall watchdog, circuit
-breaker, warm-signature gate, ``match_many``, packed transport,
-observability seams and the ``BatchCollector``.
+Not yet ported (ROADMAP): the payload-predicate phase (``filter_engine``),
+the flight-recorder trace and match-service fold meta of the collector, the
+overload governor, and the mesh seats of the view. The reference's
+warm-signature gate and warm-up ladders have no counterpart: they bound XLA
+compiles, and eager PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
 
+import asyncio
+import collections
+import logging
 import threading
+import time
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..observability import histogram as obs
+from ..observability.profiler import record_dispatch
+from ..ops import _build
 from ..ops import match_kernel as K
+from ..ops import tile_match as TM
+from ..robustness import faults
+from ..robustness import watchdog as watchdog_mod
+from ..robustness.breaker import CircuitBreaker
+from ..robustness.overload import collector_pressure, fold_latency_ewma
+from ..robustness.watchdog import StallAbandoned
 from .table import SubscriptionTable
 
 Row = Tuple[Tuple[str, ...], Hashable, Any]
 
+log = logging.getLogger("vernemq_tpu_torch.matcher")
+
+#: background-rebuild threads stash their abandon token here so the
+#: observability seams inside _build_device can tell a healthy build from
+#: a watchdog-abandoned straggler
+_rebuild_tls = threading.local()
+
 TILE_PUBS = 256  # publishes per window tile
 FAIR_MULT = 2    # window width vs per-tile fair share of the zone
+
+#: the kernel libraries (``ops/_build.py`` names) the CUDA match path
+#: launches
+KERNEL_LIBS = ("tile_match",)
+
+
+def load_kernels(device: torch.device) -> None:
+    """Build and load every kernel library the device path launches, before
+    anything is served. A build or load error raises here, to whoever
+    creates the matcher or its view: it never reaches the breaker and is
+    never answered from the trie. (The reference instead turns its Pallas
+    kernel off for good when Mosaic cannot lower it and serves through
+    XLA, ``_pallas_broken``; the port has no second device path.)"""
+    if device.type == "cuda":
+        for name in KERNEL_LIBS:
+            _build.load(name)
 
 
 def _pow2ceil(n: int) -> int:
@@ -153,12 +200,23 @@ def prepare_windows(pb: np.ndarray, n: int, reg_start: np.ndarray,
 
 
 class MatcherBusy(Exception):
-    """The matcher cannot take this batch promptly (lock busy, or a cold
-    shape); the caller serves the batch from the host trie."""
+    """The matcher lock stayed busy past the caller's bound; the caller
+    serves the batch from the host trie."""
 
-    def __init__(self, cold: bool = False):
-        super().__init__("cold signature" if cold else "lock busy")
-        self.cold = cold
+    def __init__(self) -> None:
+        super().__init__("lock busy")
+
+
+def _is_cuda_fault(exc: BaseException) -> bool:
+    """A CUDA runtime error: a kernel that faulted (an illegal address, an
+    unspecified launch failure) surfaces as one from the next launch or
+    copy, not from the kernel's own launch, and it is sticky, so every later
+    call fails the same way. A fault of the code, never of the device's
+    load: it must not be fed to the breaker or answered from the trie."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error")
 
 
 class DeviceDegraded(Exception):
@@ -175,12 +233,14 @@ class GpuMatcher:
     """Device-resident subscription table plus batched matching.
 
     ``device`` defaults to the CUDA card and raises without one; pass
-    ``device="cpu"`` to run the plain PyTorch path."""
+    ``device="cpu"`` to run the plain PyTorch path. On CUDA the kernel
+    libraries are built and loaded here, before the matcher serves."""
 
     def __init__(self, max_levels: int = 16, initial_capacity: int = 1024,
                  max_fanout: int = 256, flat_avg: int = 128,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        load_kernels(self.device)
         self.table = SubscriptionTable(max_levels, initial_capacity)
         self.max_fanout = max_fanout
         # flat-compaction capacity per publish AVERAGED over the batch; a
@@ -200,6 +260,7 @@ class GpuMatcher:
         self.match_batches = 0
         self.match_publishes = 0
         self.host_fallbacks = 0  # publishes served by the exact host match
+        self.super_dispatches = 0  # K-batch match_many dispatches
         # encode cache: hot topics skip per-word interner lookups;
         # invalidated when the interner or bucket layout changes
         self._enc_cache: Dict[Tuple[str, ...], int] = {}
@@ -210,33 +271,93 @@ class GpuMatcher:
         # matches holding the device tensors outside the lock: while > 0,
         # sync() scatters into copies instead of in place
         self._inflight = 0
+        # non-blocking growth: with async_rebuild a capacity rebuild
+        # uploads on a worker thread while callers shed to the host trie
+        # (RebuildInProgress). The first build stays synchronous. Off for
+        # bare matchers; GpuRegView, the production seat, turns it on.
+        self.async_rebuild = False
+        self._rebuild_thread: Optional[threading.Thread] = None
+        self._rebuild_barrier: Optional[threading.Event] = None  # tests
+        # the first CUDA fault the device path met (dispatch, delta or
+        # build): the context is unusable from then on, so every later
+        # sync raises it as KernelError instead of rebuilding, shedding to
+        # the trie meanwhile, into the same fault
+        self._cuda_fault: Optional[BaseException] = None
+        self.rebuilds_async = 0
+        # stall watchdog (set by the production seat): background rebuilds
+        # register a monitored op and are ABANDONED past
+        # rebuild_deadline_s — sync() reaps the wedged thread like a
+        # crashed one, its late install is discarded, the breaker is fed
+        self.watchdog: Optional[Any] = None
+        self.rebuild_deadline_s = 120.0
+        self._rebuild_token: Optional[dict] = None
+        self.rebuild_abandons = 0
+        self.dispatch_stalls = 0  # abandoned dispatches fed via record_stall
+        self.busy_sheds = 0  # lock-timeout sheds
+        # device-path circuit breaker: N consecutive dispatch failures flip
+        # ALL matching to the host trie until a half-open probe succeeds.
+        # GpuRegView applies its breaker settings; None re-raises device
+        # errors verbatim.
+        self.breaker: Optional[CircuitBreaker] = CircuitBreaker(name="match")
+        self.device_failures = 0   # dispatch/upload errors fed to it
+        self.degraded_sheds = 0    # calls refused while open (host-served)
 
     # ------------------------------------------------------- full (re)build
 
-    def _snapshot_host_locked(self) -> dict:
-        """Everything a full device build needs, read from the live table
-        (lock held; the build runs inline, so no copies)."""
+    def _snapshot_host_locked(self, copy: bool = True,
+                              clear: bool = True) -> dict:
+        """Consistent host snapshot of everything a full device build
+        needs (lock held). ``copy=True`` (the background path) copies the
+        arrays, which keep mutating after the lock is released; the inline
+        build passes the live ones. ``clear`` consumes ``resized``/``dirty``
+        at snapshot time (the background path: later mutations re-mark);
+        the inline path clears only after a successful install, so a failed
+        build stays retryable."""
         t = self.table
+        c = (lambda a: a.copy()) if copy else (lambda a: a)
         entries = np.empty(len(t.entries), dtype=object)
         entries[:] = t.entries
-        return {
-            "words": t.words, "eff_len": t.eff_len,
-            "has_hash": t.has_hash, "first_wild": t.first_wild,
-            "active": t.active, "bits": t.id_bits,
+        state = {
+            "words": c(t.words), "eff_len": c(t.eff_len),
+            "has_hash": c(t.has_hash), "first_wild": c(t.first_wild),
+            "active": c(t.active), "bits": t.id_bits,
             "reg_start": t.reg_start.copy(),
             "reg_end": (t.reg_start + t.reg_cap).copy(),
             "glob_pad": int(t.reg_cap[0]),
             "gb_end": t.gb_end if t.bucketed else int(t.reg_cap[0]),
             "ng": t.NG, "bucketed": t.bucketed, "entries": entries,
         }
+        if clear:
+            t.resized = False
+            t.dirty.clear()
+        return state
 
     def _build_device(self, state: dict) -> tuple:
-        """Upload a snapshot and derive the coded operands."""
+        """Device half of a full build (no lock held): upload the snapshot
+        and derive the coded operands. On CUDA it waits for its own work,
+        so a build handed to :meth:`_install_built` is complete."""
+        faults.inject("device.rebuild")
+        t0 = time.monotonic()
         dev = tuple(torch.from_numpy(state[k]).to(self.device, copy=True)
                     for k in ("words", "eff_len", "has_hash", "first_wild",
                               "active"))
+        t_upload = time.monotonic()
         operands = (K.build_operands(dev[0], dev[1], state["bits"])
                     if state["bits"] else None)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        done = time.monotonic()
+        # an abandoned build's straggler must not record its wedge-inflated
+        # duration (stage_rebuild_ms is the tuning base of the deadline)
+        tok = getattr(_rebuild_tls, "token", None)
+        if not (tok and tok.get("abandoned")) \
+                and not watchdog_mod.current_op_abandoned():
+            obs.observe("stage_rebuild_ms", (done - t0) * 1e3)
+            record_dispatch(
+                "rebuild", t0, (done - t0) * 1e3,
+                rows=int(state["words"].shape[0]),
+                upload_ms=round((t_upload - t0) * 1e3, 3),
+                operands_ms=round((done - t_upload) * 1e3, 3))
         return dev, operands
 
     def _install_built(self, built: tuple, state: dict) -> None:
@@ -251,17 +372,114 @@ class GpuMatcher:
         self._bucketed = state["bucketed"]
         self._entries_snapshot = state["entries"]
 
+    def _abandon_rebuild(self, token: dict) -> None:
+        """Stall-watchdog ``on_stall``: the background rebuild exceeded its
+        deadline. Treat it like a crashed one: mark its token so sync()
+        reaps it and its late install is discarded, and feed the breaker so
+        matching degrades loudly now instead of shedding RebuildInProgress
+        forever. Runs on the monitor thread, without the matcher lock (the
+        wedged holder might be inside it)."""
+        if token.get("abandoned"):
+            return
+        token["abandoned"] = True
+        self.rebuild_abandons += 1
+        self.device_failures += 1
+        br = self.breaker
+        if br is not None and br.record_failure():
+            log.error("device path OPENED: background table rebuild stalled "
+                      "past its %.1fs deadline (abandoned; host trie "
+                      "serves)", self.rebuild_deadline_s)
+
+    def _spawn_rebuild_locked(self) -> None:
+        """Start the background rebuild (lock held). The thread builds from
+        a snapshot; at install time, if the layout moved AGAIN or the
+        watchdog abandoned this build, the stale build is discarded."""
+        state = self._snapshot_host_locked(copy=True)
+        self.rebuilds_async += 1
+        token = {"abandoned": False}
+        self._rebuild_token = token
+        wd = self.watchdog
+        op = (wd.register("device.rebuild", self.rebuild_deadline_s,
+                          label="table-rebuild",
+                          on_stall=lambda _op: self._abandon_rebuild(token))
+              if wd is not None and self.rebuild_deadline_s > 0 else None)
+
+        def _run() -> None:
+            _rebuild_tls.token = token
+            try:
+                try:
+                    built = self._build_device(state)
+                except Exception as e:
+                    if token["abandoned"]:
+                        wd.note_late_discard("device.rebuild",
+                                             "failed after abandonment")
+                        return
+                    if _is_cuda_fault(e):
+                        self._cuda_fault = e  # sync() raises it
+                        return
+                    log.exception("background table rebuild failed; will "
+                                  "retry from the next sync")
+                    return  # sync() reaps the dead thread, re-arms resized
+                barrier = self._rebuild_barrier
+                if barrier is not None:
+                    barrier.wait()
+                with self.lock:
+                    if token["abandoned"] or self._rebuild_thread is not th:
+                        # abandoned (sync has reaped it and may run a fresh
+                        # build): a late install would publish stale layout
+                        if wd is not None:
+                            wd.note_late_discard("device.rebuild",
+                                                 "stale install discarded")
+                        return
+                    t = self.table
+                    if t.resized or t.id_bits != state["bits"]:
+                        self._spawn_rebuild_locked()
+                        return
+                    self._install_built(built, state)
+                    self._rebuild_thread = None
+            finally:
+                if op is not None:
+                    wd.deregister(op)
+
+        # cooperative stop: _run discards its install when abandoned, and
+        # sync() reaps the handle; a join would park callers behind a
+        # possibly wedged device call
+        th = threading.Thread(target=_run, name="gpu-table-rebuild",
+                              daemon=True)
+        self._rebuild_thread = th
+        th.start()
+
     # ------------------------------------------------------------ delta sync
 
     def sync(self) -> None:
         """Ship pending table mutations to the device: a full upload after
-        a capacity or id-width change, an in-place scatter of the dirty
-        rows otherwise. Also snapshots the slot→entry map, so a match
-        resolves against the state it matched. Callers hold ``self.lock``."""
+        a capacity or id-width change (on a worker thread with
+        ``async_rebuild``, raising :class:`RebuildInProgress` until it
+        installs), an in-place scatter of the dirty rows otherwise. Also
+        snapshots the slot→entry map, so a match resolves against the
+        state it matched. Callers hold ``self.lock``."""
         t = self.table
         bits = t.id_bits
+        if self._cuda_fault is not None:
+            raise TM.KernelError(
+                f"CUDA fault on the device path: {self._cuda_fault}") \
+                from self._cuda_fault
+        if self._rebuild_thread is not None:
+            tok = self._rebuild_token
+            abandoned = tok is not None and tok.get("abandoned")
+            if self._rebuild_thread.is_alive() and not abandoned:
+                raise RebuildInProgress
+            # a crashed worker — or one the watchdog abandoned: the
+            # snapshot consumed `resized`, so re-arm it (the delta path
+            # would scatter grown-region slots against the OLD arrays)
+            self._rebuild_thread = None
+            t.resized = True
         if self._dev_arrays is None or t.resized or bits != self._ops_bits:
-            state = self._snapshot_host_locked()
+            if self._dev_arrays is not None and self.async_rebuild:
+                self._spawn_rebuild_locked()
+                raise RebuildInProgress
+            # clear-after-success: a failed inline build must retry
+            state = self._snapshot_host_locked(copy=False, clear=False)
             self._install_built(self._build_device(state), state)
             t.resized = False
             t.dirty.clear()
@@ -281,7 +499,7 @@ class GpuMatcher:
         except Exception:
             # the dirty set is consumed but the scatter did not land: the
             # next sync takes the full-rebuild path so host and device
-            # re-converge
+            # re-converge, and the error feeds the caller's breaker
             t.resized = True
             raise
         # regions may move without a resize (relocation into the spare)
@@ -289,6 +507,19 @@ class GpuMatcher:
         self._reg_end = (t.reg_start + t.reg_cap).copy()
 
     def _apply_delta_device(self, slots: np.ndarray) -> None:
+        """Device half of a delta sync (lock held), registered with the
+        stall watchdog when one is wired: a wedge here holds the matcher
+        lock, so it cannot be abandoned, but it is visible while the lock
+        timeouts bound everyone else's wait."""
+        wd = self.watchdog
+        if wd is None:
+            return self._apply_delta_device_impl(slots)
+        with wd.monitored("device.delta", 30.0,
+                          label=f"scatter:{len(slots)}"):
+            return self._apply_delta_device_impl(slots)
+
+    def _apply_delta_device_impl(self, slots: np.ndarray) -> None:
+        faults.inject("device.delta")
         t = self.table
         dev = self.device
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -304,6 +535,72 @@ class GpuMatcher:
             put(t.first_wild[slots]), put(t.active[slots]),
             id_bits=self._ops_bits)
         self._dev_arrays, self._operands = dev_arrays, operands
+
+    # -------------------------------------------------- breaker discipline
+
+    def _breaker_gate(self) -> bool:
+        """Refuse device work while the breaker is open (DeviceDegraded:
+        the caller serves from the host trie). Returns True when THIS call
+        holds the half-open probe slot (the caller hands it back via
+        ``probe_aborted`` if it exits without a device verdict)."""
+        br = self.breaker
+        if br is None:
+            return False
+        if not br.allow():
+            self.degraded_sheds += 1
+            raise DeviceDegraded("device circuit open")
+        return br.state_name == "half_open"
+
+    def _record_device_failure(self, exc: BaseException) -> None:
+        """Feed a device dispatch/upload failure to the breaker and
+        re-raise as DeviceDegraded (the host trie serves this batch). With
+        no breaker the original error propagates verbatim. A dispatch whose
+        waiter the watchdog already released records nothing (the stall
+        was fed at abandonment, ``record_stall``). A CUDA fault
+        (:func:`_is_cuda_fault`) is neither: it raises as
+        :class:`~..ops.tile_match.KernelError`, to the caller, and so does
+        every later sync."""
+        if _is_cuda_fault(exc):
+            self._cuda_fault = exc
+            raise TM.KernelError(f"CUDA fault on the device path: {exc}") \
+                from exc
+        self.device_failures += 1
+        br = self.breaker
+        if br is None:
+            raise exc
+        if watchdog_mod.current_op_abandoned():
+            raise DeviceDegraded(
+                f"late failure of abandoned dispatch: {exc!r}") from exc
+        if br.record_failure():
+            log.error("device path OPENED after %d consecutive failures "
+                      "(last: %s); all matching degrades to the host trie",
+                      br.failure_threshold, exc)
+        raise DeviceDegraded(f"device dispatch failed: {exc!r}") from exc
+
+    def record_stall(self, exc: Optional[BaseException] = None) -> None:
+        """An abandoned (deadline-overrun) dispatch is a device failure:
+        feed the breaker. Called by the collector when the watchdog
+        releases its waiter."""
+        self.dispatch_stalls += 1
+        try:
+            self._record_device_failure(
+                exc if exc is not None
+                else RuntimeError("device dispatch stalled past deadline"))
+        except Exception:
+            pass  # DeviceDegraded (breaker fed) or re-raised exc (no breaker)
+
+    def _record_device_success(self) -> None:
+        br = self.breaker
+        if br is None:
+            return
+        if watchdog_mod.current_op_abandoned():
+            # a late success raced a stall the breaker already absorbed:
+            # only a LIVE probe may close it
+            return
+        if br.record_success():
+            log.warning("device path recovered (probe succeeded after "
+                        "%.1fs degraded); closing the breaker",
+                        br.time_degraded())
 
     # ---------------------------------------------------------------- match
 
@@ -371,53 +668,205 @@ class GpuMatcher:
         gb = sel[:, L + 3].copy()
         return pw, pl, pd, pb, gb
 
-    def match_batch(self, topics: Sequence[Sequence[str]]) -> List[List[Row]]:
+    def _acquire(self, lock_timeout: Optional[float]) -> None:
+        if lock_timeout is None:
+            self.lock.acquire()
+        elif not self.lock.acquire(timeout=lock_timeout):
+            self.busy_sheds += 1
+            raise MatcherBusy()
+
+    def _sync_for_match(self) -> None:
+        """sync() under the lock, with a failed upload (delta scatter or
+        inline build) fed to the breaker as a device failure."""
+        try:
+            self.sync()
+        except (RebuildInProgress, TM.KernelError):
+            raise
+        except Exception as e:
+            self._record_device_failure(e)
+
+    def _layout_locked(self) -> dict:
+        """The table layout the device arrays were built from, pinned
+        under the lock with them: host prep outside the lock reads this,
+        never a layout a concurrent install may have published since."""
+        return dict(reg_start=self._reg_start, reg_end=self._reg_end,
+                    glob_pad=self._glob_pad, bits=self._ops_bits,
+                    gb_end=self._gb_end, ng=self._ng)
+
+    def match_batch(self, topics: Sequence[Sequence[str]],
+                    lock_timeout: Optional[float] = None) -> List[List[Row]]:
         """Match a batch of publish topics; returns each topic's entry rows
-        (the per-publish fold results)."""
+        (the per-publish fold results). ``lock_timeout`` bounds the wait
+        for the matcher lock (seconds): past it, MatcherBusy — the caller
+        serves the batch host-side. A device failure raises DeviceDegraded
+        (the breaker is fed); a kernel that refuses its inputs, fails to
+        launch or faults raises :class:`~..ops.tile_match.KernelError` and
+        is never degraded."""
         if not topics:
             return []
-        with self.lock:
-            self.sync()
+        probe = self._breaker_gate()
+        try:
+            return self._match_batch_impl(topics, lock_timeout)
+        except BaseException:
+            if probe:
+                # the granted half-open probe exited without a device
+                # verdict: hand the slot back (no-op when a recorded
+                # failure already re-opened the breaker)
+                self.breaker.probe_aborted()
+            raise
+
+    def _match_batch_impl(self, topics, lock_timeout) -> List[List[Row]]:
+        self._acquire(lock_timeout)
+        try:
+            self._sync_for_match()
             dev_arrays = self._dev_arrays
             operands = self._operands
             snapshot = self._entries_snapshot
             bucketed = self._bucketed and operands is not None
             if bucketed:
-                reg_start, reg_end = self._reg_start, self._reg_end
-                glob_pad, bits = self._glob_pad, self._ops_bits
+                layout = self._layout_locked()
                 pw, pl, pd, pb, gb = self._encode_batch_ex(topics)
             else:
                 pw, pl, pd = self.encode_batch(topics)
             self._inflight += 1
+        finally:
+            self.lock.release()
+        self.match_batches += 1
+        self.match_publishes += len(topics)
+        t_disp = time.monotonic()
         try:
-            self.match_batches += 1
-            self.match_publishes += len(topics)
             if bucketed:
                 idx_rows, need_host = self._match_windowed(
-                    dev_arrays, operands, reg_start, reg_end, glob_pad, bits,
-                    pw, pl, pd, pb, gb, len(topics))
+                    dev_arrays, operands, layout, pw, pl, pd, pb, gb,
+                    len(topics))
             else:
                 idx_rows, need_host = self._match_dense(
                     dev_arrays, pw, pl, pd, len(topics))
+        except TM.KernelError:
+            raise
+        except Exception as e:
+            self._record_device_failure(e)
+        else:
+            self._record_device_success()
+            # straggler guard: an abandoned dispatch's late completion must
+            # not record its wedge-inflated duration
+            if not watchdog_mod.current_op_abandoned():
+                dur = (time.monotonic() - t_disp) * 1e3
+                obs.observe("stage_device_dispatch_ms", dur)
+                record_dispatch("match", t_disp, dur, k=1, batch=len(topics),
+                                bpad=int(pw.shape[0]))
         finally:
             with self.lock:
                 self._inflight -= 1
         return self._resolve_rows(topics, idx_rows, need_host, snapshot)
 
-    def _match_dense(self, dev_arrays, pw, pl, pd, n):
-        """Unbucketed (small) table: every publish against every row."""
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        mask = K.match_mask_unrolled(*dev_arrays, put(pw), put(pl), put(pd))
-        idx, valid, count = K.extract_indices(mask, self.max_fanout)
-        idx, valid, count = idx.cpu().numpy(), valid.cpu().numpy(), \
-            count.cpu().numpy()
-        return ([idx[i][valid[i]] for i in range(n)],
-                count[:n] > self.max_fanout)
+    def match_many(self, batches: Sequence[Sequence[Sequence[str]]],
+                   lock_timeout: Optional[float] = None
+                   ) -> List[List[List[Row]]]:
+        """Match K publish batches in one device dispatch: every batch is
+        encoded and window-prepped against one table snapshot, padded to a
+        common Bpad, staged as one upload and run back to back on the
+        device, with one download (``ops.match_kernel.call_match_many``).
+        Results are per batch, bit-identical to K :meth:`match_batch` calls
+        at the same Bpad. With K == 1 or an unbucketed table it runs the K
+        batches one by one. ``lock_timeout`` follows match_batch's
+        contract."""
+        if not batches:
+            return []
+        probe = self._breaker_gate()
+        try:
+            return self._match_many_impl(batches, lock_timeout)
+        except BaseException:
+            if probe:
+                self.breaker.probe_aborted()  # see match_batch
+            raise
 
-    def _geometry(self, S, glob_pad, reg_start, reg_end, Bpad):
+    def _match_many_impl(self, batches,
+                         lock_timeout) -> List[List[List[Row]]]:
+        batches = [list(b) for b in batches]
+        self._acquire(lock_timeout)
+        fast = False
+        try:
+            self._sync_for_match()
+            operands = self._operands
+            snapshot = self._entries_snapshot
+            dev_arrays = self._dev_arrays
+            fast = (len(batches) > 1 and self._bucketed
+                    and operands is not None)
+            if fast:
+                layout = self._layout_locked()
+                Bpad = max(self._pad_batch(len(b)) for b in batches)
+                # only the encode (interner access) needs the lock; the
+                # window prep runs on the pinned layout after release
+                encoded = []
+                for topics in batches:
+                    pw, pl, pd, pb, gb = self._encode_batch_ex(topics)
+                    pw, pl, pd = _pad_pub_block(pw, pl, pd, Bpad)
+                    encoded.append((pw, pl, pd, pb, gb))
+                self._inflight += 1
+        finally:
+            self.lock.release()
+        if not fast:
+            # the impl, not the public wrapper: passage through the
+            # breaker gate was already granted
+            return [self._match_batch_impl(topics, lock_timeout)
+                    for topics in batches]
+        n_pubs = sum(len(b) for b in batches)
+        self.match_batches += len(batches)
+        self.match_publishes += n_pubs
+        t_disp = time.monotonic()
+        try:
+            F_t = operands[0]
+            S = int(F_t.shape[1])
+            preps: List[tuple] = []
+            lefts: List[set] = []
+            statics = None
+            for topics, enc in zip(batches, encoded):
+                args, statics, left = self._flat_prep(
+                    layout, S, *enc, len(topics))
+                preps.append(args)
+                lefts.append(left)
+            out = K.call_match_many(*operands, *dev_arrays[1:], preps,
+                                    statics)
+            results = K.unpack_many_results(out, Bpad, statics["C"])
+            self.super_dispatches += 1
+        except TM.KernelError:
+            raise
+        except Exception as e:
+            self._record_device_failure(e)
+        else:
+            self._record_device_success()
+            if not watchdog_mod.current_op_abandoned():
+                dur = (time.monotonic() - t_disp) * 1e3
+                obs.observe("stage_device_dispatch_ms", dur)
+                record_dispatch("match", t_disp, dur, k=len(batches),
+                                batch=n_pubs, bpad=int(Bpad))
+        finally:
+            with self.lock:
+                self._inflight -= 1
+        outs: List[List[List[Row]]] = []
+        for topics, (flat, pre, total, overflow), left in zip(
+                batches, results, lefts):
+            n = len(topics)
+            need_host = overflow[:n].copy()
+            for i in left:
+                need_host[i] = True
+            idx_rows = [flat[pre[i]:pre[i] + total[i]] for i in range(n)]
+            outs.append(self._resolve_rows(topics, idx_rows, need_host,
+                                           snapshot))
+        return outs
+
+    @property
+    def supports_match_many(self) -> bool:
+        """Whether the K-batch dispatch is available (bucketed layout,
+        codable ids): table state, not device state, since match_many syncs
+        first. The collector super-batches only when this holds, so K
+        windows are never serialized."""
+        t = self.table
+        return bool(t.bucketed and t.id_bits)
+
+    def _geometry(self, S, glob_pad, reg_start, reg_end, Bpad, gb_end, ng):
         """Kernel geometry for both probes at this batch size."""
-        ng = self._ng
-        gb_end = self._gb_end
         amax = (int((reg_end[1 + ng:] - reg_start[1 + ng:]).max())
                 if len(reg_start) > 1 + ng else 0)
         T, seg_max, gc = window_params(S, glob_pad, amax, Bpad,
@@ -428,18 +877,20 @@ class GpuMatcher:
                                         zone=gb_end - glob_pad)
         else:
             T2, seg2 = 1, 0
-        return T, seg_max, gc, T2, seg2, gb_end
+        return T, seg_max, gc, T2, seg2
 
-    def _flat_prep(self, reg_start, reg_end, glob_pad, bits, S,
-                   pw, pl, pd, pb, gb, n):
-        """Host prep for :func:`K.match_extract_windowed_flat`: geometry,
-        selector tiles, per-publish tile coordinates, flat capacity.
-        Returns ``(args, statics, left)``: the kernel's trailing positional
+    def _flat_prep(self, layout: dict, S: int, pw, pl, pd, pb, gb, n):
+        """Host prep for :func:`K.match_extract_windowed_flat` against the
+        pinned ``layout`` (:meth:`_layout_locked`): geometry, selector
+        tiles, per-publish tile coordinates, flat capacity. Returns
+        ``(args, statics, left)``: the kernel's trailing positional
         arguments, its keyword arguments, and the publishes left to the
         host (window overflow)."""
+        reg_start, reg_end = layout["reg_start"], layout["reg_end"]
+        glob_pad, gb_end = layout["glob_pad"], layout["gb_end"]
         Bpad = pw.shape[0]
-        T, seg_max, gc, T2, seg2, gb_end = self._geometry(
-            S, glob_pad, reg_start, reg_end, Bpad)
+        T, seg_max, gc, T2, seg2 = self._geometry(
+            S, glob_pad, reg_start, reg_end, Bpad, gb_end, layout["ng"])
         t_sel, t_start, tile_of, pos_of, leftovers = prepare_windows(
             pb, n, reg_start, reg_end, S, T, seg_max, row_lo=gb_end)
         t_start = t_start + gb_end  # starts are row_lo-relative
@@ -462,20 +913,17 @@ class GpuMatcher:
             left2 = []
         args = (pw, pl, pd, np.int32(n), t_sel, t_start, t2_sel, t2_start,
                 a_tile, a_pos, b_tile, b_pos)
-        statics = dict(id_bits=bits, k=self.max_fanout, glob_pad=glob_pad,
-                       seg_max=seg_max, seg2_max=seg2, gc=gc,
-                       C=Bpad * self.flat_avg)
+        statics = dict(id_bits=layout["bits"], k=self.max_fanout,
+                       glob_pad=glob_pad, seg_max=seg_max, seg2_max=seg2,
+                       gc=gc, C=Bpad * self.flat_avg)
         return args, statics, set(leftovers) | set(left2)
 
-    def _match_windowed(self, dev_arrays, operands, reg_start, reg_end,
-                        glob_pad, bits, pw, pl, pd, pb, gb, n):
-        """The windowed device path. Returns (per-publish slot id views,
-        need_host bool array) in batch order; need_host marks publishes
-        the device could not serve exactly."""
-        F_t, t1 = operands
-        S = int(F_t.shape[1])
-        args, statics, left = self._flat_prep(
-            reg_start, reg_end, glob_pad, bits, S, pw, pl, pd, pb, gb, n)
+    def _dispatch_flat(self, dev_arrays, operands, args,
+                       statics) -> np.ndarray:
+        """One batch through :func:`K.match_extract_windowed_flat`: returns
+        its ``[C + 3B]`` int32 result (``flat, pre, total, overflow``, the
+        layout of one row of :func:`K.call_match_many`) with one
+        device→host copy."""
         dev = self.device
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         # the window starts (args[5], args[7]) stay on the host, where the
@@ -484,16 +932,38 @@ class GpuMatcher:
                                             args[5], put(args[6]), args[7]] \
             + [put(a) for a in args[8:]]
         flat, pre, total, overflow = K.match_extract_windowed_flat(
-            F_t, t1, *dev_arrays[1:], *host, **statics)
-        C, B = flat.shape[0], pre.shape[0]
-        out = torch.cat([flat, pre, total, overflow.to(torch.int32)]) \
-            .cpu().numpy()  # one device→host copy
-        flat, pre, total = out[:C], out[C:C + B], out[C + B:C + 2 * B]
-        need_host = out[C + 2 * B:C + 2 * B + n].astype(bool)
+            *operands, *dev_arrays[1:], *host, **statics)
+        return torch.cat([flat, pre, total, overflow.to(torch.int32)]) \
+            .cpu().numpy()
+
+    def _match_windowed(self, dev_arrays, operands, layout, pw, pl, pd, pb,
+                        gb, n):
+        """The windowed device path. Returns (per-publish slot id views,
+        need_host bool array) in batch order; need_host marks publishes
+        the device could not serve exactly."""
+        S = int(operands[0].shape[1])
+        args, statics, left = self._flat_prep(layout, S, pw, pl, pd, pb,
+                                              gb, n)
+        faults.inject("device.dispatch")
+        out = self._dispatch_flat(dev_arrays, operands, args, statics)
+        flat, pre, total, overflow = K.unpack_flat_result(
+            out, pw.shape[0], statics["C"])
+        need_host = overflow[:n].copy()
         for i in left:
             need_host[i] = True
         # per-publish results are VIEWS into flat — no per-publish copies
         return [flat[pre[i]:pre[i] + total[i]] for i in range(n)], need_host
+
+    def _match_dense(self, dev_arrays, pw, pl, pd, n):
+        """Unbucketed (small) table: every publish against every row."""
+        faults.inject("device.dispatch")
+        put = lambda a: torch.from_numpy(a).to(self.device)
+        mask = K.match_mask_unrolled(*dev_arrays, put(pw), put(pl), put(pd))
+        idx, valid, count = K.extract_indices(mask, self.max_fanout)
+        idx, valid, count = idx.cpu().numpy(), valid.cpu().numpy(), \
+            count.cpu().numpy()
+        return ([idx[i][valid[i]] for i in range(n)],
+                count[:n] > self.max_fanout)
 
     def _resolve_rows(self, topics, idx_rows, need_host,
                       snapshot) -> List[List[Row]]:
@@ -531,30 +1001,58 @@ class GpuMatcher:
 
 
 class GpuRegView:
-    """Reg-view adapter over per-mountpoint :class:`GpuMatcher` s.
+    """Reg-view adapter over per-mountpoint :class:`GpuMatcher` s: the
+    production seat. Growth rebuilds run in the background while the
+    registry's trie serves, a circuit breaker (``breaker_*``) degrades the
+    device path to the trie after repeated failures, and a stall
+    ``watchdog`` abandons rebuilds past ``rebuild_deadline_s``. The
+    defaults are the reference's (its ``tpu_breaker_*`` knobs).
 
     ``registry`` provides ``fold_subscriptions(mountpoint)`` (an iterable
-    of ``(filter_words, key, opts)``, the warm load) and
+    of ``(filter_words, key, opts)``, the initial load) and
     ``trie(mountpoint)`` (the host trie that answers while the device
-    cannot)."""
+    cannot). On CUDA the kernel libraries are built and loaded when the
+    view is created."""
 
     def __init__(self, registry, max_levels: int = 16,
                  initial_capacity: int = 1024, max_fanout: int = 256,
-                 flat_avg: int = 128, device: DeviceLike = None):
+                 flat_avg: int = 128,
+                 breaker_failure_threshold: int = 3,
+                 breaker_backoff_initial: float = 0.2,
+                 breaker_backoff_max: float = 10.0,
+                 watchdog=None, rebuild_deadline_s: float = 120.0,
+                 device: DeviceLike = None):
         self.registry = registry
         self.device = resolve_device(device)
+        load_kernels(self.device)
+        self.watchdog = watchdog
+        self.rebuild_deadline_s = rebuild_deadline_s
         self._kw = dict(max_levels=max_levels,
                         initial_capacity=initial_capacity,
                         max_fanout=max_fanout, flat_avg=flat_avg,
                         device=self.device)
+        self._breaker_kw = dict(failure_threshold=breaker_failure_threshold,
+                                backoff_initial=breaker_backoff_initial,
+                                backoff_max=breaker_backoff_max,
+                                name="match")
         self._matchers: Dict[str, GpuMatcher] = {}
 
+    def _mk(self) -> GpuMatcher:
+        m = GpuMatcher(**self._kw)
+        m.async_rebuild = True
+        m.breaker = CircuitBreaker(**self._breaker_kw)
+        m.watchdog = self.watchdog
+        m.rebuild_deadline_s = self.rebuild_deadline_s
+        return m
+
     def matcher(self, mountpoint: str = "") -> GpuMatcher:
-        """Get or create the mountpoint's matcher, warm-loaded from the
-        registry's current subscriptions."""
+        """Get or create the mountpoint's matcher, loaded from the
+        registry's current subscriptions. Call it on the thread that
+        mutates the registry (the event loop): the load iterates the
+        registry."""
         m = self._matchers.get(mountpoint)
         if m is None:
-            m = GpuMatcher(**self._kw)
+            m = self._mk()
             with m.lock:
                 for fw, key, opts in self.registry.fold_subscriptions(
                         mountpoint):
@@ -567,7 +1065,7 @@ class GpuRegView:
         """Subscription change feed from the registry."""
         m = self._matchers.get(mountpoint)
         if m is None:
-            return  # warm-loaded on first use
+            return  # loaded on first use
         with m.lock:
             if op == "add":
                 m.table.add(list(filter_words), key, opts)
@@ -582,6 +1080,385 @@ class GpuRegView:
         except (RebuildInProgress, DeviceDegraded):
             return self.registry.trie(mountpoint).match(list(topic))
 
-    def fold_batch(self, mountpoint: str,
-                   topics: Sequence[Sequence[str]]) -> List[List[Row]]:
-        return self.matcher(mountpoint).match_batch(topics)
+    def fold_batch(self, mountpoint: str, topics: Sequence[Sequence[str]],
+                   lock_timeout: Optional[float] = None) -> List[List[Row]]:
+        """One batch through the device (``lock_timeout``: a bounded lock
+        wait, past which MatcherBusy)."""
+        return self.matcher(mountpoint).match_batch(
+            topics, lock_timeout=lock_timeout)
+
+    def fold_many(self, mountpoint: str,
+                  batches: Sequence[Sequence[Sequence[str]]],
+                  lock_timeout: Optional[float] = None):
+        """K-window super-batch fold through one device dispatch
+        (:meth:`GpuMatcher.match_many`); one result list per batch."""
+        return self.matcher(mountpoint).match_many(
+            batches, lock_timeout=lock_timeout)
+
+    def supports_many(self, mountpoint: str = "") -> bool:
+        """Whether this mountpoint's matcher can take a K-window
+        super-batch in one dispatch now (the collector's gate); False
+        while the matcher is uncreated."""
+        m = self._matchers.get(mountpoint)
+        return bool(m is not None and m.supports_match_many)
+
+    def breaker_status(self) -> Dict[str, Any]:
+        """Per-mountpoint breaker status."""
+        return {mp or "(default)": m.breaker.status()
+                for mp, m in self._matchers.items()}
+
+
+class BatchCollector:
+    """Coalesce concurrent publishes into device calls.
+
+    Publishes arriving within ``window_us`` (or until ``max_batch``) are
+    matched together; each caller's future resolves to its own match rows,
+    in submission order. Two flushes run at once (``MAX_INFLIGHT``); under
+    load up to ``super_batch_k`` full windows ride one
+    :meth:`GpuRegView.fold_many`. Whenever the device cannot answer
+    promptly — a flush of at most ``host_threshold`` publishes, overload,
+    an expired item, a dispatch past ``dispatch_deadline_ms`` under the
+    ``watchdog``, a lock busy past ``lock_busy_shed_ms``, a rebuild or an
+    open breaker — the registry's trie serves instead, with identical
+    results. A kernel fault (``KernelError``) reaches the futures as an
+    error. A copy of the reference's collector without its
+    payload-predicate phase, flight-recorder traces and match-service fold
+    meta."""
+
+    #: device calls allowed in flight at once: two slots double-buffer the
+    #: pipeline (batch N+1's host encode overlaps batch N's device work)
+    MAX_INFLIGHT = 2
+
+    def __init__(self, view, window_us: int = 200, max_batch: int = 4096,
+                 host_threshold: int = 0, lock_busy_shed_ms: int = 500,
+                 super_batch_k: int = 8, latency_budget_ms: float = 50.0,
+                 watchdog=None, dispatch_deadline_ms: float = 0.0,
+                 item_expiry_ms: float = 0.0):
+        self.view = view
+        # stall watchdog: with a deadline set, device flushes run as
+        # SACRIFICIAL dispatches — the await is released at the deadline
+        # (StallAbandoned: the trie serves, the breaker is fed) and the
+        # late result is discarded. item_expiry_ms bounds the QUEUED tail
+        # the same way. 0 disables either bound.
+        self.watchdog = watchdog
+        self.dispatch_deadline = dispatch_deadline_ms / 1e3
+        self.item_expiry = item_expiry_ms / 1e3
+        self.stalled_host_pubs = 0  # trie-served after an abandon
+        self.expired_host_pubs = 0  # trie-served past item expiry
+        self._expiry_handle: Optional[asyncio.TimerHandle] = None
+        self.window = window_us / 1e6
+        self.max_batch = max_batch
+        # under load (more than one full window queued) up to this many
+        # windows coalesce into ONE device dispatch; 1 disables
+        self.super_batch_k = max(1, super_batch_k)
+        self.super_batches = 0      # multi-window dispatches
+        self.super_batch_pubs = 0   # publishes that rode one
+        # bounded head-of-line blocking: a flush waits at most this long
+        # for the matcher lock before the whole flush serves from the
+        # trie. 0 disables.
+        self.lock_busy_shed_ms = lock_busy_shed_ms
+        # hybrid dispatch: a flush this small is served by the host trie on
+        # the event loop — no device round trip, no executor hop (0, the
+        # default, sends every flush to the device)
+        self.host_threshold = host_threshold
+        self.host_hybrid_pubs = 0
+        self.saturated_merges = 0  # flushes deferred into a later batch
+        self.overload_host_pubs = 0  # shed to the trie at overload
+        # whole-flush latency EWMA (ms) and its budget: the device-path
+        # pressure signal (robustness/overload.py)
+        self.latency_budget_ms = latency_budget_ms
+        self.dispatch_ewma_ms = 0.0
+        self.rebuild_host_pubs = 0  # trie-served during a rebuild
+        self.busy_host_pubs = 0  # trie-served past the lock bound
+        self.degraded_host_pubs = 0  # trie-served while the breaker is open
+        self._pending: List[tuple] = []
+        self._flush_handle: Optional[asyncio.TimerHandle] = None
+        self._inflight = 0
+        # submission-order release queue: a future's caller sees its
+        # result only after every EARLIER submission settled, with two
+        # device batches racing in the pipeline or results coming from a
+        # host shed path
+        self._order: collections.deque = collections.deque()
+
+    def pressure(self) -> float:
+        """Device-path pressure in [0, 1]: queue depth against the overload
+        shed bound (``super_batch_k`` windows) fused with the latency
+        EWMA (``overload.collector_pressure``)."""
+        return collector_pressure(
+            len(self._pending), self.max_batch * max(1, self.super_batch_k),
+            self.dispatch_ewma_ms, self.latency_budget_ms)
+
+    def _many_capable(self, mountpoint: str) -> bool:
+        """Can this mountpoint's flushes ride as super-batches now? Gated
+        on the matcher's K-batch path, so K windows are never fed to a
+        matcher that would serialize them."""
+        if self.super_batch_k <= 1 or not hasattr(self.view, "fold_many"):
+            return False
+        probe = getattr(self.view, "supports_many", None)
+        if probe is None:
+            return True  # simple stand-in views: seam presence is the gate
+        try:
+            return bool(probe(mountpoint))
+        except Exception:
+            return False
+
+    def _enqueue_fut(self, loop) -> asyncio.Future:
+        fut = loop.create_future()
+        fut._vmq_ready = False  # type: ignore[attr-defined]
+        fut._vmq_res = None  # type: ignore[attr-defined]
+        fut._vmq_exc = None  # type: ignore[attr-defined]
+        self._order.append(fut)
+        return fut
+
+    def _settle(self, fut, res=None, exc=None) -> None:
+        """Record a future's result and release the head run of settled
+        futures in submission order."""
+        fut._vmq_ready = True
+        fut._vmq_res = res
+        fut._vmq_exc = exc
+        order = self._order
+        while order and order[0]._vmq_ready:
+            f = order.popleft()
+            if f.done():  # cancelled by the caller
+                continue
+            if f._vmq_exc is not None:
+                f.set_exception(f._vmq_exc)
+            else:
+                f.set_result(f._vmq_res)
+            f._vmq_res = f._vmq_exc = None
+
+    def _settle_via_trie(self, mp: str, topic, fut,
+                         fallback_exc: Optional[BaseException] = None) -> None:
+        """Serve one publish from the host trie and settle its future;
+        without a registry the original cause reaches the caller."""
+        reg = getattr(self.view, "registry", None)
+        if reg is None:
+            self._settle(fut, exc=fallback_exc
+                         or RuntimeError("no registry for trie fallback"))
+            return
+        try:
+            self._settle(fut, res=reg.trie(mp).match(list(topic)))
+        except Exception as e:
+            self._settle(fut, exc=e)
+
+    def submit(self, mountpoint: str, topic: Sequence[str]) -> asyncio.Future:
+        """Queue one publish; the future resolves to its match rows."""
+        loop = asyncio.get_event_loop()
+        fut = self._enqueue_fut(loop)
+        if (self._inflight >= self.MAX_INFLIGHT
+                and len(self._pending) >= self.max_batch
+                and len(self._pending) >= self.max_batch * (
+                    self.super_batch_k
+                    if self._many_capable(mountpoint) else 1)):
+            # overload: both slots busy AND a full super-batch already
+            # waiting. Match on the exact trie now instead of queueing
+            # unboundedly; the result still releases in submission order.
+            # Below the bound, queued publishes coalesce into one K-window
+            # dispatch when a slot frees.
+            if getattr(self.view, "registry", None) is not None:
+                self.overload_host_pubs += 1
+                self._settle_via_trie(mountpoint, topic, fut)
+                return fut
+        now_sub = time.monotonic()
+        exp = now_sub + self.item_expiry if self.item_expiry > 0 else None
+        self._pending.append((mountpoint, tuple(topic), fut, exp, now_sub))
+        if exp is not None and self._expiry_handle is None:
+            # the expiry sweep fires even when no flush can (both slots
+            # wedged): the queued-tail bound
+            self._expiry_handle = loop.call_later(self.item_expiry,
+                                                  self._expire_sweep)
+        if len(self._pending) >= self.max_batch:
+            if self._flush_handle is not None:
+                self._flush_handle.cancel()
+                self._flush_handle = None
+            self._flush()
+        elif self._flush_handle is None:
+            self._flush_handle = loop.call_later(self.window, self._flush)
+        return fut
+
+    def submit_batch(self, mountpoint: str,
+                     topics: Sequence[Sequence[str]]) -> "asyncio.Future":
+        """Submit a pre-batched group of publishes; resolves to the list of
+        per-topic row lists, in submission order. The publishes coalesce in
+        the same queue as single submissions."""
+        futs = [self.submit(mountpoint, t) for t in topics]
+        return asyncio.gather(*futs)
+
+    #: expired items settled per sweep callback: the sweep runs on the
+    #: loop, so a large backlog drains across loop iterations
+    _EXPIRE_CHUNK = 256
+
+    def _expire_sweep(self) -> None:
+        """Anything pending past its expiry is answered by the exact trie
+        now; release order is preserved by _settle."""
+        self._expiry_handle = None
+        if not self._pending:
+            return
+        now = time.monotonic()
+        settled = 0
+        keep = []
+        for item in self._pending:
+            mp, topic, fut, exp = item[:4]
+            if (exp is not None and now >= exp
+                    and settled < self._EXPIRE_CHUNK):
+                self.expired_host_pubs += 1
+                self._settle_via_trie(mp, topic, fut)
+                settled += 1
+            else:
+                keep.append(item)
+        self._pending = keep
+        if self._pending and self._pending[0][3] is not None:
+            delay = (0.0 if now >= self._pending[0][3]  # chunk remainder
+                     else max(0.005, self._pending[0][3] - now))
+            self._expiry_handle = asyncio.get_event_loop().call_later(
+                delay, self._expire_sweep)
+
+    def _flush(self) -> None:
+        self._flush_handle = None
+        if not self._pending:
+            return
+        reg = getattr(self.view, "registry", None)
+        if len(self._pending) <= self.host_threshold and reg is not None:
+            pending, self._pending = self._pending, []
+            self.host_hybrid_pubs += len(pending)
+            for mp, topic, fut, _exp, _t_sub in pending:
+                self._settle_via_trie(mp, topic, fut)
+            return
+        if self._inflight >= self.MAX_INFLIGHT:
+            # both slots busy: leave the items pending so late arrivals
+            # coalesce into one bigger batch; _on_done flushes the moment
+            # a slot frees
+            self.saturated_merges += 1
+            return
+        take = self.max_batch
+        if (len(self._pending) > self.max_batch
+                and self._many_capable(self._pending[0][0])):
+            # more than one full window queued: ship up to super_batch_k
+            # windows as ONE device dispatch
+            take = min(len(self._pending),
+                       self.max_batch * self.super_batch_k)
+        pending, self._pending = self._pending[:take], self._pending[take:]
+        self._inflight += 1
+        task = asyncio.get_event_loop().create_task(
+            self._flush_async(pending))
+        task.add_done_callback(self._on_done)
+
+    def _on_done(self, task) -> None:
+        self._inflight -= 1
+        if task.cancelled():
+            return
+        exc = task.exception()
+        if exc is not None:  # futures already got the error; log path
+            log.warning("batch flush task failed: %s", exc)
+        if self._pending:
+            # back-to-back dispatch keeps the device busy
+            if self._flush_handle is not None:
+                self._flush_handle.cancel()
+                self._flush_handle = None
+            self._flush()
+
+    async def _settle_items_via_trie(self, mp, items, exc) -> None:
+        """Serve a flush's items from the trie, yielding to the loop every
+        64 (trie reads stay on the loop, where the trie is mutated)."""
+        for i, (t_, fut) in enumerate(items):
+            self._settle_via_trie(mp, t_, fut, fallback_exc=exc)
+            if (i + 1) % 64 == 0:
+                await asyncio.sleep(0)
+
+    async def _flush_async(self, pending) -> None:
+        """Run the device call off the loop (an executor thread, or a
+        sacrificial one under the watchdog): blocking the loop would stall
+        every session's IO."""
+        loop = asyncio.get_event_loop()
+        flush_t0 = time.perf_counter()
+        # group by mountpoint; items that expired while queued go to the
+        # exact trie instead of riding a device dispatch
+        now = time.monotonic()
+        by_mp: Dict[str, List[Tuple[Tuple[str, ...], asyncio.Future]]] = {}
+        expired = []
+        oldest_sub = None
+        for mp, topic, fut, exp, t_sub in pending:
+            if exp is not None and now >= exp:
+                expired.append((mp, topic, fut))
+            else:
+                by_mp.setdefault(mp, []).append((topic, fut))
+                if oldest_sub is None or t_sub < oldest_sub:
+                    oldest_sub = t_sub
+        if oldest_sub is not None:
+            obs.observe("stage_collector_wait_ms", (now - oldest_sub) * 1e3)
+        for i, (mp, t_, fut) in enumerate(expired):
+            self.expired_host_pubs += 1
+            self._settle_via_trie(mp, t_, fut)
+            if (i + 1) % 64 == 0:
+                await asyncio.sleep(0)
+        for mp, items in by_mp.items():
+            topics = [t for t, _ in items]
+            self.view.matcher(mp)  # first load on the loop thread
+            lock_to = (self.lock_busy_shed_ms / 1e3
+                       if self.lock_busy_shed_ms else None)
+            view = self.view
+            chunks = ([topics[i:i + self.max_batch]
+                       for i in range(0, len(topics), self.max_batch)]
+                      if len(topics) > self.max_batch
+                      and self._many_capable(mp) else None)
+            wd = self.watchdog
+            sacrificial = wd is not None and self.dispatch_deadline > 0
+            try:
+                if chunks:
+                    if sacrificial:
+                        nested = await wd.dispatch_async(
+                            "device.dispatch",
+                            lambda m=mp, c=chunks, lt=lock_to:
+                                view.fold_many(m, c, lt),
+                            self.dispatch_deadline,
+                            label=f"fold_many:{mp or '(default)'}")
+                    else:
+                        nested = await loop.run_in_executor(
+                            None, view.fold_many, mp, chunks, lock_to)
+                    results = [rows for batch in nested for rows in batch]
+                    # counted only on success: a shed super-batch served
+                    # elsewhere must not read as a fused dispatch
+                    self.super_batches += 1
+                    self.super_batch_pubs += len(topics)
+                elif sacrificial:
+                    results = await wd.dispatch_async(
+                        "device.dispatch",
+                        lambda m=mp, t=topics, lt=lock_to:
+                            view.fold_batch(m, t, lt),
+                        self.dispatch_deadline,
+                        label=f"fold_batch:{mp or '(default)'}")
+                else:
+                    results = await loop.run_in_executor(
+                        None, view.fold_batch, mp, topics, lock_to)
+            except StallAbandoned as sa:
+                # deadline overrun: a device failure for the breaker; THIS
+                # flush is served by the trie, the late result discarded
+                self.stalled_host_pubs += len(items)
+                m = (self.view.matcher(mp)
+                     if hasattr(self.view, "matcher") else None)
+                if m is not None and hasattr(m, "record_stall"):
+                    m.record_stall(sa)
+                await self._settle_items_via_trie(mp, items, sa)
+                continue
+            except (RebuildInProgress, MatcherBusy, DeviceDegraded) as rb:
+                # the device can't take this batch promptly — a rebuild, a
+                # busy lock, or an open breaker (a later flush is the
+                # half-open probe): the trie serves, identical results
+                if isinstance(rb, DeviceDegraded):
+                    self.degraded_host_pubs += len(items)
+                elif isinstance(rb, MatcherBusy):
+                    self.busy_host_pubs += len(items)
+                else:
+                    self.rebuild_host_pubs += len(items)
+                await self._settle_items_via_trie(mp, items, rb)
+                continue
+            except Exception as e:  # a kernel fault, a bug: the futures fail
+                for _, fut in items:
+                    self._settle(fut, exc=e)
+                continue
+            for (_, fut), rows in zip(items, results):
+                self._settle(fut, res=rows)
+        # the pressure EWMA: whole-flush service time (shed and degraded
+        # paths included — a slow fallback is pressure too)
+        self.dispatch_ewma_ms = fold_latency_ewma(
+            self.dispatch_ewma_ms, (time.perf_counter() - flush_t0) * 1e3)

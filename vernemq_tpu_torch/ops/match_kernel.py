@@ -19,8 +19,9 @@ are on; nothing falls back to another device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 PAD_ID = 0
@@ -90,14 +91,15 @@ def _popcount(x: torch.Tensor) -> torch.Tensor:
 
 def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
     """``[B, S]`` bool → ``[B, S/32]`` int32 words, bit j of word w being
-    column 32w + j (the reference's uint32 words, same bits). Bit 31
-    weighs −2^31, so every sum is already the word's int32 value."""
+    column 32w + j (the reference's uint32 words, same bits, as int32)."""
     B, S = mask.shape
     bits = mask.reshape(B, S // 32, 32).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
         << torch.arange(32, device=mask.device)
-    weights[31] = -(1 << 31)
-    return (bits * weights).sum(dim=2).to(torch.int32)
+    words = (bits * weights).sum(dim=2)  # the uint32 value
+    # bit 31 weighs -2^31: subtract 2^32 where it is set (computed on the
+    # device; writing a host scalar into a device tensor would wait)
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
 def _select_bit(word: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -254,7 +256,7 @@ def match_extract_windowed_flat(
     pub_words, pub_len, pub_dollar, n_real: int,
     t_sel, t_start, t2_sel, t2_start, a_tile, a_pos, b_tile, b_pos,
     *, id_bits: int, k: int, glob_pad: int, seg_max: int, seg2_max: int,
-    gc: int, C: int,
+    gc: int, C: int, starts_dev=None,
 ):
     """The production match path: dense region 0, probe A (level-0 bucket
     windows, concrete-first rows) and probe B (level-1 g-bucket windows,
@@ -267,7 +269,9 @@ def match_extract_windowed_flat(
     clipped at k: the caller matches that publish on the host).
     The window starts ``t_start`` / ``t2_start`` stay on the host (numpy or
     CPU tensors): the tile matcher checks its window bounds there, so
-    nothing here copies device→host.
+    nothing here copies device→host. ``starts_dev`` optionally holds the
+    same two start arrays already on the device (views of a staged block,
+    :func:`call_match_many`); otherwise they are uploaded here.
     """
     from .tile_match import _probe_tiles, row_flags
 
@@ -280,16 +284,17 @@ def match_extract_windowed_flat(
     G_all = build_pub_operand(pub_words, id_bits)
     pd = pub_dollar.to(torch.int32)
     probe = dict(k=k, glob_pad=glob_pad)
+    a_dev, b_dev = starts_dev if starts_dev is not None else (None, None)
     a = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
                                     pub_len, pd, t_sel, t_start,
                                     seg_max=seg_max, wild_rows=False,
-                                    **probe),
+                                    start_dev=a_dev, **probe),
                       a_tile, a_pos)
     if seg2_max:
         b = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
                                         pub_len, pd, t2_sel, t2_start,
                                         seg_max=seg2_max, wild_rows=True,
-                                        **probe),
+                                        start_dev=b_dev, **probe),
                           b_tile, b_pos)
     else:
         dev = pub_words.device
@@ -320,3 +325,128 @@ def apply_delta_fused_nometa(dev_arrays, operands, slots, d_words, d_eff_len,
         F_d, t1_d = build_operands(d_words, d_eff_len, id_bits)
         F_t.index_copy_(1, slots, F_d)
         t1.index_copy_(0, slots, t1_d)
+
+
+# ----------------------------------------------------- stacked transport
+
+def flat_pack_args(args) -> np.ndarray:
+    """Host side of the packed transport: every per-batch host argument of
+    :func:`match_extract_windowed_flat` in ONE int32 vector, laid out as
+    the reference's ``flat_pack_args``. :func:`_unpack_transport` is its
+    one decoder."""
+    (pw, pl, pd, n_real, t_sel, t_start, t2_sel, t2_start,
+     a_tile, a_pos, b_tile, b_pos) = args
+    return np.concatenate([
+        np.ascontiguousarray(pw, dtype=np.int32).ravel(),
+        np.asarray(pl, dtype=np.int32).ravel(),
+        np.asarray(pd, dtype=np.int32).ravel(),
+        np.asarray([n_real], dtype=np.int32),
+        np.ascontiguousarray(t_sel, dtype=np.int32).ravel(),
+        np.asarray(t_start, dtype=np.int32).ravel(),
+        np.ascontiguousarray(t2_sel, dtype=np.int32).ravel(),
+        np.asarray(t2_start, dtype=np.int32).ravel(),
+        np.asarray(a_tile, dtype=np.int32).ravel(),
+        np.asarray(a_pos, dtype=np.int32).ravel(),
+        np.asarray(b_tile, dtype=np.int32).ravel(),
+        np.asarray(b_pos, dtype=np.int32).ravel(),
+    ])
+
+
+def _packed_geometry(args) -> dict:
+    """Shape geometry of one packed batch, derived from the arg shapes."""
+    B, L = args[0].shape
+    T, TP = args[4].shape
+    return dict(B=B, L=L, T=T, TP=TP, T2=args[6].shape[0])
+
+
+def _unpack_transport(packed: torch.Tensor, B: int, L: int, T: int,
+                      TP: int, T2: int):
+    """Decode one :func:`flat_pack_args` vector on its device: the twelve
+    trailing arguments of :func:`match_extract_windowed_flat`, each a view
+    of ``packed`` (``pub_dollar`` becomes a bool tensor, ``n_real`` a 0-d
+    view). The reference's decoder also unpacks its ``pack_meta`` word;
+    the port keeps the per-slot table arrays resident one by one, so there
+    is no meta word."""
+    o = 0
+    pw = packed[o:o + B * L].view(B, L); o += B * L
+    pl = packed[o:o + B]; o += B
+    pd = packed[o:o + B].to(torch.bool); o += B
+    n_real = packed[o]; o += 1
+    t_sel = packed[o:o + T * TP].view(T, TP); o += T * TP
+    t_start = packed[o:o + T]; o += T
+    t2_sel = packed[o:o + T2 * TP].view(T2, TP); o += T2 * TP
+    t2_start = packed[o:o + T2]; o += T2
+    a_tile = packed[o:o + B]; o += B
+    a_pos = packed[o:o + B]; o += B
+    b_tile = packed[o:o + B]; o += B
+    b_pos = packed[o:o + B]; o += B
+    return (pw, pl, pd, n_real, t_sel, t_start, t2_sel, t2_start,
+            a_tile, a_pos, b_tile, b_pos)
+
+
+def stage_many(preps: Sequence[tuple], device) -> torch.Tensor:
+    """Pack K prepped batches into ONE ``[K, P]`` int32 host block (pinned
+    for a CUDA ``device``) and upload it with one ``non_blocking`` copy."""
+    vecs = [flat_pack_args(a) for a in preps]
+    stage = torch.empty((len(vecs), vecs[0].shape[0]), dtype=torch.int32,
+                        pin_memory=torch.device(device).type == "cuda")
+    host = stage.numpy()
+    for i, v in enumerate(vecs):
+        host[i] = v
+    return stage.to(device, non_blocking=True)
+
+
+def match_many_staged(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                      staged: torch.Tensor, preps: Sequence[tuple],
+                      statics: dict) -> torch.Tensor:
+    """Run :func:`match_extract_windowed_flat` once per row of the staged
+    block, back to back on the current stream, writing row k of one
+    ``[K, C + 3B]`` int32 device result (``flat, pre, total, overflow``,
+    the reference's packed result layout). Nothing here waits for the
+    device: the window bounds are checked on the host starts of ``preps``
+    (``args[5]``, ``args[7]``), the kernels read the staged views."""
+    geom = _packed_geometry(preps[0])
+    B, C = geom["B"], statics["C"]
+    out = torch.empty((len(preps), C + 3 * B), dtype=torch.int32,
+                      device=staged.device)
+    for i, args in enumerate(preps):
+        v = _unpack_transport(staged[i], **geom)
+        flat, pre, total, overflow = match_extract_windowed_flat(
+            F_t, t1, sub_eff_len, has_hash, first_wild, active,
+            *v[:5], args[5], v[6], args[7], *v[8:], **statics,
+            starts_dev=(v[5], v[7]))
+        row = out[i]
+        row[:C].copy_(flat)
+        row[C:C + B].copy_(pre)
+        row[C + B:C + 2 * B].copy_(total)
+        row[C + 2 * B:].copy_(overflow)
+    return out
+
+
+def call_match_many(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                    preps: Sequence[tuple], statics: dict) -> np.ndarray:
+    """Super-batch dispatch: stage the K prepped batches as one block (one
+    upload), run them back to back (:func:`match_many_staged`) and
+    download the ``[K, C + 3B]`` result with one device→host copy. No host
+    sync runs between the upload and the download. Decode with
+    :func:`unpack_many_results`. (``device.dispatch`` injection point.)"""
+    from ..robustness import faults
+
+    faults.inject("device.dispatch")
+    staged = stage_many(preps, F_t.device)
+    out = match_many_staged(F_t, t1, sub_eff_len, has_hash, first_wild,
+                            active, staged, preps, statics)
+    return out.cpu().numpy()
+
+
+def unpack_flat_result(out: np.ndarray, B: int, C: int):
+    """Decode one ``[C + 3B]`` result vector into ``(flat [C], pre [B],
+    total [B], overflow [B] bool)``. ``B`` is the PADDED batch."""
+    return (out[:C], out[C:C + B], out[C + B:C + 2 * B],
+            out[C + 2 * B:C + 3 * B].astype(bool))
+
+
+def unpack_many_results(out: np.ndarray, B: int, C: int) -> List[tuple]:
+    """Decode a stacked ``[K, C + 3B]`` result into K
+    :func:`unpack_flat_result` tuples."""
+    return [unpack_flat_result(out[i], B, C) for i in range(out.shape[0])]

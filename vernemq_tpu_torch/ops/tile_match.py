@@ -43,6 +43,17 @@ KEY_CLAMP = 31   # publish lengths clamp here in the kernel's row masks
 T1_COLS = 3      # K columns in which the kernel carries t1 - 1
 
 
+class KernelError(RuntimeError):
+    """The kernel failed to launch or refused its inputs: a fault of the
+    code, which the matcher raises to its caller and never feeds to the
+    device breaker or answers from the trie."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """The wrapper refused its inputs (device, dtype, shape, alignment or
+    window bounds)."""
+
+
 def padded_k(K: int) -> int:
     """The kernel's compiled width for operands of width ``K``: ``K`` plus
     the t1 columns, rounded up to the tensor-core k-step of 16."""
@@ -57,13 +68,16 @@ def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     j = torch.arange(seg_max, device=F_t.device)
     out = []
     for t in range(T):
-        rows = int(start[t]) + j
-        mm = Gt[t].to(torch.float32) @ F_t[:, rows].to(torch.float32) \
-            + t1[rows]
-        fl = flags[rows]
+        s = int(start[t])
+        rows = s + j
+        win = slice(s, s + seg_max)  # the window's rows, contiguous
+        mm = Gt[t].to(torch.float32) @ F_t[:, win].to(torch.float32) \
+            + t1[win]
+        fl = flags[win]
         hh, fw, act = (fl & 1) > 0, (fl & 2) > 0, (fl & 4) > 0
         plen = plt[t][:, None]
-        len_ok = torch.where(hh, plen >= eff[rows], plen == eff[rows])
+        e = eff[win]
+        len_ok = torch.where(hh, plen >= e, plen == e)
         m = (mm == 0.0) & len_ok & ~((pdt[t][:, None] > 0) & fw) & act
         m &= (rows >= glob_pad) & (fw if wild_rows else ~fw)
         out.append(_pack_mask(m))
@@ -106,16 +120,18 @@ def pub_keys(plt, pdt) -> torch.Tensor:
     return torch.where(plt < 0, 64, k)
 
 
-def _check(name, x, dtype, shape, dev):
+def _check(name, x, dtype, shape, dev, align=16):
     if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
-        raise ValueError(
+        raise KernelInputError(
             f"tile_match: {name} must be a contiguous {dtype} tensor of "
             f"shape {shape} on {dev}; got {x.dtype} {tuple(x.shape)} on "
             f"{x.device} (contiguous={x.is_contiguous()})")
-    if x.data_ptr() % 16:
-        raise ValueError(f"tile_match: {name} must start on a 16-byte "
-                         f"boundary (cp.async copies 16-byte pieces)")
+    if x.data_ptr() % align:
+        raise KernelInputError(
+            f"tile_match: {name} must start on a {align}-byte boundary "
+            f"(cp.async copies 16-byte pieces; the starts are read one "
+            f"int32 at a time)")
 
 
 def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
@@ -137,14 +153,15 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     s = np.asarray(start_host).reshape(-1)
     if s.shape != (Gt.shape[0],) or (
             s.size and (int(s.min()) < 0 or int(s.max()) + seg_max > S)):
-        raise ValueError(f"tile_match: window starts {s.tolist()} + "
-                         f"seg_max {seg_max} leave the table (S={S})")
+        raise KernelInputError(
+            f"tile_match: window starts {s.tolist()} + seg_max {seg_max} "
+            f"leave the table (S={S})")
     if dev.type == "cpu":
         return window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt,
                                        start, seg_max=seg_max,
                                        glob_pad=glob_pad, wild_rows=wild_rows)
     if dev.type != "cuda":
-        raise ValueError(f"tile_match: unsupported device {dev}")
+        raise KernelInputError(f"tile_match: unsupported device {dev}")
     K = F_t.shape[0]
     T, TP, _ = Gt.shape
     _check("F_t", F_t, torch.bfloat16, (K, S), dev)
@@ -154,18 +171,21 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     _check("Gt", Gt, torch.bfloat16, (T, TP, K), dev)
     _check("plt", plt, torch.int32, (T, TP), dev)
     _check("pdt", pdt, torch.int32, (T, TP), dev)
-    _check("start", start, torch.int32, (T,), dev)
+    _check("start", start, torch.int32, (T,), dev, align=4)
     if not 0 < K <= MAX_K:
-        raise ValueError(f"tile_match: K={K} outside 1..{MAX_K}")
+        raise KernelInputError(f"tile_match: K={K} outside 1..{MAX_K}")
     if seg_max <= 0 or seg_max % ROW_CHUNK or seg_max > S:
-        raise ValueError(f"tile_match: seg_max={seg_max} must be a positive "
-                         f"multiple of {ROW_CHUNK} no larger than S={S}")
+        raise KernelInputError(
+            f"tile_match: seg_max={seg_max} must be a positive multiple "
+            f"of {ROW_CHUNK} no larger than S={S}")
     if S % 8:
-        raise ValueError(f"tile_match: S={S} must be a multiple of 8 (F_t "
-                         f"rows are copied in 16-byte pieces)")
+        raise KernelInputError(
+            f"tile_match: S={S} must be a multiple of 8 (F_t rows are "
+            f"copied in 16-byte pieces)")
     if TP % PUB_TILE:
-        raise ValueError(f"tile_match: TP={TP} must be a multiple of "
-                         f"{PUB_TILE} (the tensor-core tile)")
+        raise KernelInputError(
+            f"tile_match: TP={TP} must be a multiple of {PUB_TILE} (the "
+            f"tensor-core tile)")
     out = torch.empty((T, TP, seg_max // 32), dtype=torch.int32, device=dev)
     lib = _build.load("tile_match")
     with torch.cuda.device(dev):
@@ -176,7 +196,7 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
             out.data_ptr(), T, TP, K, S, seg_max, glob_pad, int(wild_rows),
             stream)
     if rc != 0:
-        raise RuntimeError(f"tile_match kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"tile_match kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
 
@@ -210,17 +230,18 @@ def tile_operands(G_all, pub_len, pub_dollar, t_sel):
 
 def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
                  t_sel, start_host, *, k: int, seg_max: int, glob_pad: int,
-                 wild_rows: bool):
+                 wild_rows: bool, start_dev=None):
     """One probe (A or B): gather the tile publishes' operands, run the
     tile matcher, extract the first ``k`` matches of every tile row and
     make them absolute slot ids. ``start_host`` holds the window starts on
-    the host (numpy or a CPU tensor): the bounds are checked there and the
-    copy to the card does not wait for it. Returns
-    ``(tidx [T, TP, k], tvalid, tcount [T, TP])`` — the contract of the
-    reference's ``_probe_pallas`` / ``_window_tiles_sel``."""
+    the host (numpy or a CPU tensor): the bounds are checked there.
+    ``start_dev`` is the same starts already on the device (a view of a
+    staged block); without it the host copy is uploaded, without waiting.
+    Returns ``(tidx [T, TP, k], tvalid, tcount [T, TP])`` — the contract
+    of the reference's ``_probe_pallas`` / ``_window_tiles_sel``."""
     T, TP = t_sel.shape
-    t_start = torch.as_tensor(np.asarray(start_host, np.int32)).to(
-        F_t.device, non_blocking=True)
+    t_start = start_dev if start_dev is not None else torch.as_tensor(
+        np.asarray(start_host, np.int32)).to(F_t.device, non_blocking=True)
     Gt, plt, pdt = tile_operands(G_all, pub_len, pub_dollar, t_sel)
     packed = window_tiles_packed(F_t, t1, sub_eff_len, flags, Gt, plt, pdt,
                                  t_start, seg_max=seg_max, glob_pad=glob_pad,
