@@ -1,0 +1,428 @@
+"""The port's broker end to end: MQTT clients over TCP → sessions →
+registry → the port's BatchCollector → GpuRegView → GpuMatcher (plain
+PyTorch path on the CPU) → delivery, held against the reference broker.
+
+One MQTT script per case runs against the reference broker and against the
+port's broker, both in-process on 127.0.0.1 (port 0), through the port's
+client; each client's received ``(topic, payload, qos, retain)`` multiset
+must be equal. The reference serves the ``wildcards`` case on its JAX tpu
+view (on the CPU) and the other cases on its trie view; the port serves
+every case on its GPU view (``device="cpu"``, hybrid dispatch off), and its
+device matcher must have served the publishes: no host-served publish."""
+
+import asyncio
+import collections
+import json
+import time
+
+import pytest
+import torch
+
+import _torch_port  # noqa: F401  (one intra-op thread per worker)
+from vernemq_tpu.broker.config import Config as RefConfig
+from vernemq_tpu.broker.server import start_broker as ref_start_broker
+from vernemq_tpu_torch.broker.broker import Broker
+from vernemq_tpu_torch.broker.config import Config
+from vernemq_tpu_torch.broker.server import start_broker
+from vernemq_tpu_torch.client import MQTTClient
+from vernemq_tpu_torch.protocol.types import SubOpts
+
+SCHEMAS = [{"mountpoint": "", "topic": "sensors/+/temp",
+            "fields": "value:number,unit:enum(c|f)"}]
+
+#: the config both brokers share: no periodic $SYS traffic or loop-lag
+#: sampling, every flush on the device (no hybrid host dispatch, no lock
+#: bound — which on the reference also sheds a batch shape JAX has not
+#: compiled yet), and a queued-item expiry of 5 s so a slow CPU flush is not
+#: served by the trie
+BASE = dict(allow_anonymous=True, systree_enabled=False,
+            sysmon_enabled=False, tpu_host_batch_threshold=0,
+            tpu_batch_window_us=500, tpu_lock_busy_shed_ms=0,
+            watchdog_collector_expiry_budgets=100,
+            payload_schemas=SCHEMAS)
+
+#: publishes the collector or the matcher served on the host
+COLLECTOR_HOST = ("degraded_host_pubs", "busy_host_pubs", "rebuild_host_pubs",
+                  "overload_host_pubs", "expired_host_pubs",
+                  "stalled_host_pubs", "host_hybrid_pubs")
+MATCHER_HOST = ("host_fallbacks", "degraded_sheds", "device_failures")
+
+
+async def _client(port, cid, v5=False):
+    c = MQTTClient("127.0.0.1", port, client_id=cid, proto_ver=5 if v5 else 4)
+    await c.connect()
+    return c
+
+
+async def _drain(c, quiet=0.3):
+    """Every PUBLISH the client receives until it has been quiet for
+    ``quiet`` seconds."""
+    out = []
+    while True:
+        try:
+            m = await asyncio.wait_for(c.messages.get(), quiet)
+        except asyncio.TimeoutError:
+            return out
+        if m is None:
+            return out
+        out.append((m.topic, bytes(m.payload), m.qos, bool(m.retain)))
+
+
+async def _case_wildcards(port):
+    a = await _client(port, "a")
+    await a.subscribe(["w/+/x", "w/#"], qos=1)
+    b = await _client(port, "b", v5=True)
+    await b.subscribe("#", qos=2)
+    d = await _client(port, "d", v5=True)
+    await d.subscribe("$ctl/#", qos=1)
+    e = await _client(port, "e")
+    await e.subscribe(["+/+/x", "w/b/+", "w/b/x/#"])
+    p = await _client(port, "p")
+    for i, t in enumerate(["w/a/x", "w/b/x", "w/b/x/y", "w", "v/a/x",
+                           "$ctl/a", "$ctl/a/x", "w/b/x"]):
+        await p.publish(t, b"m%d" % i, qos=i % 3)
+    return {"a": a, "b": b, "d": d, "e": e, "p": p}
+
+
+async def _case_shared(port):
+    s1 = await _client(port, "s1")
+    s2 = await _client(port, "s2", v5=True)
+    for s in (s1, s2):
+        await s.subscribe("$share/g/sh/+", qos=1)
+    o = await _client(port, "o")
+    await o.subscribe("sh/#")
+    p = await _client(port, "p")
+    for i in range(12):
+        await p.publish(f"sh/{i % 3}", b"s%d" % i, qos=i % 2)
+    return {("s1", "s2"): (s1, s2), "o": o, "p": p}
+
+
+async def _case_v5(port):
+    n = await _client(port, "n", v5=True)
+    await n.subscribe("nl/t", opts=SubOpts(qos=1, no_local=True))
+    m = await _client(port, "m", v5=True)
+    await m.subscribe("nl/t", qos=1)
+    r = await _client(port, "r", v5=True)
+    await r.subscribe("rap/#", opts=SubOpts(qos=1, rap=True))
+    r2 = await _client(port, "r2", v5=True)
+    await r2.subscribe("rap/#", qos=1)
+    for i in range(3):
+        await n.publish("nl/t", b"own%d" % i, qos=1)
+        await m.publish("nl/t", b"other%d" % i, qos=1)
+    await m.publish("rap/t", b"live-retained", qos=1, retain=True)
+    await m.publish("rap/u", b"live", qos=0)
+    return {"n": n, "m": m, "r": r, "r2": r2}
+
+
+async def _case_qos(port):
+    p = await _client(port, "p", v5=True)
+    await p.publish("ret/a", b"kept", qos=1, retain=True)
+    await p.publish("ret/b/c", b"kept2", qos=2, retain=True)
+    subs = {}
+    for q in range(3):
+        s = await _client(port, f"q{q}", v5=q == 2)
+        await s.subscribe("ret/#", qos=q)  # the retained replay
+        subs[f"q{q}"] = s
+    for i in range(9):
+        await p.publish(f"ret/{'ab'[i % 2]}", b"p%d" % i, qos=i % 3)
+    return {**subs, "p": p}
+
+
+async def _case_filter(port):
+    f = await _client(port, "f")
+    await f.subscribe("sensors/+/temp?$gt(value,30)", qos=1)
+    u = await _client(port, "u")
+    await u.subscribe("sensors/+/temp", qos=1)
+    p = await _client(port, "p")
+    for v in (25, 55, 35, 10, 99):
+        await p.publish("sensors/a/temp",
+                        json.dumps({"value": v, "unit": "c"}).encode(),
+                        qos=1)
+    return {"f": f, "u": u, "p": p}
+
+
+CASES = {"wildcards": _case_wildcards, "shared": _case_shared,
+         "v5": _case_v5, "qos": _case_qos, "filter": _case_filter}
+
+
+async def _run(case, port):
+    """Run a case's script; returns {client or group: Counter of
+    deliveries}. A shared group's deliveries are counted together: which
+    member gets a message is the policy's choice."""
+    clients = await CASES[case](port)
+    flat = [(k, c) for k, v in clients.items()
+            for c in (v if isinstance(v, tuple) else (v,))]
+    got = await asyncio.gather(*(_drain(c) for _, c in flat))
+    out = collections.defaultdict(collections.Counter)
+    for (k, _), msgs in zip(flat, got):
+        out[k].update(msgs)
+    for _, c in flat:
+        await c.disconnect()
+    return dict(out)
+
+
+def _host_served(b):
+    m = b.registry.reg_views["tpu"].matcher("")
+    col = b.batch_collector()
+    hs = {k: getattr(col, k) for k in COLLECTOR_HOST}
+    hs.update({k: getattr(m, k) for k in MATCHER_HOST})
+    return m, hs
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("case", list(CASES))
+async def test_port_broker_delivers_as_reference(case):
+    ref_view = "tpu" if case == "wildcards" else "trie"
+    rb, rs = await ref_start_broker(
+        RefConfig(**BASE, default_reg_view=ref_view), port=0)
+    try:
+        want = await _run(case, rs.port)
+        if ref_view == "tpu":  # the JAX device path served the script
+            rm, rhs = _host_served(rb)
+            assert rm.match_publishes > 0 and not any(rhs.values()), rhs
+    finally:
+        await rb.stop()
+        await rs.stop()
+    pb, ps = await start_broker(Config(**BASE, default_reg_view="tpu"),
+                                port=0, device="cpu")
+    try:
+        got = await _run(case, ps.port)
+        m, hs = _host_served(pb)
+        assert pb.registry.batched_view_active()
+        assert m.match_publishes > 0 and not any(hs.values()), hs
+    finally:
+        await pb.stop()
+        await ps.stop()
+    assert got == want
+    assert sum(sum(c.values()) for c in got.values()) > 0
+
+
+@pytest.mark.asyncio
+async def test_broker_e2e_with_gpu_reg_view():
+    """Port of test_tpu_match.py::test_broker_e2e_with_tpu_reg_view: real
+    MQTT over TCP routes through the batched device matcher."""
+    b, server = await start_broker(
+        Config(systree_enabled=False, allow_anonymous=True,
+               default_reg_view="tpu", tpu_batch_window_us=500,
+               tpu_host_batch_threshold=0),
+        port=0, device="cpu")
+    try:
+        sub = MQTTClient(server.host, server.port, "tpu-sub")
+        await sub.connect()
+        await sub.subscribe("tpu/+/x", qos=1)
+        pub = MQTTClient(server.host, server.port, "tpu-pub")
+        await pub.connect()
+        for i in range(5):
+            await pub.publish(f"tpu/{i}/x", f"m{i}".encode(), qos=1)
+        got = sorted([(await sub.recv()).payload for _ in range(5)])
+        assert got == [f"m{i}".encode() for i in range(5)]
+        # no warm gate in the port: every flush went to the device
+        m = b.registry.reg_view("tpu").matcher("")
+        assert m.match_publishes >= 5, (m.match_publishes, m.busy_sheds)
+        await sub.disconnect()
+        await pub.disconnect()
+    finally:
+        await b.stop()
+        await server.stop()
+
+
+@pytest.mark.asyncio
+async def test_hybrid_dispatch_small_flush_serves_host_side():
+    """Port of test_tpu_match.py::test_hybrid_dispatch_small_flush_serves_
+    host_side: flushes at or below tpu_host_batch_threshold resolve on the
+    host trie; the device matcher sees nothing and delivery is exact."""
+    b, server = await start_broker(
+        Config(systree_enabled=False, allow_anonymous=True,
+               default_reg_view="tpu", tpu_batch_window_us=200,
+               tpu_host_batch_threshold=8),
+        port=0, device="cpu")
+    try:
+        sub = MQTTClient(server.host, server.port, "hy-sub")
+        await sub.connect()
+        await sub.subscribe("hy/+/x", qos=1)
+        pub = MQTTClient(server.host, server.port, "hy-pub")
+        await pub.connect()
+        for i in range(4):  # sequential QoS1: one-pub flushes
+            await pub.publish(f"hy/{i}/x", f"m{i}".encode(), qos=1)
+        got = sorted([(await sub.recv()).payload for _ in range(4)])
+        assert got == [f"m{i}".encode() for i in range(4)]
+        col = b.batch_collector()
+        assert col.host_hybrid_pubs >= 4
+        mm = b.registry.reg_view("tpu")._matchers.get("")
+        assert mm is None or mm.match_publishes == 0
+        await sub.disconnect()
+        await pub.disconnect()
+    finally:
+        await b.stop()
+        await server.stop()
+
+
+@pytest.mark.asyncio
+async def test_per_publisher_order_preserved_under_slow_device():
+    """Port of test_batch_collector.py::test_per_publisher_order_preserved_
+    under_slow_device: one publisher streams QoS0 publishes through the
+    batched device view while device batches of variable latency race in
+    the two pipeline slots; the subscriber sees every message in order."""
+    b, s = await start_broker(
+        Config(systree_enabled=False, allow_anonymous=True,
+               default_reg_view="tpu", sysmon_enabled=False,
+               tpu_batch_window_us=2000, tpu_host_batch_threshold=2,
+               tpu_lock_busy_shed_ms=0),
+        port=0, device="cpu")
+    try:
+        view = b.registry.reg_view("tpu")
+        m = view.matcher("")
+        orig = m.match_batch
+        calls = []
+
+        def slow_match(topics, lock_timeout=None):
+            calls.append(len(topics))
+            # odd batches are much slower than even ones, so a newer
+            # batch finishes before an older one: the reorder window the
+            # submission-order release must absorb
+            time.sleep(0.08 if len(calls) % 2 else 0.005)
+            return orig(topics, lock_timeout=lock_timeout)
+
+        m.match_batch = slow_match
+        sub = MQTTClient(s.host, s.port, "ord-sub")
+        await sub.connect()
+        await sub.subscribe("ord/#", qos=0)
+        await asyncio.sleep(0.2)
+        pub = MQTTClient(s.host, s.port, "ord-pub")
+        await pub.connect()
+        n = 120
+        for i in range(n):
+            await pub.publish("ord/t", b"%04d" % i, qos=0)
+            if i % 10 == 0:
+                await asyncio.sleep(0.005)  # spread across batch windows
+        got = []
+        for _ in range(n):
+            f = await sub.recv(10.0)
+            assert f is not None
+            got.append(int(f.payload))
+        assert got == list(range(n))
+        assert len(calls) >= 2
+        await sub.disconnect()
+        await pub.disconnect()
+    finally:
+        await b.stop()
+        await s.stop()
+
+
+def test_gpu_view_without_a_card_raises(monkeypatch):
+    """No probe, no silent trie: the default device is the card, and a
+    broker whose default view is the GPU view raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Broker(Config(default_reg_view="tpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Broker(Config(reg_views=["trie", "tpu"]))
+    assert Broker(Config()).device is None  # the trie view needs no card
+
+
+@pytest.mark.parametrize("knob", [
+    dict(tpu_mesh="2x4"), dict(match_service_req_ring="vmq-req"),
+    dict(worker_stats_block="vmq-stats"), dict(metadata_plugin="swc"),
+    dict(http_enabled=True), dict(graphite_enabled=True),
+    dict(bridges=[{"name": "br0", "host": "127.0.0.1", "port": 1}]),
+    dict(plugins=[{"name": "vmq_acl"}]), dict(observability_enabled=False)],
+    ids=lambda k: next(iter(k)))
+def test_unported_configs_raise(knob):
+    """A device mesh (ROADMAP item 8), worker mode (item 9) and the host
+    surfaces not copied yet (item 11) are not ported: asking for any of
+    them raises, naming the item, before a broker is built."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        Broker(Config(default_reg_view="tpu", **knob), device="cpu")
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("kind", ["http", "vmq"])
+async def test_unported_listener_kinds_raise(kind):
+    """The admin and cluster listener kinds are not ported (item 11): a
+    conf-file listener of either kind fails the broker's start."""
+    b = Broker(Config(allow_anonymous=True, systree_enabled=False,
+                      sysmon_enabled=False,
+                      listeners=[{"kind": kind, "addr": "127.0.0.1",
+                                  "port": 0}]))
+    try:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            await b.start()
+    finally:
+        await b.stop()
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_breaker_knob_reaches_the_gpu_view(enabled):
+    """tpu_breaker_enabled means what it means to the reference: off, the
+    matcher has no breaker and a device error reaches the caller."""
+    from vernemq_tpu_torch.robustness.breaker import CircuitBreaker
+
+    b = Broker(Config(default_reg_view="tpu", tpu_breaker_enabled=enabled,
+                      tpu_breaker_failure_threshold=5), device="cpu")
+    br = b.registry.reg_view("tpu").matcher("").breaker
+    if enabled:
+        assert isinstance(br, CircuitBreaker) and br.failure_threshold == 5
+    else:
+        assert br is None
+
+
+def test_gpu_view_close_joins_a_background_rebuild():
+    """GpuRegView.close, called by Broker.stop: a running background
+    rebuild is joined and respawns no more."""
+    import threading
+
+    from vernemq_tpu_torch.models.matcher import (GpuRegView,
+                                                  RebuildInProgress)
+    from vernemq_tpu_torch.models.trie import SubscriptionTrie
+
+    class Reg:
+        def fold_subscriptions(self, mp):
+            return iter(())
+
+        def trie(self, mp):
+            return SubscriptionTrie()
+
+    view = GpuRegView(Reg(), max_levels=4, initial_capacity=64,
+                      device="cpu")
+    m = view.matcher("")
+    m.table.add(["a"], "k0", None)
+    view.fold_batch("", [("a",)])  # the first build, inline
+    barrier = threading.Event()
+    m._rebuild_barrier = barrier
+    for i in range(200):  # outgrow the capacity: a background rebuild
+        m.table.add(["b", str(i)], f"g{i}", None)
+    with pytest.raises(RebuildInProgress):
+        view.fold_batch("", [("a",)])
+    th = m._rebuild_thread
+    assert th is not None and th.is_alive()
+    threading.Timer(0.1, barrier.set).start()
+    view.close()
+    assert not th.is_alive() and m._closed
+
+
+@pytest.mark.asyncio
+async def test_flight_recorder_stamps_the_collector_stages():
+    """A sampled publish (every one, at sample_n 1) carries the
+    collector's submit / dequeue / match stamps between the session's
+    admit and the route, at QoS 0 (routed when the batch resolves) and
+    QoS 1 (awaited in the session)."""
+    b, s = await start_broker(
+        Config(**BASE, default_reg_view="tpu", flight_recorder_sample_n=1),
+        port=0, device="cpu")
+    try:
+        sub = await _client(s.port, "rec-sub")
+        await sub.subscribe("rec/#", qos=1)
+        pub = await _client(s.port, "rec-pub")
+        for q in (0, 1):
+            await pub.publish("rec/t", b"x", qos=q)
+            assert (await sub.recv()).payload == b"x"
+        recs = [r for r in b.recorder.snapshot() if r["topic"] == "rec/t"]
+        assert sorted(r["qos"] for r in recs) == [0, 1]
+        for r in recs:
+            assert [label for label, _ in r["marks"]] == [
+                "start", "admit", "submit", "dequeue", "match", "route"], r
+        await sub.disconnect()
+        await pub.disconnect()
+    finally:
+        await b.stop()
+        await s.stop()

@@ -344,6 +344,38 @@ async def test_collector_item_expiry_bounds_queued_tail():
         w.stop()
 
 
+@pytest.mark.asyncio
+@pytest.mark.parametrize("bound,message", [
+    (dict(dispatch_deadline_ms=150), "stalled past its deadline"),
+    (dict(dispatch_deadline_ms=2000, item_expiry_ms=150),
+     "expired in the collector queue")])
+async def test_late_publishes_answered_by_the_trie_are_logged(
+        caplog, bound, message):
+    """A publish the device path was too slow for is never answered by
+    the trie silently: besides its counter, the collector logs a
+    warning."""
+    w = StallWatchdog(tick_s=0.02)
+    w.start()
+    view = _WedgedView()
+    col = BatchCollector(view, window_us=100, max_batch=4, host_threshold=0,
+                         super_batch_k=1, watchdog=w, **bound)
+    try:
+        with caplog.at_level("WARNING", logger="vernemq_tpu_torch.matcher"):
+            flights = [col.submit("", ("a", str(i))) for i in range(8)]
+            await asyncio.sleep(0.02)
+            queued = [col.submit("", ("q", str(i))) for i in range(4)]
+            view_rows = asyncio.gather(*flights, *queued)
+            await _until(lambda: any(message in r.getMessage()
+                                     for r in caplog.records))
+        view.release.set()
+        rows = await view_rows
+        late = col.expired_host_pubs + col.stalled_host_pubs
+        assert late >= 4 and sum(r[0][0] == "trie" for r in rows) == late
+    finally:
+        view.release.set()
+        w.stop()
+
+
 # ------------------------------------------ the serving layer end to end
 
 class _Registry:

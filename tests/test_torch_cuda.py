@@ -25,6 +25,7 @@ import torch
 
 from _torch_port import EDGE_IDS, UNKNOWN_ID, bucket_corpus, bucket_topics
 from vernemq_tpu_torch.models import matcher as GM
+from vernemq_tpu_torch.models.trie import SubscriptionTrie
 from vernemq_tpu_torch.ops import _build
 from vernemq_tpu_torch.ops import match_kernel as TK
 from vernemq_tpu_torch.ops import tile_match as TM
@@ -167,6 +168,35 @@ def _many_inputs(K=4, n=256):
 
 
 @pytest.mark.cuda
+def test_first_build_warms_the_device_path_without_changing_it():
+    """The first build runs one match dispatch and one delta scatter on
+    the card (CUDA loads each kernel's module at its first launch): the
+    table on the card still equals the host table, the warm-up counted no
+    match and no dispatch, and the first real batch matches the trie."""
+    _card()
+    m = GM.GpuMatcher(max_levels=8, initial_capacity=8192, device="cuda")
+    corpus = bucket_corpus()
+    for i, f in enumerate(corpus):
+        m.table.add(f, i, None)
+    with m.lock:
+        m.sync()
+    assert m.warm_ms is not None and m.warm_ms > 0 and m.table.bucketed
+    t = m.table
+    for dev, host in zip(m._dev_arrays, (t.words, t.eff_len, t.has_hash,
+                                         t.first_wild, t.active)):
+        np.testing.assert_array_equal(dev.cpu().numpy(), host)
+    assert m.match_batches == 0 and m.match_publishes == 0
+    topics = bucket_topics(random.Random(5), 64)
+    rows = m.match_batch(topics)
+    trie = SubscriptionTrie()
+    for i, f in enumerate(corpus):
+        trie.add(list(f), i, None)
+    for topic, got in zip(topics, rows):
+        assert sorted(k for _, k, _ in got) == sorted(
+            k for _, k, _ in trie.match(list(topic)))
+
+
+@pytest.mark.cuda
 def test_match_many_equals_match_batch_on_card():
     """The [K, C + 3B] result equals K single dispatches element for
     element, and match_many's rows equal K match_batch calls."""
@@ -234,6 +264,7 @@ import asyncio, json, random, sys
 import torch
 from _torch_port import bucket_corpus, bucket_topics
 from vernemq_tpu_torch.models import matcher as GM
+from vernemq_tpu_torch.models.trie import SubscriptionTrie
 from vernemq_tpu_torch.models.trie import SubscriptionTrie
 from vernemq_tpu_torch.ops import tile_match as TM
 
@@ -305,3 +336,68 @@ def test_kernel_fault_fails_the_collector_futures():
     assert res["outs"] == [["KernelError"], ["KernelError"]], res
     assert not any(res["host_pubs"].values()), res
     assert res["device_failures"] == 0 and res["breaker"] == "closed"
+
+
+@pytest.mark.cuda
+def test_broker_serves_mqtt_through_the_tile_kernel():
+    """The port's broker on the card: one subscriber and one publisher over
+    TCP, a bucketed table (the bucket corpus under one subscriber id with
+    no session) so the publishes take the windowed path; every delivery
+    is exact, the tile kernel launched, nothing was served by the host."""
+    import asyncio
+
+    from vernemq_tpu_torch.broker.config import Config
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.protocol.types import SubOpts
+
+    _card()
+    rng = random.Random(7)
+    filters = ["r1/+/m2", "+/d3/m4", "r5/d6/#", "r1/d3/m2"]
+    topics = ["/".join(t) for t in bucket_topics(rng, 200)] \
+        + ["r1/d3/m2", "r5/d6/m0"] * 5
+
+    async def main():
+        b, s = await start_broker(
+            Config(allow_anonymous=True, systree_enabled=False,
+                   sysmon_enabled=False, default_reg_view="tpu",
+                   tpu_initial_capacity=8192, tpu_max_fanout=64,
+                   tpu_host_batch_threshold=0,
+                   watchdog_collector_expiry_budgets=100),
+            port=0, device="cuda")
+        try:
+            b.registry.subscribe(("", "bulk"), [
+                (f, SubOpts()) for f in bucket_corpus()])
+            m = b.registry.reg_view("tpu").matcher("")
+            sub = MQTTClient(s.host, s.port, "sub", proto_ver=5)
+            await sub.connect()
+            await sub.subscribe(filters, qos=1)
+            pub = MQTTClient(s.host, s.port, "pub")
+            await pub.connect()
+            TM.launches = 0
+            for i, t in enumerate(topics):
+                await pub.publish(t, b"%d" % i, qos=i % 2)
+            trie = b.registry.trie("")
+            want = sorted(
+                (t, b"%d" % i) for i, t in enumerate(topics)
+                for _f, key, _o in trie.match(t.split("/"))
+                if key == ("", "sub"))
+            got = []
+            while len(got) < len(want):
+                f = await sub.recv(10.0)
+                got.append((f.topic, bytes(f.payload)))
+            col = b.batch_collector()
+            host = {k: getattr(col, k) for k in dir(col)
+                    if k.endswith("_host_pubs")}
+            host.update(host_fallbacks=m.host_fallbacks,
+                        device_failures=m.device_failures)
+            await sub.disconnect()
+            await pub.disconnect()
+            return want, sorted(got), TM.launches, host, m.table.bucketed
+        finally:
+            await b.stop()
+            await s.stop()
+
+    want, got, launches, host, bucketed = asyncio.run(main())
+    assert bucketed and want and got == want
+    assert launches > 0 and not any(host.values()), (launches, host)

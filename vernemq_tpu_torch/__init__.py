@@ -1,10 +1,14 @@
-"""PyTorch/CUDA port of the vernemq_tpu device match engine.
+"""PyTorch/CUDA port of vernemq_tpu: the MQTT broker with its subscription
+matcher on a CUDA GPU.
 
-The batched wildcard subscription matcher (``models/matcher.py``:
-``GpuMatcher``, ``GpuRegView``) over a device-resident subscription table,
+The broker (``broker/``, served by ``python -m
+vernemq_tpu_torch.broker.server``) routes every PUBLISH through the batched
+wildcard subscription matcher (``models/matcher.py``: ``BatchCollector``,
+``GpuRegView``, ``GpuMatcher``) over a device-resident subscription table,
 with the probe-window tile matcher as a hand-written Hopper kernel
-(``csrc/tile_match.cu``). The package imports ``torch`` and numpy only; the
-JAX package it was ported from is its reference in the tests.
+(``csrc/tile_match.cu``). The package imports ``torch`` and numpy, never
+JAX or the JAX package it was ported from, which is its reference in the
+tests.
 """
 
 from .device import resolve_device

@@ -1,0 +1,1605 @@
+"""The Broker: assembly root tying config, metrics, hooks, registry, retain
+store, message store, sessions, and background services together.
+
+Plays the role of the reference's supervision root
+(``vmq_server_sup.erl:43-58`` boot order: config → msg store → queues →
+registry → cluster → metrics → listeners) — in asyncio there is no
+supervision tree, so this object owns construction order and shutdown.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import inspect
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ..protocol import topic as T
+from ..protocol.types import Will
+from ..robustness import faults
+from ..storage.msg_store import FileMsgStore, MemoryMsgStore, MsgStore
+from .config import Config
+from .message import Msg, SubscriberId
+from .metrics import Metrics
+from .plugins import HookError, HookRegistry
+from .queue import SubscriberQueue
+from .reg import Registry, refuse_unported
+from .retain import RetainStore
+from ..device import DeviceLike, resolve_device
+
+log = logging.getLogger("vernemq_tpu_torch.broker")
+
+
+def _log_hook_task_error(task: "asyncio.Task") -> None:
+    if not task.cancelled() and task.exception() is not None:
+        log.error("async hook handler failed", exc_info=task.exception())
+
+
+class Broker:
+    def __init__(self, config: Optional[Config] = None,
+                 node_name: str = "node1", device: DeviceLike = None):
+        """``device``: where the ``tpu`` reg view (the GPU match engine)
+        runs, by default the CUDA card. It is resolved here when that view
+        is the default or listed in ``reg_views``, and raises without a
+        card; the CPU serves it only when asked (``device="cpu"``)."""
+        self.config = config or Config()
+        self.node_name = node_name
+        refuse_unported(self.config)
+        self.device = (resolve_device(device)
+                       if "tpu" in (self.config.default_reg_view,
+                                    *self.config.get("reg_views", []))
+                       else device)
+        self._resolve_base_dirs()
+        self.metrics = Metrics()
+        self.hooks = HookRegistry()
+        from ..plugins import PluginManager
+
+        self.plugins = PluginManager(self)
+        # replicated metadata store (vmq_metadata facade,
+        # vmq_metadata.erl:24-28): the plumtree-flavored LWW store ("lww";
+        # the "swc" store is refused in refuse_unported, ROADMAP item 11)
+        persist_dir = (self.config.metadata_dir
+                       if self.config.get("metadata_persistence", False)
+                       else None)
+        from ..cluster.metadata import MetadataStore
+
+        self.metadata = MetadataStore(node_name, persist_dir=persist_dir)
+        self.cluster: Optional[Any] = None  # set by cluster.Cluster
+        # stall watchdog (robustness/watchdog.py): monitored-operation
+        # registry + sacrificial dispatch for every cross-boundary wait
+        # (device dispatch, rebuild threads, delta scatter, store
+        # writes, cluster ack progress). Created unconditionally so the
+        # gauges always exist; the monitor thread starts in start()
+        # when watchdog_enabled.
+        from ..robustness.watchdog import StallWatchdog
+
+        self.watchdog = StallWatchdog(
+            tick_s=self.config.get("watchdog_tick_ms", 100) / 1e3)
+        self.retain = RetainStore(on_dirty=self._retain_dirty)
+        # device-resident retained index (vernemq_tpu/retained/): created
+        # lazily on the first replay once the tpu reg view is live; the
+        # retain dirty hook write-throughs deltas into it
+        self._retained_engine: Optional[Any] = None
+        self._retained_collector: Optional[Any] = None
+        self.metadata.subscribe("retain", self._on_retain_event)
+        self.registry = Registry(self)
+        # payload filtering & windowed aggregation (vernemq_tpu/filters/,
+        # MQTT+): per-mountpoint schemas replicate through the metadata
+        # plane like the mesh slice map; the engine runs the predicate
+        # phase behind topic match. Disabled ⇒ both stay None and every
+        # hook is one attribute test — byte-identical to the pre-filter
+        # broker.
+        self.schema_registry: Optional[Any] = None
+        self.filter_engine: Optional[Any] = None
+        if self.config.get("payload_filters_enabled", True):
+            from ..filters.engine import FilterEngine
+            from ..filters.schema_registry import SchemaRegistry
+
+            self.schema_registry = SchemaRegistry(self.metadata, node_name)
+            self.schema_registry.boot_install(
+                self.config.get("payload_schemas", []))
+            cfg = self.config
+            self.filter_engine = FilterEngine(
+                self.schema_registry, metrics=self.metrics,
+                breaker_enabled=cfg.get("tpu_breaker_enabled", True),
+                breaker_failure_threshold=cfg.get(
+                    "tpu_breaker_failure_threshold", 3),
+                breaker_backoff_initial=cfg.get(
+                    "tpu_breaker_backoff_initial_ms", 200) / 1e3,
+                breaker_backoff_max=cfg.get(
+                    "tpu_breaker_backoff_max_ms", 10_000) / 1e3,
+                host_threshold=cfg.get("predicate_host_threshold", 16),
+                max_pairs=cfg.get("predicate_max_pairs", 65536),
+                window_initial=cfg.get("aggregate_initial_windows", 256),
+                window_cap=cfg.get("aggregate_max_windows", 4096),
+                tick_ms=cfg.get("aggregate_tick_ms", 250),
+                # the device phase runs only while the tpu view serves
+                device_gate=lambda: self.registry.batched_view_active(),
+            )
+            self.filter_engine.emit = self._deliver_aggregate
+        # no mesh slice map: the port serves one GPU (tpu_mesh is refused,
+        # ROADMAP Queue 1 item 8); the cluster copies read this None
+        self.mesh_map: Optional[Any] = None
+        fsync = bool(self.config.get("msg_store_fsync", False))
+        # fsync group-commit: one fsync per write burst at the flush-tick
+        # boundary instead of per record (msg_store_fsync_coalesced)
+        gc_on = bool(self.config.get("msg_store_group_commit", True))
+        seg_max = int(self.config.get("store_segment_max_bytes",
+                                      8 * 1024 * 1024))
+        ckpt_every = int(self.config.get("store_checkpoint_every_bytes",
+                                         32 * 1024 * 1024))
+        if self.config.message_store == "file":
+            from ..storage.msg_store import SegmentMsgStore
+
+            store_dir = self.config.message_store_dir
+            if os.path.exists(os.path.join(store_dir, "msgstore.log")):
+                # a legacy flat-log store already lives here — honour
+                # its data rather than silently orphaning it
+                log.warning("legacy flat-log msg store found in %s; "
+                            "serving it (new dirs open the segment "
+                            "engine)", store_dir)
+                self.msg_store: MsgStore = FileMsgStore(
+                    store_dir, fsync=fsync, group_commit=gc_on)
+            else:
+                # the pure-Python half of the unified segment engine
+                # (storage/segment.py): checkpointed recovery, budgeted
+                # broker-driven compaction — the same engine layer the
+                # cluster spool journals through
+                self.msg_store = SegmentMsgStore(
+                    store_dir, fsync=fsync, group_commit=gc_on,
+                    segment_max_bytes=seg_max,
+                    checkpoint_every_bytes=ckpt_every)
+        elif self.config.message_store == "native":
+            from ..storage.msg_store import BucketedMsgStore, NativeMsgStore
+
+            try:
+                n = int(self.config.get("msg_store_instances", 1))
+                store_dir = self.config.message_store_dir
+                if n > 1 and os.path.exists(
+                        os.path.join(store_dir, "msgstore.kv")):
+                    # a flat single-instance store already lives here —
+                    # honour it rather than silently orphaning its data
+                    log.warning("legacy single-instance msg store found in "
+                                "%s; ignoring msg_store_instances=%d",
+                                store_dir, n)
+                    n = 1
+                # N engines hashed by msg-ref (vmq_lvldb_store_sup.erl:47-54)
+                self.msg_store = (BucketedMsgStore(store_dir, n, fsync=fsync,
+                                                   group_commit=gc_on)
+                                  if n > 1
+                                  else NativeMsgStore(store_dir, fsync=fsync,
+                                                      group_commit=gc_on))
+            except Exception as e:  # no toolchain → segment-log twin
+                from ..storage.msg_store import SegmentMsgStore
+
+                log.warning("native msg store unavailable (%s); "
+                            "falling back to the segment-log engine", e)
+                self.msg_store = SegmentMsgStore(
+                    self.config.message_store_dir, fsync=fsync,
+                    group_commit=gc_on, segment_max_bytes=seg_max,
+                    checkpoint_every_bytes=ckpt_every)
+        else:
+            self.msg_store = MemoryMsgStore()
+        # batched reconnect-storm resumption (storage/resume.py): built
+        # lazily on the first deferrable recover when the store supports
+        # off-loop batched reads; the store breaker + compaction loop
+        # state lives here so the gauges always exist
+        self._resume_collector: Optional[Any] = None
+        self._store_commit_scheduled = False
+        from ..robustness.breaker import CircuitBreaker
+
+        self.store_breaker = CircuitBreaker(
+            failure_threshold=self.config.get(
+                "tpu_breaker_failure_threshold", 3),
+            backoff_initial=self.config.get(
+                "tpu_breaker_backoff_initial_ms", 200) / 1e3,
+            backoff_max=self.config.get(
+                "tpu_breaker_backoff_max_ms", 10_000) / 1e3,
+            name="store")
+        self.store_compactions = 0
+        self.store_compacted_bytes = 0
+        self.store_compact_paused = 0
+        self.store_compact_errors = 0
+        # last-drained (hits, misses) snapshot of the bucketed store's
+        # probe counters (the maintenance tick moves deltas into $SYS)
+        self._probe_drained = (0, 0)
+        # corrupt records skipped by the store's recovery scan are
+        # surfaced, not silent (the old behavior discarded the tail) —
+        # and so is a checkpoint-discarding full-scan fallback
+        skipped = getattr(self.msg_store, "recover_skipped", 0)
+        if skipped:
+            self.metrics.incr("msg_store_recover_skipped", skipped)
+        fallbacks = sum(
+            getattr(getattr(st, "engine", None), "recover_fallbacks", 0)
+            for st in (getattr(self.msg_store, "instances", None)
+                       or [self.msg_store]))
+        if fallbacks:
+            self.metrics.incr("store_recover_fallbacks", fallbacks)
+        # live sessions: sid -> Session (the reference reaches sessions via
+        # queue pids; a direct map is equivalent single-node)
+        self.sessions: Dict[SubscriberId, Any] = {}
+        # live queue-migration state, surfaced via `vmq-admin cluster
+        # migrations` (the reference surfaces drain progress via queue
+        # status / cluster show): sid -> {target, pending, retries, state}
+        self.migrations: Dict[SubscriberId, Dict[str, Any]] = {}
+        # live-handoff engine (cluster/handoff.py): the reusable
+        # freeze->drain->fence->adopt FSM behind `vmq-admin handoff
+        # drain|rebalance` and `cluster drain-node`; its breaker gates
+        # admission so repeated rollbacks stop new moves piling onto a
+        # broken successor
+        from ..cluster.handoff import HandoffManager
+
+        self.handoff = HandoffManager(self)
+        self._delayed_wills: Dict[SubscriberId, asyncio.Task] = {}
+        self.tracer: Optional[Any] = None  # single active session tracer
+        # hot-path flight recorder (observability/recorder.py): the
+        # 1-in-N publish sample decision is made once at admission
+        # (session._handle_publish) and the trace rides the fold
+        # envelope; `vmq-admin timeline show|dump` read the ring. The
+        # dispatch profiler is process-global (observability/profiler)
+        # — the matcher records into it without a broker handle.
+        from ..observability import FlightRecorder
+
+        self.recorder = FlightRecorder(
+            sample_n=int(self.config.get("flight_recorder_sample_n", 32)),
+            capacity=int(self.config.get("flight_recorder_capacity",
+                                         4096)),
+            node=node_name)
+        # canary SLO probe (observability/canary.py): built at start()
+        # when canary_enabled — the loopback subscription must not
+        # exist unless the operator asked for the probe
+        self.canary: Optional[Any] = None
+        # no worker mode (worker_stats_block and the match service are
+        # refused, ROADMAP Queue 1 item 9); sysmon and the cluster copies
+        # read this None
+        self.worker_stats: Optional[Any] = None
+        self.sysmon: Optional[Any] = None
+        self.overload: Optional[Any] = None  # adaptive overload governor
+        self.supervisor: Optional[Any] = None  # crash-restart supervision
+        self.crl_refresher: Optional[Any] = None
+        self.http: Optional[Any] = None
+        self.graphite: Optional[Any] = None
+        self.listeners: Optional[Any] = None  # ListenerManager (transports)
+        self._servers: List[Any] = []
+        self._bg_tasks: List[asyncio.Task] = []
+        self._started = time.time()
+        self._cluster_ready = True  # single-node; cluster layer overrides
+        self.metrics.register_gauges(self._gauges, {
+            "router_subscriptions": "Subscriptions in the routing table.",
+            "router_memory": "Approximate routing table memory (bytes).",
+            "queue_processes": "Live subscriber queues.",
+            "retain_messages": "Retained messages.",
+            "retain_memory": "Approximate bytes used for storing "
+                             "retained messages.",
+            "active_sessions": "Currently connected sessions.",
+            "uptime_seconds": "Broker uptime.",
+            "tpu_hybrid_host_pubs": "Small flushes served by the host "
+                                    "trie (hybrid dispatch).",
+            "tpu_overload_shed_pubs": "Publishes shed to the trie at "
+                                      "collector overload.",
+            "tpu_rebuild_shed_pubs": "Publishes the trie served during "
+                                     "a device table rebuild.",
+            "tpu_busy_shed_pubs": "Publishes the trie served past the "
+                                  "matcher-lock/cold-compile bound.",
+            "tpu_saturated_merges": "Flushes merged into a later batch "
+                                    "(both pipeline slots busy).",
+            "tpu_async_rebuilds": "Background device-table rebuilds.",
+            # degraded-mode observability (robustness tentpole): breaker
+            # state + fallback/fault counters, published to $SYS like
+            # every other metric by the systree reporter
+            # adaptive overload governor (robustness/overload.py):
+            # current level + composite pressure, per-level cumulative
+            # seconds and entry counts, hysteresis extends, plus the
+            # sysmon hysteresis counters the governor builds on
+            "overload_level": "Current overload governor level (0 ok, "
+                              "1 throttle, 2 shed, 3 refuse).",
+            "overload_pressure": "Composite overload pressure score "
+                                 "(max of the fused signal severities, "
+                                 "0..1).",
+            "overload_level_pinned": "Manually pinned overload level "
+                                     "(-1 = automatic).",
+            "overload_level_extends": "Overload hysteresis windows "
+                                      "re-armed by boundary pressure.",
+            "overload_l1_seconds": "Cumulative seconds spent at "
+                                   "overload level 1.",
+            "overload_l2_seconds": "Cumulative seconds spent at "
+                                   "overload level 2.",
+            "overload_l3_seconds": "Cumulative seconds spent at "
+                                   "overload level 3.",
+            "overload_level_enters_l1": "Transitions into overload "
+                                        "level 1.",
+            "overload_level_enters_l2": "Transitions into overload "
+                                        "level 2.",
+            "overload_level_enters_l3": "Transitions into overload "
+                                        "level 3.",
+            "sysmon_overload_extends": "Sysmon overload cooldowns "
+                                       "re-armed by boundary lag "
+                                       "(hysteresis extends).",
+            "sysmon_last_loop_lag_seconds": "Most recent event-loop "
+                                            "lag sample.",
+            "tpu_breaker_state": "Device circuit breaker state "
+                                 "(0 closed, 1 half-open, 2 open; worst "
+                                 "across mountpoints).",
+            "tpu_breaker_opens": "Breaker open transitions (device path "
+                                 "degraded to the host trie).",
+            "tpu_breaker_closes": "Breaker close transitions (device "
+                                  "path recovered).",
+            "tpu_breaker_time_degraded_seconds":
+                "Cumulative seconds the device path spent degraded.",
+            "tpu_device_failures": "Device dispatch/upload failures fed "
+                                   "to the breaker.",
+            "tpu_degraded_sheds": "Match calls refused while the "
+                                  "breaker was open.",
+            "tpu_degraded_host_pubs": "Publishes the host trie served "
+                                      "while the breaker was open.",
+            "tpu_delta_shapes_warmed": "Delta-scatter shapes "
+                                       "pre-compiled at startup.",
+            "fault_plan_active": "1 while a fault-injection plan is "
+                                 "installed.",
+            "faults_injected": "Faults raised by the active plan.",
+            "faults_delayed": "Latency/hang faults applied by the "
+                              "active plan.",
+            # wire plane (protocol/fastpath.py + native/codec.cc)
+            "wire_native_active": "1 while the native wire codec is "
+                                  "serving batch parse/encode (built, "
+                                  "enabled, breaker closed).",
+            "wire_native_batches": "Recv buffers batch-parsed by the "
+                                   "native frame-table parser.",
+            "wire_pure_batches": "Recv buffers batch-parsed by the "
+                                 "bit-identical pure-Python twin.",
+            "wire_native_errors": "Native codec calls that failed and "
+                                  "fed the wire breaker (the batch was "
+                                  "re-served by the pure codec).",
+            "wire_degraded_batches": "Batches served pure-Python while "
+                                     "the wire breaker was open.",
+            "wire_fastpath_pubs": "QoS0 publishes admitted through the "
+                                  "object-free wire fast path (no "
+                                  "frame/Msg objects materialised).",
+            "wire_fastpath_pubs_qos": "QoS1/2 publishes admitted "
+                                      "through the wire fast path (pid "
+                                      "stamped from the frame-table "
+                                      "span, no inbound frame object).",
+            "wire_fastpath_acks": "Ack-family frames (PUBACK/PUBREC/"
+                                  "PUBREL/PUBCOMP) resolved straight "
+                                  "from the frame table with no frame "
+                                  "object.",
+            "wire_fanout_batches": "One-call batched fanout header "
+                                   "encodes (publish_headers_batch): "
+                                   "each emitted N per-recipient "
+                                   "pid/alias-patched headers into one "
+                                   "arena.",
+            "wire_breaker_state": "Wire-codec breaker state (0 closed, "
+                                  "1 half-open, 2 open).",
+            # cluster delivery spool (cluster/spool.py): depth +
+            # outstanding-ack gauges, published to $SYS/Prometheus
+            "cluster_spool_depth_frames": "QoS>=1 cluster frames "
+                                          "journaled awaiting acks.",
+            "cluster_spool_depth_bytes": "Bytes journaled in the "
+                                         "cluster delivery spool.",
+            "cluster_spool_outstanding_acks": "Peers with spooled "
+                                              "frames awaiting a "
+                                              "cumulative ack.",
+            "cluster_spool_peers_blocked": "Peers whose spooled stream "
+                                           "is paused pending replay "
+                                           "resync.",
+            # device retained index (vernemq_tpu/retained/): monotonic
+            # counts exposed like the tpu_breaker_* family
+            "retained_index_rows": "Retained messages mirrored in the "
+                                   "device reverse-match index.",
+            "retained_index_rebuilds": "Full device retained-table "
+                                       "(re)builds.",
+            "retained_match_dispatches": "Batched retained reverse-match "
+                                         "device dispatches.",
+            "retained_match_queries": "Subscription filters served by "
+                                      "the retained device path.",
+            "retained_host_fallback_queries": "Filters the device could "
+                                              "not serve exactly "
+                                              "(host-resolved).",
+            "retained_device_failures": "Retained dispatch/upload "
+                                        "failures fed to the breaker.",
+            "retained_degraded_sheds": "Retained match calls refused "
+                                       "while the breaker was open.",
+            "retained_breaker_state": "Retained device breaker state "
+                                      "(0 closed, 1 half-open, 2 open; "
+                                      "worst across mountpoints).",
+            "retained_replay_deferred_flushes": "Replay flushes deferred "
+                                                "by the overload "
+                                                "governor (level 2+).",
+            "retained_replay_device_batches": "Replay flushes served by "
+                                              "the device path.",
+            "retained_replay_device_filters": "Replay filters that rode "
+                                              "a device dispatch.",
+            "retained_replay_host_filters": "Small replay flushes served "
+                                            "by the host walk (hybrid "
+                                            "dispatch).",
+            "retained_replay_degraded_filters": "Replay filters the host "
+                                                "walk served while the "
+                                                "breaker was open.",
+            "retained_replay_rebuild_filters": "Replay filters the host "
+                                               "walk served during a "
+                                               "table rebuild.",
+            "retained_replay_fallback_filters": "Per-filter device "
+                                                "escapes resolved "
+                                                "against the host store.",
+            "retained_replay_stalled_filters": "Replay filters the host "
+                                               "walk served after a "
+                                               "dispatch deadline "
+                                               "abandonment.",
+            "retained_replay_expired_filters": "Queued replay filters "
+                                               "host-served past their "
+                                               "collector expiry.",
+            # storage tier (storage/segment.py + storage/resume.py):
+            # the unified segment engine's health + the batched
+            # reconnect-storm resumption counters
+            "store_breaker_state": "Store compaction breaker state "
+                                   "(0 closed, 1 half-open, 2 open; "
+                                   "open = append-only degraded mode).",
+            "store_live_bytes": "Live record bytes across every "
+                                "segment/kv engine (msg store + "
+                                "cluster spool).",
+            "store_garbage_bytes": "Dead record bytes awaiting "
+                                   "budgeted compaction across every "
+                                   "engine.",
+            "store_segments": "On-disk segment files across every "
+                              "segment-log engine.",
+            "resume_batched_sessions": "Reconnecting sessions whose "
+                                       "offline replay rode a batched "
+                                       "off-loop store read.",
+            "resume_batched_reads": "Batched off-loop read_many calls "
+                                    "issued by the resume collector.",
+            "resume_host_sessions": "Small resume flushes served by "
+                                    "the per-session read on the loop "
+                                    "(hybrid dispatch).",
+            "resume_expired_sessions": "Queued resumes served by the "
+                                       "exact per-session fallback "
+                                       "past their expiry.",
+            "resume_fallback_sessions": "Sessions served per-session "
+                                        "after a batched read failed.",
+            "resume_deferred_flushes": "Resume flushes deferred by the "
+                                       "overload governor (level 2+).",
+            "resume_pending_sessions": "Reconnect resumes queued in "
+                                       "the collector window.",
+            "retained_dispatch_stalls": "Retained dispatches abandoned "
+                                        "at the watchdog deadline (fed "
+                                        "to the breaker).",
+            "retained_rebuild_abandons": "Wedged retained rebuilds "
+                                         "abandoned by the watchdog.",
+            # stall watchdog (robustness/watchdog.py): the silent-stall
+            # observability family — every cross-boundary wait registers
+            # here, overdue ops are counted/abandoned, late results of
+            # abandoned ops are discarded (never delivered)
+            "watchdog_stalls": "Monitored operations observed past "
+                               "their deadline.",
+            "watchdog_abandoned": "Stalled operations abandoned "
+                                  "(waiters released to the host "
+                                  "fallback; breaker fed).",
+            "watchdog_late_discarded": "Abandoned operations that "
+                                       "completed late; their results "
+                                       "were discarded, never "
+                                       "delivered.",
+            "watchdog_cluster_stalls": "Cluster channels cycled by "
+                                       "ack-progress stall detection.",
+            "watchdog_inflight_ops": "Monitored operations currently "
+                                     "in flight.",
+            "watchdog_inflight_age_max": "Age (seconds) of the oldest "
+                                         "in-flight monitored "
+                                         "operation.",
+            "watchdog_sacrificed_threads": "Executor workers lost to "
+                                           "abandoned (wedged) "
+                                           "dispatches; the pool "
+                                           "spawned around each.",
+            "faults_wedged_now": "Injection points currently blocked "
+                                 "in a wedge fault.",
+            "faults_wedge_releases": "Wedge faults released (watchdog "
+                                     "abandonment or `vmq-admin fault "
+                                     "release`).",
+            "tpu_stalled_host_pubs": "Publishes the host trie served "
+                                     "after a dispatch deadline "
+                                     "abandonment.",
+            "tpu_expired_host_pubs": "Queued publishes host-served "
+                                     "past their collector expiry.",
+            "tpu_dispatch_stalls": "Device dispatches abandoned at the "
+                                   "watchdog deadline (fed to the "
+                                   "breaker).",
+            "tpu_rebuild_abandons": "Wedged device-table rebuilds "
+                                    "abandoned by the watchdog.",
+            # flight recorder (observability/recorder.py)
+            "flight_sampled": "Publishes sampled by the flight "
+                              "recorder (1-in-N at admission).",
+            "flight_records": "Stage-stamped publish records currently "
+                              "in the flight-recorder ring.",
+            "flight_sample_n": "Flight-recorder sampling divisor "
+                               "(every Nth admitted publish records).",
+            "flight_resumed": "Flight-recorder traces resumed from a "
+                              "cluster peer's propagated context "
+                              "(cross-node publishes).",
+            # payload filtering & aggregation (vernemq_tpu/filters/):
+            # predicate-phase + window-table health, the tpu_breaker_*
+            # pattern extended to the third device path
+            "predicate_compiled": "Distinct compiled predicate rows "
+                                  "resident in the device predicate "
+                                  "tables.",
+            "predicate_dispatches_total": "Predicate-phase device "
+                                          "dispatches completed.",
+            "predicate_host_batches": "Predicate batches served by the "
+                                      "exact host evaluator (degraded/"
+                                      "small/forced-host).",
+            "predicate_rows_filtered_total": "Matched fanout rows "
+                                             "removed by payload "
+                                             "predicates.",
+            "predicate_degraded_sheds_total": "Predicate dispatches "
+                                              "refused while the "
+                                              "breaker was open (host "
+                                              "evaluator served).",
+            "predicate_device_failures_total": "Predicate device "
+                                               "failures fed to the "
+                                               "breaker.",
+            "predicate_dispatch_stalls": "Predicate dispatches "
+                                         "abandoned at the watchdog "
+                                         "deadline (fed to the "
+                                         "breaker).",
+            "predicate_fail_open_errors": "Predicate phase internal "
+                                          "errors that delivered the "
+                                          "batch unfiltered (fail-"
+                                          "open, loud).",
+            "predicate_breaker_state": "Predicate device breaker state "
+                                       "(0 closed, 1 half-open, 2 "
+                                       "open).",
+            "predicate_breaker_opens": "Predicate breaker open "
+                                       "transitions (device phase "
+                                       "degraded to the host "
+                                       "evaluator).",
+            "aggregate_windows_open": "Aggregation windows currently "
+                                      "accumulating.",
+            "aggregate_window_capacity": "Aggregation accumulator-"
+                                         "table capacity (grows in "
+                                         "doublings to the cap).",
+            "aggregate_window_overflows": "Aggregation subscriptions "
+                                          "degraded to raw delivery "
+                                          "because the window table "
+                                          "was full.",
+            "aggregate_emissions_total": "Synthesized aggregate "
+                                         "PUBLISHes emitted by closed "
+                                         "windows.",
+            # membership health plane (cluster/health.py): detector
+            # verdicts + this node's gossiped load, published like the
+            # breaker/governor families
+            "cluster_health_suspect_peers": "Peers the accrual failure "
+                                            "detector currently marks "
+                                            "suspect.",
+            "cluster_health_down_peers": "Peers the accrual failure "
+                                         "detector currently declares "
+                                         "down.",
+            "cluster_health_quorum": "1 while this node sees a "
+                                     "majority of the joined "
+                                     "membership (automatic rebalance "
+                                     "admissible).",
+            "cluster_load_score": "This node's gossiped load score "
+                                  "(queue depth + loop-lag p99 + "
+                                  "governor pressure; order matters, "
+                                  "not units).",
+            "rebalance_cycles": "Automatic planner cycles that passed "
+                                "every safety rail and acted.",
+        })
+        from ..observability import events as _events
+        from ..observability.canary import GAUGE_HELP as _canary_help
+
+        self.metrics.register_gauges(self._observability_gauges,
+                                     {**_events.gauge_help(),
+                                      **_canary_help})
+
+    # ------------------------------------------------------------ plumbing
+
+    def _gauges(self) -> Dict[str, float]:
+        out = dict(self.registry.stats())
+        out["retain_messages"] = len(self.retain)
+        out["retain_memory"] = self.retain.memory()
+        out["active_sessions"] = len(self.sessions)
+        out["uptime_seconds"] = time.time() - self._started
+        if self.overload is not None:
+            out.update(self.overload.stats())
+        if self.sysmon is not None:
+            st = self.sysmon
+            out["sysmon_overload_extends"] = float(st.overload_extends)
+            out["sysmon_last_loop_lag_seconds"] = round(st.last_lag, 4)
+        spool = getattr(self.cluster, "spool", None)
+        if spool is not None:
+            out.update(spool.stats())
+        if self._retained_engine is not None:
+            out.update(self._retained_engine.stats())
+        if self._retained_collector is not None:
+            out.update(self._retained_collector.stats())
+        if self.filter_engine is not None:
+            out.update(self.filter_engine.stats())
+        # storage tier (unified segment engine + batched resumption)
+        out["store_breaker_state"] = float(self.store_breaker.state)
+        live = garbage = segs = 0.0
+        for eng in self._store_engines():
+            try:
+                est = eng.stats()
+            except Exception:
+                continue
+            live += float(est.get("live_bytes", 0))
+            garbage += float(est.get("garbage_bytes", 0))
+            segs += float(est.get("segments", 0))
+        out["store_live_bytes"] = live
+        out["store_garbage_bytes"] = garbage
+        out["store_segments"] = segs
+        if self._resume_collector is not None:
+            out.update(self._resume_collector.stats())
+        out.update(self.watchdog.stats())
+        out.update(self.recorder.stats())
+        health = getattr(self.cluster, "health", None)
+        if health is not None:
+            from ..cluster.health import DOWN, SUSPECT, local_load_score
+
+            states = [p.state for p in health.peers.values()]
+            out["cluster_health_suspect_peers"] = float(
+                states.count(SUSPECT))
+            out["cluster_health_down_peers"] = float(states.count(DOWN))
+            out["cluster_health_quorum"] = 1.0 if health.quorum_ok() \
+                else 0.0
+            out["cluster_load_score"] = local_load_score(self)
+            planner = getattr(self.cluster, "planner", None)
+            if planner is not None:
+                out["rebalance_cycles"] = float(planner.cycles)
+        return out
+
+    def _observability_gauges(self) -> Dict[str, float]:
+        """Event-journal counters (process-global ring) plus the canary
+        probe's counters — split from _gauges so the HELP text comes
+        from the registries themselves (events.KNOWN_EVENTS / canary
+        GAUGE_HELP), never a drifting literal."""
+        from ..observability import events as _events
+
+        out = _events.journal().stats()
+        if self.canary is not None:
+            out.update(self.canary.stats())
+        return out
+
+    def cluster_ready(self) -> bool:
+        """is_ready consistency gate (vmq_cluster.erl:67-92)."""
+        if self.cluster is not None:
+            return self.cluster.is_ready()
+        return self._cluster_ready
+
+    # ------------------------------------------------- retain replication
+
+    def _retain_dirty(self, mountpoint: str, topic, value) -> None:
+        """Write-behind from the retain cache into the replicated metadata
+        store (vmq_retain_srv.erl:186-191 persist + broadcast)."""
+        term = None
+        if value is not None:
+            term = {"payload": value.payload, "props": value.properties,
+                    "qos": value.qos, "exp": value.expiry_ts}
+        self.metadata.put("retain", (mountpoint,) + tuple(topic), term)
+        if self._retained_engine is not None:
+            # delta-scatter write-through into the device retained index
+            self._retained_engine.on_retain(mountpoint, tuple(topic), value)
+
+    @staticmethod
+    def _retain_term(value):
+        """Replicated retain term → RetainedMsg (None passes through)."""
+        if value is None:
+            return None
+        from .reg import RetainedMsg
+
+        return RetainedMsg(value["payload"], dict(value.get("props") or {}),
+                           value.get("qos", 0), value.get("exp"))
+
+    def _on_retain_event(self, key, old, new, origin) -> None:
+        if origin == self.node_name:
+            return  # local writes already applied write-through
+        mountpoint, topic = key[0], tuple(key[1:])
+        value = self._retain_term(new)
+        self.retain.apply_remote(mountpoint, topic, value)
+        if self._retained_engine is not None:
+            # replicated retain changes bypass the dirty hook; the
+            # device index must still see them
+            self._retained_engine.on_retain(mountpoint, topic, value)
+
+    # -------------------------------------------------- queue migration
+
+    def on_subscriber_moved(self, sid: SubscriberId, new_node: str) -> None:
+        """A persistent subscriber's record now points at another node:
+        hand off our queue — close any live session (cross-node takeover),
+        drain the offline backlog over the acked cluster channel, drop
+        local state (vmq_reg_mgr.erl:155-243 + vmq_queue migrate/drain)."""
+        queue = self.registry.queues.get(sid)
+        if queue is None:
+            return
+        cur = self.migrations.get(sid)
+        if cur is not None and cur.get("state") == "handoff":
+            # the live-handoff FSM is already moving this queue — its
+            # own fence phase wrote the record that fired this hook;
+            # a second concurrent drain task would double-ship
+            return
+        # register the migration BEFORE the task first runs: callers (the
+        # graceful-leave wait loop) poll this map right after the record
+        # rewrite, and a not-yet-scheduled task must already count.
+        # Retarget bookkeeping (a leave retrying a dead target) survives
+        # the re-registration so each peer is tried at most once.
+        prev = self.migrations.get(sid) or {}
+        self.migrations[sid] = {"target": new_node,
+                                "pending": len(queue.offline),
+                                "retries": 0, "state": "draining",
+                                **{k: prev[k] for k in ("tried",)
+                                   if k in prev}}
+        task = asyncio.get_event_loop().create_task(
+            self._migrate_queue(sid, queue, new_node))
+        self._bg_tasks.append(task)
+
+    async def _migrate_queue(self, sid: SubscriberId, queue, new_node: str) -> None:
+        session = self.sessions.get(sid)
+        if session is not None:
+            await session.takeover_close()
+        try:
+            backlog = queue.start_drain()
+        except Exception:
+            # the stored backlog could not be read (start_drain restored
+            # the queue untouched — state, parked publishes, in-store
+            # marker): fail the migration so the retarget/retry machinery
+            # owns recovery; nothing was shipped, nothing may be deleted
+            st = self.migrations.get(sid)
+            if st is not None:
+                st["state"] = "failed"
+            self.metrics.incr("queue_drain_failed")
+            log.exception("queue drain %s -> %s could not load the "
+                          "stored backlog; migration failed, local "
+                          "state intact", sid, new_node)
+            return
+        step = self.config.max_msgs_per_drain_step
+        # retry/settle delay between drain steps (vmq_server.schema
+        # max_drain_time, ms): the reference re-arms drain_start after
+        # DrainTimeout on a failed step (vmq_queue.erl:365-368); the ack
+        # timeout itself stays remote_enqueue_timeout
+        drain_retry_delay = self.config.get("max_drain_time", 500) / 1000.0
+        max_retries = self.config.get("migrate_drain_retries", 60)
+        state = self.migrations.setdefault(
+            sid, {"target": new_node, "retries": 0, "state": "draining"})
+        state["pending"] = len(backlog)
+        while True:
+            sent = 0
+            ok = self.cluster is not None
+            if backlog and ok:
+                for i in range(0, len(backlog), step):
+                    try:
+                        ok = await self.cluster.remote_enqueue(
+                            new_node, sid, backlog[i:i + step])
+                    except (ConnectionError, asyncio.TimeoutError):
+                        ok = False
+                    if not ok:
+                        break
+                    sent = i + step
+                    state["pending"] = len(backlog) - sent
+            if ok:
+                # messages that raced in mid-drain follow the migration
+                # (drain({enqueue,..}) re-fires drain_start,
+                # vmq_queue.erl:383-390): keep pulling until dry
+                more = queue.drain_pending()
+                if more:
+                    backlog = more
+                    state["pending"] = len(backlog)
+                    continue
+                self.delete_offline(sid)
+                self.metrics.incr("queue_migrated")
+                # clean_session stays False: queue_terminated must NOT delete
+                # the subscriber record — the new owner just rewrote it
+                queue.terminate("migrated")
+                self.migrations.pop(sid, None)
+                return
+            # drain failed mid-way: keep the unsent tail (an unacked chunk
+            # may have landed — at-least-once, like any QoS1 redelivery) and
+            # retry while the record still points away (block_until_migrated
+            # retry loop, vmq_reg.erl:225-244) — bounded: a peer that never
+            # acks must not pin a drain task forever
+            backlog = backlog[sent:]
+            state["pending"] = len(backlog)
+            state["retries"] += 1
+            self.metrics.incr("queue_drain_retry")
+            log.warning("queue drain %s -> %s failed, %d msgs pending "
+                        "(retry %d/%d)", sid, new_node, len(backlog),
+                        state["retries"], max_retries)
+            if state["retries"] >= max_retries:
+                from .queue import OFFLINE
+
+                queue.offline.extend(backlog)
+                queue.state = OFFLINE
+                queue._arm_expiry()  # start_drain cancelled the clock
+                state["state"] = "failed"
+                self.metrics.incr("queue_drain_failed")
+                log.error("queue drain %s -> %s abandoned after %d retries; "
+                          "%d msgs restored to the local offline queue",
+                          sid, new_node, max_retries, len(backlog))
+                return
+            await asyncio.sleep(drain_retry_delay)
+            rec = self.registry.db.read(sid)
+            if rec is None or rec.node == self.node_name:
+                # moved back / cleaned up: restore what's left locally
+                from .queue import OFFLINE
+
+                queue.offline.extend(backlog)
+                queue.state = OFFLINE
+                queue._arm_expiry()  # start_drain cancelled the clock
+                self.migrations.pop(sid, None)
+                return
+
+    def hooks_fire_all(self, name: str, *args: Any) -> None:
+        """Fire-and-forget lifecycle hooks (on_register/on_publish/...).
+        Sync handlers run inline on the hot path; async handlers are
+        scheduled (the reference calls these synchronously in-process)."""
+        for fn in self.hooks.handlers(name):
+            try:
+                res = fn(*args)
+                if inspect.isawaitable(res):
+                    task = asyncio.ensure_future(res)
+                    task.add_done_callback(_log_hook_task_error)
+            except Exception:
+                log.exception("hook %s handler %r failed", name, fn)
+
+    async def auth_publish(
+        self,
+        sid: SubscriberId,
+        username: Optional[str],
+        topic: Tuple[str, ...],
+        payload: bytes,
+        qos: int,
+        retain: bool,
+        proto_ver: int,
+        properties: Optional[dict] = None,
+    ) -> Dict[str, Any]:
+        """auth_on_publish(_m5) chain; returns modifier dict (may rewrite
+        topic/payload), raises HookError on deny
+        (vmq_mqtt_fsm.erl:681-746)."""
+        hook = "auth_on_publish_m5" if proto_ver == 5 else "auth_on_publish"
+        try:
+            res = await self.hooks.all_till_ok(
+                hook, username, sid, qos, topic, payload, retain
+            )
+        except HookError as e:
+            if e.reason == "no_matching_hook_found":
+                # no plugin answered: allowed unless default-deny is active
+                # (vmq_auth.erl:3-8 registers deny hooks when
+                # allow_anonymous=off)
+                if self.config.allow_anonymous:
+                    return {}
+                raise HookError("not_authorized") from None
+            raise
+        if isinstance(res, tuple):
+            return res[1]
+        return {}
+
+    # ----------------------------------------------------- session support
+
+    async def takeover(self, sid: SubscriberId, new_session: Any) -> None:
+        """Duplicate ClientId: disconnect the live session
+        (vmq_connect_SUITE takeover semantics)."""
+        old = self.sessions.get(sid)
+        if old is not None and old is not new_session:
+            await old.takeover_close()
+
+    def schedule_will(self, sid: SubscriberId, will: Will, mountpoint: str,
+                      proto_ver: int, session_expiry: int) -> None:
+        """Publish the LWT, possibly after the v5 will-delay interval
+        (vmq_mqtt5_fsm set_delayed_will; vmq_queue.erl:932-942). The will is
+        cancelled if the client reconnects before the delay elapses."""
+        delay = will.properties.get("will_delay_interval", 0)
+        cap = self.config.max_last_will_delay
+        if cap:
+            delay = min(delay, cap)
+        if session_expiry:
+            delay = min(delay, session_expiry)
+
+        def _publish_will() -> None:
+            try:
+                words = tuple(T.validate_topic("publish", will.topic))
+            except T.TopicError:
+                return
+            props = {
+                k: v for k, v in will.properties.items()
+                if k in ("payload_format_indicator", "message_expiry_interval",
+                         "content_type", "response_topic", "correlation_data",
+                         "user_property")
+            }
+            msg = Msg(topic=words, payload=will.payload, qos=will.qos,
+                      retain=will.retain, mountpoint=mountpoint, properties=props)
+            expiry = props.get("message_expiry_interval")
+            if expiry:
+                msg.expires_at = time.monotonic() + expiry
+            try:
+                self.registry.publish(msg)
+            except RuntimeError:
+                pass
+
+        if delay <= 0:
+            _publish_will()
+            return
+
+        async def _delayed() -> None:
+            await asyncio.sleep(delay)
+            self._delayed_wills.pop(sid, None)
+            _publish_will()
+
+        self.cancel_delayed_will(sid)
+        self._delayed_wills[sid] = asyncio.get_event_loop().create_task(_delayed())
+
+    def cancel_delayed_will(self, sid: SubscriberId) -> None:
+        t = self._delayed_wills.pop(sid, None)
+        if t is not None:
+            t.cancel()
+
+    # ------------------------------------------------------ offline storage
+
+    def store_offline(self, sid: SubscriberId, msg: Msg) -> None:
+        try:
+            # loop-side synchronous seam: injected latency models a slow
+            # disk blocking the loop exactly like the real store would,
+            # but capped so a hang drill stays a stall, not an outage.
+            # Registered with the stall watchdog for visibility — a
+            # synchronous loop-side write cannot be abandoned, but a
+            # stall here shows up in watchdog_stalls / `watchdog show`
+            # instead of reading as unexplained loop lag.
+            with self.watchdog.monitored("store.write", 2.0,
+                                         label=f"{sid[0]}/{sid[1]}"):
+                faults.inject("store.write", max_delay_s=1.0)
+                t0 = time.monotonic()
+                self.msg_store.write(sid, msg)
+                self.metrics.observe("stage_store_append_ms",
+                                     (time.monotonic() - t0) * 1e3)
+        except Exception:
+            # degraded, not fatal: the in-memory queue still holds the
+            # message, so live delivery is unaffected — only the
+            # crash-restart durability of THIS message is lost. A failed
+            # write must never fail the enqueue (the reference's store
+            # is likewise fire-and-forget from the queue's view).
+            self.metrics.incr("msg_store_write_errors")
+            log.exception("offline store write failed for %s "
+                          "(message kept in memory only)", sid)
+            return
+        self.metrics.incr("msg_store_ops_write")
+        if self.msg_store.needs_commit() and not self._store_commit_scheduled:
+            # fsync group-commit: the burst's records are flushed; ONE
+            # fsync lands at the flush-tick boundary for all of them
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                self._commit_msg_store()  # no loop (tests): sync now
+            else:
+                self._store_commit_scheduled = True
+                loop.call_soon(self._commit_msg_store)
+
+    def _commit_msg_store(self) -> None:
+        self._store_commit_scheduled = False
+        try:
+            coalesced = self.msg_store.commit()
+        except Exception:
+            self.metrics.incr("msg_store_write_errors")
+            log.exception("msg store group commit failed")
+            return
+        if coalesced:
+            self.metrics.incr("msg_store_fsync_coalesced", coalesced)
+
+    def resume_collector(self):
+        """Lazy batched-resume collector (storage/resume.py), or None
+        when disabled or the store cannot serve off-loop batched reads
+        (memory / legacy flat-log stores) — reconnects then recover on
+        the synchronous per-session path, unchanged."""
+        if (not self.config.get("resume_batched", True)
+                or not getattr(self.msg_store, "supports_batched_read",
+                               False)):
+            return None
+        if self._resume_collector is None:
+            from ..storage.resume import ResumeCollector
+
+            cfg = self.config
+            self._resume_collector = ResumeCollector(
+                self.msg_store,
+                window_us=cfg.get("resume_window_us", 500),
+                max_batch=cfg.get("resume_max_batch", 512),
+                host_threshold=cfg.get("resume_host_threshold", 4),
+                item_expiry_ms=float(cfg.get("resume_expiry_ms",
+                                             30_000)),
+                metrics=self.metrics)
+            if self.overload is not None:
+                # L2 response: resume storms defer behind live publishes
+                # exactly like retained replays
+                self._resume_collector.defer_gate = \
+                    self.overload.defer_replay
+        return self._resume_collector
+
+    def recover_offline(self, sid: SubscriberId, queue: SubscriberQueue,
+                        may_defer: bool = False,
+                        lazy: bool = False) -> None:
+        """Rebuild the offline backlog from storage on queue re-creation
+        (vmq_queue offline(init_offline_queue), vmq_lvldb_store.erl:396-416).
+
+        ``lazy`` marks boot/remap recovery of a DETACHED persistent
+        queue: with a batched-read store the backlog stays parked in
+        storage (``queue.offline_in_store``) and loads on first attach
+        (through the collector) or at drain — a million parked sessions
+        boot without a million read_alls. ``may_defer`` marks the
+        reconnect path (a session is attaching right now): the replay
+        rides the ResumeCollector — one batched off-loop read per storm
+        window instead of one loop-side ``read_all`` per session — with
+        the queue parking live publishes until the stored backlog
+        lands."""
+        if (lazy and self.config.get("resume_batched", True)
+                and getattr(self.msg_store, "supports_batched_read",
+                            False)):
+            queue.offline_in_store = True
+            return
+        coll = self.resume_collector() if may_defer else None
+        if coll is not None:
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                coll = None  # no loop (tests/boot): sync path below
+        if coll is None:
+            msgs = self.msg_store.read_all(sid)
+            if msgs:
+                # merge, not extend: on the lazy path the deque may
+                # already hold a suffix of the store content (a publish
+                # that arrived while parked lands in both)
+                queue.merge_recovered(msgs)
+                self.metrics.incr("queue_initialized_from_storage")
+            return
+        queue.begin_resume()
+        fut = coll.submit(sid)
+
+        def _done(f: "asyncio.Future") -> None:
+            exc = None if f.cancelled() else f.exception()
+            if f.cancelled() or exc is not None:
+                # batched AND fallback read failed (or the future was
+                # cancelled): serve the exact per-session read inline —
+                # never leave the queue wedged in the resuming state
+                if exc is not None:
+                    log.warning("offline resume for %s failed: %s",
+                                sid, exc)
+                try:
+                    msgs = self.msg_store.read_all(sid)
+                except Exception:
+                    self.metrics.incr("msg_store_read_errors")
+                    log.exception("per-session resume fallback read "
+                                  "failed for %s", sid)
+                    msgs = []
+            else:
+                msgs = f.result()
+            queue.finish_resume(msgs)
+
+        fut.add_done_callback(_done)
+
+    def delete_offline(self, sid: SubscriberId) -> None:
+        self.msg_store.delete_all(sid)
+        self.metrics.incr("msg_store_ops_delete")
+
+    def offline_delivered(self, sid: SubscriberId, msg: Msg) -> None:
+        self.msg_store.delete(sid, msg.msg_ref)
+
+    # ------------------------------------------------- store maintenance
+
+    def _store_engines(self) -> List[Any]:
+        """Every compactable engine this broker owns: the msg store's
+        (one per bucket instance) plus the cluster spool's journal —
+        they share the engine layer, so ONE budgeted loop maintains
+        both."""
+        engines: List[Any] = []
+        ms = self.msg_store
+        for st in (getattr(ms, "instances", None) or [ms]):
+            eng = getattr(st, "engine", None)
+            if eng is not None and hasattr(eng, "compact_step"):
+                engines.append(eng)
+        spool = getattr(self.cluster, "spool", None) \
+            if self.cluster is not None else None
+        eng = getattr(spool, "engine", None) if spool is not None else None
+        if eng is not None and hasattr(eng, "compact_step"):
+            engines.append(eng)
+        return engines
+
+    async def store_maintain_once(self, budget: Optional[int] = None) -> int:
+        """One budgeted compaction/checkpoint pass over every engine,
+        off the event loop on the watchdog's sacrificial executor.
+        ``store.compact`` is the drill seam: injected (or real) failures
+        feed the store breaker — open, compaction PAUSES and the store
+        degrades to append-only (counted) while writes/reads/delivery
+        continue untouched; the half-open probe resumes it."""
+        from ..robustness.watchdog import StallAbandoned
+
+        if budget is None:
+            budget = int(self.config.get("store_compact_budget_bytes",
+                                         4 * 1024 * 1024))
+        reclaimed = 0
+        for eng in self._store_engines():
+            if not self.store_breaker.allow():
+                self.store_compact_paused += 1
+                self.metrics.incr("store_compact_paused")
+                break
+
+            def _step(e=eng):
+                faults.inject("store.compact", max_delay_s=5.0)
+                return e.compact_step(budget)
+
+            label = getattr(eng, "directory", None) \
+                or getattr(eng, "path", "") or type(eng).__name__
+            try:
+                deadline = self._dispatch_deadline_ms() / 1e3
+                if deadline > 0:
+                    n = await self.watchdog.dispatch_async(
+                        "store.compact", _step, deadline, label=label)
+                else:
+                    n = await asyncio.get_event_loop().run_in_executor(
+                        None, _step)
+            except StallAbandoned:
+                self.store_breaker.record_failure()
+                self.store_compact_errors += 1
+                self.metrics.incr("store_compact_errors")
+                continue
+            except Exception:
+                opened = self.store_breaker.record_failure()
+                self.store_compact_errors += 1
+                self.metrics.incr("store_compact_errors")
+                if opened:
+                    log.warning("store compaction breaker OPEN: the "
+                                "store runs append-only until the "
+                                "half-open probe succeeds")
+                continue
+            self.store_breaker.record_success()
+            if n:
+                self.store_compactions += 1
+                self.store_compacted_bytes += int(n)
+                self.metrics.incr("store_compactions")
+                self.metrics.incr("store_compacted_bytes", int(n))
+                reclaimed += int(n)
+        # the TTL sweep of expired parked messages rides the same tick,
+        # budgeted like compaction and gated by the same breaker (it is
+        # store maintenance: a failing engine must not be hammered)
+        ms = self.msg_store
+        sweep = getattr(ms, "sweep_expired", None)
+        if sweep is not None and self.store_breaker.allow():
+            sweep_budget = int(self.config.get(
+                "store_expire_sweep_budget", 256))
+            try:
+                n = await asyncio.get_event_loop().run_in_executor(
+                    None, sweep, sweep_budget)
+            except Exception:
+                if self.store_breaker.record_failure():
+                    log.warning("store TTL sweep failed; store "
+                                "maintenance breaker OPEN")
+                self.store_compact_errors += 1
+                self.metrics.incr("store_compact_errors")
+            else:
+                # no record_success here: the compaction steps own the
+                # breaker's success/probe accounting — a healthy sweep
+                # must not mask an accumulating compaction failure run
+                if n:
+                    self.metrics.incr("msg_store_expired_swept", n)
+        # bucket-probe telemetry: move the bucketed store's counter
+        # deltas into $SYS (the store layer holds no metrics handle)
+        hits = getattr(ms, "probe_hits", 0)
+        misses = getattr(ms, "probe_misses", 0)
+        dh, dm = self._probe_drained
+        if hits - dh or misses - dm:
+            if hits - dh:
+                self.metrics.incr("store_bucket_probe_hits", hits - dh)
+            if misses - dm:
+                self.metrics.incr("store_bucket_probe_misses",
+                                  misses - dm)
+            self._probe_drained = (hits, misses)
+        return reclaimed
+
+    async def _store_maintenance_loop(self) -> None:
+        interval = max(0.05, float(self.config.get(
+            "store_compact_interval_ms", 1000)) / 1e3)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await self.store_maintain_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # the maintenance tick must never die: the next tick
+                # retries (a persistent failure shows in the breaker)
+                log.exception("store maintenance tick failed")
+
+    def store_status(self) -> Dict[str, Any]:
+        """`vmq-admin store show` / bench introspection."""
+        engines = []
+        for eng in self._store_engines():
+            st = {"kind": getattr(eng, "kind", "?")}
+            try:
+                st.update(eng.stats())
+            except Exception:
+                pass
+            engines.append(st)
+        out: Dict[str, Any] = {
+            "engine_kind": getattr(self.msg_store, "engine_kind",
+                                   "memory"),
+            "engines": engines,
+            "breaker": self.store_breaker.status(),
+            "compactions": self.store_compactions,
+            "compacted_bytes": self.store_compacted_bytes,
+            "compact_paused": self.store_compact_paused,
+            "compact_errors": self.store_compact_errors,
+        }
+        if self._resume_collector is not None:
+            out["resume"] = self._resume_collector.stats()
+        if hasattr(self.msg_store, "stats"):
+            out["msg_store"] = self.msg_store.stats()
+        return out
+
+    # ------------------------------------------------------------ lifecycle
+
+    def batch_collector(self):
+        """Lazy publish batch collector for the TPU reg view (µs-scale
+        coalescing, SURVEY.md §5.8 host↔TPU batching layer)."""
+        if getattr(self, "_collector", None) is None:
+            from ..models.matcher import BatchCollector
+
+            self._collector = BatchCollector(
+                self.registry.reg_view("tpu"),
+                window_us=self.config.tpu_batch_window_us,
+                host_threshold=self.config.tpu_host_batch_threshold,
+                lock_busy_shed_ms=self.config.tpu_lock_busy_shed_ms,
+                super_batch_k=self.config.tpu_super_batch_k,
+                latency_budget_ms=self.config.get(
+                    "overload_dispatch_budget_ms", 50.0),
+                watchdog=self.watchdog,
+                dispatch_deadline_ms=self._dispatch_deadline_ms(),
+                item_expiry_ms=self._collector_expiry_ms(),
+                filter_engine=self.filter_engine,
+            )
+        return self._collector
+
+    def _deliver_aggregate(self, mountpoint: str, sub_key, opts,
+                           topic_words, payload: bytes) -> None:
+        """A closed aggregation window emits ONE synthesized PUBLISH to
+        its subscriber (the telemetry-downsampling delivery): topic =
+        the concrete aggregated topic, payload = the JSON aggregate.
+        Runs on the event loop (the engine marshals emissions here);
+        the subscriber's queue applies the normal delivery transform."""
+        sid = sub_key[2] if (isinstance(sub_key, tuple) and len(sub_key) == 3
+                             and sub_key[0] == "$g") else sub_key
+        queue = self.registry.queues.get(sid)
+        if queue is None:
+            return  # subscriber gone between fold and close: drop
+        msg = Msg(topic=tuple(topic_words), payload=payload,
+                  qos=getattr(opts, "qos", 0), mountpoint=mountpoint)
+        self.registry._enqueue_to(sid, msg, opts)
+        self.metrics.incr("aggregate_publishes_delivered")
+
+    def _dispatch_deadline_ms(self) -> float:
+        """Device-dispatch abandon deadline (0 when the watchdog is
+        off: the pre-watchdog unbounded wait)."""
+        if not self.config.get("watchdog_enabled", True):
+            return 0.0
+        return float(self.config.get("watchdog_dispatch_deadline_ms",
+                                     5000))
+
+    def _collector_expiry_ms(self) -> float:
+        """Queued-item expiry: derived from the overload dispatch
+        budget so the bounded-tail guarantee tracks the same knob the
+        governor judges dispatch latency against."""
+        if not self.config.get("watchdog_enabled", True):
+            return 0.0
+        budgets = float(self.config.get(
+            "watchdog_collector_expiry_budgets", 4))
+        return budgets * float(self.config.get(
+            "overload_dispatch_budget_ms", 50.0))
+
+    def retained_collector(self):
+        """Always None: the device retained index is not ported yet
+        (ROADMAP Queue 1 item 6), so every retained replay takes the
+        exact host walk — what the reference does with
+        ``tpu_retained_enabled`` off."""
+        return None
+
+    def _resolve_base_dirs(self) -> None:
+        """Honor the setup.data_dir / setup.log_dir release knobs
+        (vmq_server.schema setup.* tree): relative storage paths resolve
+        under data_dir, a bare log filename under log_dir."""
+        import os as _os
+
+        data_dir = self.config.get("data_dir", "")
+        if data_dir:
+            for key in ("message_store_dir", "metadata_dir",
+                        "cluster_spool_dir"):
+                path = self.config.get(key, "")
+                if path and not _os.path.isabs(path):
+                    self.config.set(
+                        key,
+                        _os.path.normpath(_os.path.join(data_dir, path)))
+        log_dir = self.config.get("log_dir", "")
+        log_file = self.config.get("log_file", "")
+        if log_dir and log_file and not _os.path.isabs(log_file):
+            self.config.set("log_file", _os.path.join(log_dir, log_file))
+
+    async def start_systree(self) -> None:
+        """$SYS tree publisher (vmq_systree.erl): periodic internal publish
+        of all metrics to $SYS/<node>/... topics. Mountpoint, QoS and
+        retain flag follow the systree_* knobs (vmq_server.schema
+        systree_mountpoint/qos/retain)."""
+        interval = self.config.systree_interval
+        if interval <= 0:
+            return  # 0 = disabled (reference schema systree_interval)
+        mountpoint = self.config.get("systree_mountpoint", "")
+        qos = min(max(int(self.config.get("systree_qos", 0)), 0), 2)
+        retain = bool(self.config.get("systree_retain", False))
+        while True:
+            await asyncio.sleep(interval)
+            for name, value in self.metrics.all_metrics().items():
+                topic = ("$SYS", self.node_name, *name.split("_"))
+                msg = Msg(topic=topic, payload=str(value).encode(),
+                          qos=qos, retain=retain, mountpoint=mountpoint)
+                try:
+                    self.registry.publish(msg)
+                except RuntimeError:
+                    pass
+
+    # ---------------------------------------------------- session tracing
+
+    def trace_frame(self, direction: str, mountpoint: str,
+                    client_id: Optional[str], frame: Any,
+                    session_start: bool = False) -> None:
+        """Frame tap from the session layer; no-op unless a tracer is
+        active and the client matches (vmq_tracer role)."""
+        t = self.tracer
+        if t is None or not t.matches(mountpoint, client_id):
+            return
+        if session_start:
+            t.session_event(f'New session for client "{client_id}"')
+        t.trace(direction, client_id, frame)
+
+    def _setup_logging(self) -> None:
+        """Attach the configured log sinks (console is the host app's
+        concern; file + syslog mirror the reference's lager sinks)."""
+        import logging as _logging
+
+        if not self.config.log_file and not self.config.log_syslog:
+            return  # no sink knobs set: leave the host app's config alone
+        root = _logging.getLogger("vernemq_tpu_torch")
+        level = getattr(_logging, str(self.config.log_level).upper(),
+                        _logging.INFO)
+        root.setLevel(level)
+        fmt = _logging.Formatter(
+            "%(asctime)s [%(levelname)s] %(name)s: %(message)s")
+        if self.config.log_file:
+            fh = _logging.FileHandler(self.config.log_file)
+            fh.setFormatter(fmt)
+            root.addHandler(fh)
+            self._log_handlers.append(fh)
+        if self.config.log_syslog:
+            import logging.handlers as _lh
+
+            try:
+                sh = _lh.SysLogHandler(address=self.config.log_syslog_address)
+                sh.setFormatter(fmt)
+                root.addHandler(sh)
+                self._log_handlers.append(sh)
+            except OSError as e:
+                log.warning("syslog sink unavailable: %s", e)
+
+    async def start(self) -> None:
+        self._log_handlers: List[Any] = []
+        self._setup_logging()
+        # observability is always on in the port (observability_enabled
+        # off is refused in __init__); the registries are process-global
+        from ..observability import profiler as _profiler
+
+        _profiler().set_capacity(
+            int(self.config.get("profiler_capacity", 2048)))
+        from ..observability import events as _events
+
+        _events.journal().set_capacity(
+            int(self.config.get("events_capacity", 2048)))
+        # warm-load from persisted metadata: routing state, offline queues,
+        # retain cache (boot order of vmq_server_sup + vmq_reg_trie /
+        # vmq_retain_srv warm-loads)
+        self.registry.bootstrap()
+        if self.filter_engine is not None:
+            # time-window closes + aggregate emissions marshal onto the
+            # loop from the dispatch threads
+            self.filter_engine.arm(asyncio.get_event_loop())
+        for key, value in self.metadata.fold("retain"):
+            self.retain.apply_remote(key[0], tuple(key[1:]),
+                                     self._retain_term(value))
+        # boot-time fault plan (robustness harness): deterministic
+        # injected faults per the fault_injection config — empty list =
+        # nothing installed, zero overhead
+        plan_spec = self.config.get("fault_injection", [])
+        if plan_spec:
+            self._boot_fault_plan = faults.install(
+                faults.FaultPlan.from_config(
+                    plan_spec,
+                    seed=self.config.get("fault_injection_seed", 0)))
+            log.warning("fault-injection plan ACTIVE at boot: %d rules, "
+                        "seed %s", len(plan_spec),
+                        self.config.get("fault_injection_seed", 0))
+        # crash-restart supervision (vmq_server_sup one_for_one analog)
+        from .supervisor import Supervisor
+
+        self.supervisor = Supervisor(
+            self,
+            max_restarts=self.config.get("supervisor_max_restarts", 20),
+            restart_window=self.config.get("supervisor_restart_window",
+                                           60.0))
+        self.supervisor.watch_listeners()
+        if self.config.systree_enabled:
+            self.supervisor.spawn("systree", self.start_systree)
+        # admin HTTP, Graphite, bridges and the bundled plugins are not
+        # ported (refused in __init__, ROADMAP Queue 1 item 11); conf-file
+        # listeners (listener.<kind>.<name> = ip:port) — the boot-time
+        # half of the vernemq.conf layer (broker/conf.py)
+        conf_listeners = self.config.get("listeners", [])
+        if conf_listeners:
+            if self.listeners is None:
+                from .listeners import ListenerManager
+
+                ListenerManager(self)
+            for ln in conf_listeners:
+                await self.listeners.start_listener(
+                    ln["kind"], ln.get("addr", "127.0.0.1"),
+                    ln.get("port", 0), ln.get("opts"))
+        # stall watchdog: monitor thread scanning the monitored-op
+        # registry for overdue waits (robustness/watchdog.py). Started
+        # before the governor/sysmon so a wedge during boot warm-up is
+        # already observable.
+        if self.config.get("watchdog_enabled", True):
+            self.watchdog.tick_s = self.config.get(
+                "watchdog_tick_ms", 100) / 1e3
+            self.watchdog.start()
+        # budgeted store maintenance: segment compaction + checkpoints
+        # for every engine (msg store buckets + cluster spool journal)
+        # run OFF the loop on the sacrificial executor, at most
+        # store_compact_budget_bytes copied per engine per tick; the
+        # store breaker pauses it (append-only degraded mode) on
+        # injected or real failures without touching delivery
+        if float(self.config.get("store_compact_interval_ms", 1000)) > 0:
+            self._bg_tasks.append(asyncio.get_event_loop().create_task(
+                self._store_maintenance_loop()))
+        # materialize the reg views listed in the reg_views knob
+        # (vmq_server.schema reg_views: views started at BOOT, not on
+        # first default_reg_view routing) — an operator listing tpu with
+        # default_reg_view=trie wants the device table building now so
+        # a later `config set default_reg_view tpu` flips onto a warm
+        # view (already-present names are skipped)
+        from .schema import REG_VIEW_ALIASES
+
+        valid_views = sorted(set(REG_VIEW_ALIASES.values()))
+        for view_name in self.config.get("reg_views", ["trie"]):
+            if view_name in self.registry.reg_views:
+                continue
+            if view_name not in valid_views:
+                log.error("reg_views names unknown view %r (valid: %s)",
+                          view_name, ", ".join(valid_views))
+                continue
+            # a device view that cannot be built raises here: the port
+            # has no probe to retry it and no trie to serve in its place
+            self.registry.reg_view(view_name)
+        if (self.config.default_reg_view == "tpu"
+                and self.config.get("tpu_retained_enabled", True)):
+            log.info("retained replays take the exact host walk: the "
+                     "device retained index is not ported (ROADMAP Queue 1 "
+                     "item 6)")
+        # adaptive overload governor BEFORE sysmon so the lag sampler can
+        # feed it from its very first sample (robustness/overload.py)
+        from ..robustness.overload import OverloadGovernor
+
+        cfg = self.config
+        self.overload = OverloadGovernor(
+            self,
+            mode=cfg.get("overload_mode", "governor"),
+            tick_s=cfg.get("overload_tick_ms", 250) / 1e3,
+            hold_s=cfg.get("overload_hold_s", 5.0),
+            exit_ratio=cfg.get("overload_exit_ratio", 0.5),
+            l1_enter=cfg.get("overload_l1_enter", 0.25),
+            l2_enter=cfg.get("overload_l2_enter", 0.5),
+            l3_enter=cfg.get("overload_l3_enter", 0.8),
+            l1_throttle_ms=cfg.get("overload_l1_throttle_ms", 100),
+            l2_client_rate=cfg.get("overload_l2_client_rate", 50),
+            l2_burst=cfg.get("overload_l2_burst", 100),
+            l3_disconnect_top=cfg.get("overload_l3_disconnect_top", 5))
+        self.overload.start()
+        if self.config.get("sysmon_enabled", True):
+            from .sysmon import Sysmon
+
+            self.sysmon = Sysmon(
+                self,
+                lag_threshold=self.config.get("sysmon_lag_threshold", 0.25),
+                memory_high_watermark=self.config.get(
+                    "sysmon_memory_high_watermark", 0),
+                lag_exit_ratio=self.config.get("sysmon_lag_exit_ratio",
+                                               0.5))
+            self.sysmon.start()
+        from .sysmon import CrlRefresher
+
+        self.crl_refresher = CrlRefresher(
+            self, interval=self.config.get("crl_refresh_interval", 60.0))
+        self.crl_refresher.start()
+        # canary SLO probe: a loopback subscriber + a periodic synthetic
+        # publish through the FULL path feeding e2e_canary_ms — the
+        # continuous black-box end-to-end signal. Supervised like the
+        # systree reporter; zero footprint unless enabled.
+        if (bool(self.config.get("canary_enabled", False))
+                and bool(self.config.get("observability_enabled", True))):
+            from ..observability.canary import CanaryProbe
+
+            self.canary = CanaryProbe(
+                self,
+                interval_ms=float(self.config.get("canary_interval_ms",
+                                                  1000)),
+                slo_ms=float(self.config.get("canary_slo_ms", 250.0)))
+            self.supervisor.spawn("canary", self.canary.run)
+        # hot-upgrade baseline LAST, after every boot-time lazy import,
+        # so `vmq-admin updo diff` is relative to what this boot loaded
+        # (vmq_updo.erl:60-71 diffs loaded vsn vs on-disk beam); modules
+        # imported even later are adopted on first diff() sight
+        from . import updo
+
+        updo.baseline()
+
+    async def stop(self) -> None:
+        for t in self._bg_tasks:
+            t.cancel()
+        for t in self._delayed_wills.values():
+            t.cancel()
+        self._delayed_wills.clear()
+        # sessions first so lifecycle hooks (on_client_offline/gone) still
+        # reach enabled plugins; then plugins (a bridge keeps an outbound
+        # client reconnecting); listeners last — Server.wait_closed blocks
+        # until every connection handler (incl. bridge links) has returned
+        if getattr(self, "supervisor", None) is not None:
+            self.supervisor.stop()
+        import logging as _logging
+
+        for h in getattr(self, "_log_handlers", []):
+            _logging.getLogger("vernemq_tpu_torch").removeHandler(h)
+            h.close()
+        if self.sysmon is not None:
+            self.sysmon.stop()
+        if self.overload is not None:
+            self.overload.stop()
+        if self.crl_refresher is not None:
+            self.crl_refresher.stop()
+        for s in list(self.sessions.values()):
+            await s.close("broker_shutdown", send_will=False)
+        await self.plugins.stop_all()
+        if self.cluster is not None:
+            # the inter-node channel goes down after sessions/plugins
+            # (migration + lifecycle hooks may still need it) and before
+            # listeners; idempotent when the cluster was started as a
+            # `vmq` listener (stop_all covers that handle too)
+            await self.cluster.stop()
+        if self.listeners is not None:
+            await self.listeners.stop_all()
+        for server in self._servers:
+            server.close()
+        # wind down the tpu view's background warm threads (they hold no
+        # broker state, but must not keep compiling into a dead matcher)
+        tpu_view = self.registry.reg_views.get("tpu")
+        if tpu_view is not None and hasattr(tpu_view, "close"):
+            tpu_view.close()
+        if self._retained_collector is not None:
+            # settle pending replay futures (host walk) and disarm the
+            # flush timer BEFORE closing the engine it dispatches into
+            self._retained_collector.close()
+        if self._retained_engine is not None:
+            self._retained_engine.close()
+        if self.filter_engine is not None:
+            self.filter_engine.close()
+        # the fault registry is process-global: a plan THIS broker
+        # installed at boot must not keep injecting into other broker
+        # instances in the process (multi-node tests, embedding) — but
+        # leave a plan installed live via the admin surface alone
+        if (getattr(self, "_boot_fault_plan", None) is not None
+                and faults.active() is self._boot_fault_plan):
+            faults.clear()
+        # after the collectors/views that dispatch through it are down;
+        # wedged sacrificial threads are daemons and die with the process
+        self.watchdog.stop()
+        if self._resume_collector is not None:
+            # settle pending resume futures (per-session reads) BEFORE
+            # closing the store they read from
+            self._resume_collector.close()
+        self.msg_store.close()
+        self.metadata.close()

@@ -1,0 +1,172 @@
+"""Broker-internal message record.
+
+Equivalent of the reference's ``#vmq_msg{}`` record (msg_ref, routing key,
+payload, QoS, retain/dup flags, mountpoint, v5 properties; see
+``vmq_cluster_com.erl:212-248`` for the field set) — the unit that flows
+registry → queue → session, independent of the wire frames.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+SubscriberId = Tuple[str, str]  # (mountpoint, client_id) — vmq_types.hrl
+
+_ref_counter = itertools.count()
+_node_seed = os.urandom(4).hex()
+
+
+def new_msg_ref() -> bytes:
+    """Unique message reference (the reference uses a 16-byte ref; ours is
+    node-seed + counter, unique per broker process)."""
+    return f"{_node_seed}:{next(_ref_counter)}".encode()
+
+
+@dataclass
+class Msg:
+    topic: Tuple[str, ...]  # routing key as word tuple
+    payload: bytes
+    qos: int = 0
+    retain: bool = False
+    dup: bool = False
+    mountpoint: str = ""
+    msg_ref: bytes = field(default_factory=new_msg_ref)
+    properties: Dict[str, Any] = field(default_factory=dict)
+    # expiry: absolute monotonic deadline derived from the v5
+    # message_expiry_interval property (vmq_mqtt5_fsm message expiry)
+    expires_at: Optional[float] = None
+    # $share sender info: set when delivered via a shared subscription
+    sg_policy: Optional[str] = None
+
+    def with_qos(self, qos: int) -> "Msg":
+        if qos == self.qos:
+            return self
+        return Msg(
+            topic=self.topic,
+            payload=self.payload,
+            qos=qos,
+            retain=self.retain,
+            dup=self.dup,
+            mountpoint=self.mountpoint,
+            msg_ref=self.msg_ref,
+            properties=self.properties,
+            expires_at=self.expires_at,
+        )
+
+
+def wire_v4_qos(msg: "Msg", pid: int) -> bytes:
+    """The v4 QoS>0 PUBLISH wire frame for ``msg`` with ``pid`` patched
+    in: across recipients the frame differs ONLY in the 2-byte packet id
+    (v4 has no per-session properties; dup retries bypass this), so
+    serialise once per Msg and copy+patch per recipient instead of
+    re-running the codec — the QoS1/2 analog of :func:`wire_v4_qos0`."""
+    tpl = getattr(msg, "_wire_v4_tpl", None)
+    if tpl is None:
+        from ..protocol import codec_v4
+        from ..protocol import topic as T
+        from ..protocol.types import Publish
+
+        topic_str = T.unword(list(msg.topic))
+        frame = Publish(topic=topic_str, payload=msg.payload, qos=msg.qos,
+                        retain=msg.retain, dup=False, packet_id=pid,
+                        properties={})
+        data = codec_v4.serialise(frame)
+        # build the template only from the SECOND recipient on: a
+        # fanout-1 message would pay the bytearray+patch copies for
+        # nothing and retain a second full frame copy while it sits in
+        # waiting_acks/offline queues
+        if getattr(msg, "_wire_v4_seen", False):
+            # the 2-byte packet id immediately precedes the payload in a
+            # v4 PUBLISH — derive the offset from the serialised bytes
+            # so it can never disagree with the codec
+            msg._wire_v4_tpl = (bytearray(data),
+                                len(data) - len(msg.payload) - 2)
+        else:
+            msg._wire_v4_seen = True
+        return data
+    buf, off = tpl
+    buf[off] = (pid >> 8) & 0xFF
+    buf[off + 1] = pid & 0xFF
+    return bytes(buf)
+
+
+def wire_v4_iov_qos0(msg: "Msg") -> tuple:
+    """Writev-ready v4 QoS0 PUBLISH: ``(header, payload)`` with the
+    header cached on the Msg — the payload bytes object is shared
+    across every recipient's transport iovec and never copied into a
+    per-frame buffer (protocol/fastpath.py encode seam). Falls back to
+    the single cached frame when the header encoder refuses (so the
+    canonical codec error surfaces)."""
+    iov = getattr(msg, "_wire_v4_q0_iov", None)
+    if iov is None:
+        from ..protocol import fastpath
+        from ..protocol import topic as T
+
+        try:
+            hdr = fastpath.publish_header(
+                T.unword(list(msg.topic)), 0, bool(msg.retain), False,
+                None, len(msg.payload))
+        except ValueError:
+            return (wire_v4_qos0(msg),)
+        iov = msg._wire_v4_q0_iov = (hdr, msg.payload)
+    return iov
+
+
+def wire_v4_iov_qos(msg: "Msg", pid: int) -> tuple:
+    """Writev-ready v4 QoS>0 PUBLISH: per-recipient frames differ only
+    in the 2-byte packet id, which sits at the END of the header — so
+    the cached header template is patched per recipient and the shared
+    payload rides the iovec uncopied (the iov analog of
+    :func:`wire_v4_qos`)."""
+    tpl = getattr(msg, "_wire_v4_hdr_tpl", None)
+    if tpl is None:
+        from ..protocol import fastpath
+        from ..protocol import topic as T
+
+        try:
+            hdr = fastpath.publish_header(
+                T.unword(list(msg.topic)), msg.qos, bool(msg.retain),
+                False, pid, len(msg.payload))
+        except ValueError:
+            return (wire_v4_qos(msg, pid),)
+        msg._wire_v4_hdr_tpl = bytearray(hdr)
+        return (hdr, msg.payload)
+    tpl[-2] = (pid >> 8) & 0xFF
+    tpl[-1] = pid & 0xFF
+    return (bytes(tpl), msg.payload)
+
+
+def wire_batch_iovs(arena: bytes, offsets, payload: bytes) -> list:
+    """Per-recipient writev iovecs over a batched header arena
+    (``fastpath.publish_headers_batch``): recipient *i*'s header is the
+    zero-copy memoryview slice ``arena[offsets[i]:offsets[i+1]]``, and
+    the shared payload bytes object rides every iovec uncopied — the
+    whole fanout touches ONE arena allocation plus the payload the
+    parser already sliced."""
+    mv = memoryview(arena)
+    return [(mv[offsets[i]:offsets[i + 1]], payload)
+            for i in range(len(offsets) - 1)]
+
+
+def wire_v4_qos0(msg: "Msg") -> bytes:
+    """The v4 QoS0 PUBLISH wire frame for ``msg``, cached on the Msg:
+    identical for every v4 QoS0 recipient (no packet id, no props, no
+    per-session state), so fanout serialises once. Shared by the
+    session send path and the registry's batched fanout — ONE
+    serialisation site, one cache slot."""
+    data = getattr(msg, "_wire_v4_q0", None)
+    if data is None:
+        from ..protocol import codec_v4
+        from ..protocol import topic as T
+        from ..protocol.types import Publish
+
+        frame = Publish(topic=T.unword(list(msg.topic)),
+                        payload=msg.payload, qos=0, retain=msg.retain,
+                        dup=False, packet_id=None, properties={})
+        data = codec_v4.serialise(frame)
+        msg._wire_v4_q0 = data
+    return data

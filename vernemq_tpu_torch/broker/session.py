@@ -1,0 +1,1688 @@
+"""MQTT session FSM — one implementation parameterized by protocol level.
+
+Mirrors the reference session FSMs (``vmq_mqtt_fsm.erl`` for 3.1/3.1.1,
+``vmq_mqtt5_fsm.erl`` for 5.0). Like the reference, the FSM has no process
+of its own — it runs inside the connection's socket loop (here: the asyncio
+connection task), with queue deliveries arriving as callbacks:
+
+- CONNECT pipeline ``check_connect → check_client_id → check_user →
+  check_will`` (vmq_mqtt_fsm.erl:487-604), auth via the
+  ``auth_on_register(_m5)`` all_till_ok chain with modifier support;
+- PUBLISH dispatch by QoS (vmq_mqtt_fsm.erl:748-866): QoS1 route+PUBACK,
+  QoS2 route-on-first-PUBLISH, PUBREC, dedup until PUBREL, PUBCOMP;
+- outgoing QoS1/2 tracked in ``waiting_acks`` with retry w/ DUP
+  (vmq_mqtt_fsm.erl:294-355,1077-1101) and a ``max_inflight_messages``
+  window (vmq_mqtt_fsm.erl:65);
+- keepalive enforcement at 1.5× (vmq_mqtt_fsm.erl:422-432);
+- session takeover (dup CONNECT) disconnects the old session, v5 with
+  reason 0x8E;
+- MQTT5: topic aliases both directions (vmq_mqtt5_fsm.erl:90-93), flow
+  control receive-maximum (:97-100), session/message expiry (:69),
+  enhanced AUTH via the on_auth_m5 hook (:78,330-353), will delay.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from collections import OrderedDict
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+
+log = logging.getLogger("vernemq_tpu_torch.session")
+
+from ..filters.predicate import FilterError, parse_filter, split_filter_suffix
+from ..protocol import codec_v4, codec_v5, fastpath
+from ..protocol import topic as T
+from ..protocol.types import (
+    PROTO_5,
+    PUBACK as PUBACK_T,
+    PUBCOMP as PUBCOMP_T,
+    PUBREC as PUBREC_T,
+    PUBREL as PUBREL_T,
+    RC_GRANTED_QOS0,
+    RC_NOT_AUTHORIZED,
+    RC_SERVER_UNAVAILABLE,
+    RC_NO_MATCHING_SUBSCRIBERS,
+    RC_NO_SUBSCRIPTION_EXISTED,
+    RC_PACKET_ID_NOT_FOUND,
+    RC_SERVER_BUSY,
+    RC_SERVER_MOVED,
+    RC_SESSION_TAKEN_OVER,
+    RC_SUCCESS,
+    RC_USE_ANOTHER_SERVER,
+    RC_RECEIVE_MAX_EXCEEDED,
+    RC_TOPIC_ALIAS_INVALID,
+    RC_UNSPECIFIED_ERROR,
+    Auth,
+    Connack,
+    Connect,
+    Disconnect,
+    Frame,
+    ParseError,
+    Pingreq,
+    Pingresp,
+    Puback,
+    Pubcomp,
+    Publish,
+    Pubrec,
+    Pubrel,
+    SubOpts,
+    Suback,
+    Subscribe,
+    Unsuback,
+    Unsubscribe,
+    Will,
+    reason_name,
+)
+from .message import Msg, SubscriberId
+from .plugins import HookError
+from .queue import QueueOpts
+
+if TYPE_CHECKING:
+    from .broker import Broker
+
+CONNACK_V4_FROM_RC = {
+    # map v5-style internal reasons onto v4 return codes
+    RC_UNSPECIFIED_ERROR: 3,
+    RC_NOT_AUTHORIZED: 5,
+}
+
+
+class SessionError(Exception):
+    pass
+
+
+class Session:
+    """One per live client connection."""
+
+    def __init__(self, broker: "Broker", transport: "Transport", proto_ver: int,
+                 peer: Tuple[str, int] = ("", 0), mountpoint: str = ""):
+        self.broker = broker
+        self.transport = transport
+        self.proto_ver = proto_ver
+        self.codec = codec_v5 if proto_ver == PROTO_5 else codec_v4
+        self.peer = peer
+        self.mountpoint = mountpoint
+        self.client_id: str = ""
+        self.sid: Optional[SubscriberId] = None
+        self.username: Optional[str] = None
+        self.connected = False
+        self.clean_start = True
+        self.keepalive = 0
+        self.will: Optional[Will] = None
+        self.queue = None
+        # outgoing qos1/2: pid -> [kind, msg, ts, dup_sent]; kind: 'puback'|'pubrec'|'pubcomp'
+        self.waiting_acks: Dict[int, List[Any]] = {}
+        self.pending: List[Msg] = []  # deliveries waiting for an inflight slot
+        self._next_pid = 0
+        self.awaiting_rel: Dict[int, float] = {}  # incoming qos2 pids
+        self.last_activity = time.monotonic()
+        # wakes a rate-throttled reader early: set on the notify_ready /
+        # window-freed edge (_pump_pending) and at close
+        self._throttle_wake = asyncio.Event()
+        self._tasks: List[asyncio.Task] = []
+        self.closed = False
+        self.close_reason = "normal"
+        # v5 state
+        self.session_expiry = 0
+        # inbound alias -> (words, topic_str): the wire fast path needs
+        # the validated string without re-unwording per publish
+        self.topic_alias_in: Dict[int, Tuple[Tuple[str, ...], str]] = {}
+        # outbound words -> alias, LRU-ordered (oldest first): a full
+        # table evicts the least-recently-SENT topic and re-establishes
+        # its alias number for the new hot topic (MQTT5 3.3.2.3.4 lets
+        # the sender remap an alias mid-connection)
+        self.topic_alias_out: "OrderedDict[Tuple[str, ...], int]" = \
+            OrderedDict()
+        self.topic_alias_max_out = 0  # client's limit for broker→client aliases
+        self.receive_max_out = 65535  # client's receive maximum (broker→client inflight cap)
+        self.max_packet_out = 0  # client's maximum_packet_size; 0 = unlimited
+        self.max_frame_in = 0    # the listener's enforced inbound frame cap
+        self._recv_max_announced = 0  # receive_maximum sent in OUR CONNACK
+        self.request_problem_info = True
+        self.auth_method: Optional[str] = None
+        self._in_enhanced_auth = False
+        self._pending_connect: Optional[Connect] = None
+        # wire fast path (protocol/fastpath.py): per-connection topic
+        # admission cache — raw topic bytes -> (words, topic_str), so a
+        # telemetry stream repeating a handful of topics validates each
+        # once and admits the rest with zero frame/Msg objects
+        self._wire_topic_cache: Dict[bytes, Tuple[Tuple[str, ...], str]] = {}
+
+    # ------------------------------------------------------------------ IO
+
+    def send(self, frame: Frame) -> None:
+        if self.closed:
+            return
+        if self.broker.tracer is not None:  # session tracer tap (vmq_tracer)
+            self.broker.trace_frame("out", self.mountpoint, self.client_id, frame)
+        data = self.codec.serialise(frame)
+        self.transport.write(data)
+        self.broker.metrics.incr("bytes_sent", len(data))
+
+    def _metric_in(self, frame: Frame) -> None:
+        m = _IN_METRIC.get(type(frame))
+        if m:
+            self.broker.metrics.incr(m)
+        if type(frame) is Disconnect and self.proto_ver == PROTO_5:
+            # per-reason family (vmq_metrics mqtt5_disconnect_recv_def)
+            self.broker.metrics.incr_labeled(
+                "mqtt_disconnect_received", mqtt_version="5",
+                reason_code=reason_name(frame.reason_code,
+                                        zero="normal_disconnect"))
+
+    # ---------------------------------------------------------- CONNECT
+
+    async def handle_connect(self, f: Connect) -> bool:
+        """CONNECT pipeline; returns True if session established."""
+        self.broker.metrics.incr("mqtt_connect_received")
+        cfg = self.broker.config
+        self.keepalive = f.keepalive
+        self.clean_start = f.clean_start
+        self.will = f.will
+        self.username = f.username
+
+        # check_client_id (vmq_mqtt_fsm.erl:514-560)
+        client_id = f.client_id
+        if not client_id:
+            if not f.clean_start and self.proto_ver != PROTO_5:
+                await self._connack_fail(2, RC_CLIENT_ID_NOT_VALID)
+                return False
+            client_id = f"auto-{id(self):x}-{int(time.time() * 1000) & 0xFFFFFF:x}"
+            self._assigned_client_id = client_id
+        else:
+            self._assigned_client_id = None
+        if len(client_id) > cfg.max_client_id_size:
+            await self._connack_fail(2, RC_CLIENT_ID_NOT_VALID)
+            return False
+        self.client_id = client_id
+        self.sid = (self.mountpoint, client_id)
+        if self.broker.tracer is not None:
+            # trace the CONNECT of a newly-arriving traced client (the
+            # trace_fun injected into FSM init, vmq_mqtt_fsm.erl:116-118)
+            self.broker.trace_frame("in", self.mountpoint, client_id, f,
+                                    session_start=True)
+
+        if self.proto_ver == PROTO_5:
+            self.session_expiry = f.properties.get("session_expiry_interval", 0)
+            cap = cfg.max_session_expiry_interval
+            if cap and self.session_expiry > cap:
+                self.session_expiry = cap
+            self.topic_alias_max_out = f.properties.get("topic_alias_maximum", 0)
+            if cfg.topic_alias_max_broker:
+                self.topic_alias_max_out = min(self.topic_alias_max_out,
+                                               cfg.topic_alias_max_broker)
+            # default when the client announces none: the reference's
+            # receive_max_client knob (vmq_server.schema), not a
+            # hardcoded 65535 — an operator capping broker->client
+            # inflight for quiet v5 clients gets the cap they set
+            self.receive_max_out = f.properties.get(
+                "receive_maximum", cfg.receive_max_client)
+            # client's packet-size ceiling for broker->client frames
+            # (vmq_mqtt5_fsm.erl:159-161 maybe_get_maximum_packet_size,
+            # min'd with the broker's own configured cap)
+            self.max_packet_out = f.properties.get("maximum_packet_size", 0)
+            cfg_mps = cfg.get("m5_max_packet_size", 0)
+            if cfg_mps:
+                self.max_packet_out = (min(self.max_packet_out, cfg_mps)
+                                       if self.max_packet_out else cfg_mps)
+            self.request_problem_info = bool(f.properties.get("request_problem_information", 1))
+            self.auth_method = f.properties.get("authentication_method")
+
+        # enhanced auth (MQTT5 AUTH exchange, vmq_mqtt5_fsm.erl:330-353)
+        if self.auth_method is not None:
+            if not self.broker.hooks.has("on_auth_m5"):
+                # a method the broker does not support must be rejected
+                # with 0x8C, not silently ignored (MQTT5 4.12)
+                self.broker.metrics.incr("mqtt_connect_error")
+                self.send(Connack(session_present=False, rc=0x8C))
+                self._count_connack(0x8C)
+                await self.close("bad_authentication_method")
+                return False
+            self._pending_connect = f
+            res = await self._run_enhanced_auth(f.properties.get("authentication_data"))
+            if res == "continue":
+                return True  # wait for client AUTH frames
+            if res != "ok":
+                return False
+            # fallthrough: auth completed in one round
+
+        return await self._finish_connect(f)
+
+    async def _finish_connect(self, f: Connect) -> bool:
+        cfg = self.broker.config
+        # check_user → auth_on_register chain (vmq_mqtt_fsm.erl:606-650)
+        hook = "auth_on_register_m5" if self.proto_ver == PROTO_5 else "auth_on_register"
+        modifiers: Dict[str, Any] = {}
+        try:
+            res = await self.broker.hooks.all_till_ok(
+                hook, self.peer, self.sid, f.username, f.password, f.clean_start
+            )
+            if isinstance(res, tuple):
+                modifiers = res[1]
+        except HookError as e:
+            if e.reason == "no_matching_hook_found":
+                if not cfg.allow_anonymous:
+                    await self._connack_fail(5, RC_NOT_AUTHORIZED)
+                    return False
+            else:
+                self.broker.metrics.incr("mqtt_connect_error")
+                rc = 4 if e.reason == "invalid_credentials" else 5
+                await self._connack_fail(rc, RC_NOT_AUTHORIZED)
+                return False
+        # apply modifiers (per-session overrides, vmq_mqtt_fsm.erl:606-650)
+        if "mountpoint" in modifiers:
+            self.mountpoint = modifiers["mountpoint"]
+            self.sid = (self.mountpoint, self.client_id)
+        if "clean_session" in modifiers:
+            self.clean_start = modifiers["clean_session"]
+
+        # check_will (vmq_mqtt_fsm.erl:581-604)
+        if self.will is not None:
+            try:
+                wt = T.validate_topic("publish", self.will.topic)
+                self.will_topic_words = tuple(wt)
+            except T.TopicError:
+                await self._connack_fail(2, RC_TOPIC_NAME_INVALID)
+                return False
+            try:
+                await self.broker.auth_publish(
+                    self.sid, self.username, self.will_topic_words,
+                    self.will.payload, self.will.qos, self.will.retain,
+                    self.proto_ver,
+                )
+            except HookError:
+                await self._connack_fail(5, RC_NOT_AUTHORIZED)
+                return False
+
+        # session takeover (vmq_mqtt_fsm check_client_id dup connect) —
+        # unless multiple sessions per ClientId are allowed, in which case
+        # the new session joins the existing queue (vmq_queue multi-session
+        # fanout/balance, vmq_queue.erl:826-835)
+        multi = (cfg.allow_multiple_sessions
+                 and self.broker.registry.get_queue(self.sid) is not None)
+        if not multi:
+            await self.broker.takeover(self.sid, self)
+        self.broker.cancel_delayed_will(self.sid)
+
+        # register queue
+        persistent = (
+            (self.proto_ver == PROTO_5 and self.session_expiry > 0)
+            or (self.proto_ver != PROTO_5 and not self.clean_start)
+        )
+        qopts = QueueOpts(
+            clean_session=not persistent,
+            max_offline_messages=cfg.max_offline_messages,
+            max_online_messages=cfg.max_online_messages,
+            deliver_mode=cfg.queue_deliver_mode,
+            queue_type=cfg.queue_type,
+            session_expiry=self.session_expiry,
+        )
+        if multi:
+            # a joining extra session must not clean-start the shared queue
+            # NOR flip it volatile: the queue stays persistent while ANY of
+            # its sessions is persistent (register_subscriber overwrites
+            # existing.opts with what we pass)
+            shared = self.broker.registry.get_queue(self.sid)
+            if shared is not None:
+                qopts.clean_session = (qopts.clean_session
+                                       and shared.opts.clean_session)
+                qopts.session_expiry = max(qopts.session_expiry,
+                                           shared.opts.session_expiry)
+        try:
+            # cluster-serialized per-SubscriberId (vmq_reg.erl:115-126 via
+            # vmq_reg_sync); degrades to the direct call single-node
+            self.queue, session_present = \
+                await self.broker.registry.register_subscriber_synced(
+                    self.sid, self.clean_start and not multi, qopts
+                )
+        except RuntimeError:
+            # netsplit CAP gate (vmq_reg.erl:65-70): CONNACK server
+            # unavailable instead of dropping the socket
+            await self._connack_fail(3, RC_SERVER_UNAVAILABLE)
+            return False
+        self.connected = True
+        self.broker.sessions[self.sid] = self
+
+        # CONNACK
+        props: Dict[str, Any] = {}
+        if self.proto_ver == PROTO_5:
+            if self._assigned_client_id:
+                props["assigned_client_identifier"] = self._assigned_client_id
+            if cfg.receive_max_broker:
+                props["receive_maximum"] = cfg.receive_max_broker
+                # enforce what THIS session announced, not the live cfg:
+                # a runtime `config set receive_max_broker` must not turn
+                # compliant in-flight clients into 0x93 disconnects (same
+                # announced-vs-enforced discipline as max_frame_in above)
+                self._recv_max_announced = cfg.receive_max_broker
+            if cfg.topic_alias_max_client:
+                props["topic_alias_maximum"] = cfg.topic_alias_max_client
+            if self.max_frame_in:
+                # announce the inbound ceiling the listener is ACTUALLY
+                # parsing with (MQTT5 3.2.2.3.6) — not the live config
+                # value, which can drift from the listener's snapshot
+                # (runtime config set, per-listener override). The
+                # parser caps remaining length, so total accepted bytes
+                # run up to ~5B over: the lenient direction — nothing
+                # the broker promised to accept is ever rejected
+                props["maximum_packet_size"] = self.max_frame_in
+            if cfg.max_session_expiry_interval and self.session_expiry != \
+                    (self._pending_connect or f).properties.get("session_expiry_interval", 0):
+                props["session_expiry_interval"] = self.session_expiry
+            if self.auth_method is not None and \
+                    getattr(self, "_enhanced_done", False):
+                # enhanced auth RAN: CONNACK echoes the method and the
+                # final server data (MQTT5 3.2.2.3.17; vmq_mqtt5_fsm AUTH)
+                props["authentication_method"] = self.auth_method
+                if getattr(self, "_auth_success_data", None):
+                    props["authentication_data"] = self._auth_success_data
+        self.send(Connack(session_present=session_present, rc=0, properties=props))
+        self._count_connack(0)
+        # attach AFTER the CONNACK so offline-backlog flush serialises behind
+        # it on the wire (the reference's queue wakeup happens post-CONNACK)
+        self.queue.add_session(self, self._queue_deliver)
+        self.broker.hooks_fire_all(
+            "on_register", self.peer, self.sid, self.username
+        )
+        self._start_timers()
+        return True
+
+    async def _run_enhanced_auth(self, data: Optional[bytes]) -> str:
+        """on_auth_m5 hook round (vmq_mqtt5_fsm enhanced auth)."""
+        try:
+            res = await self.broker.hooks.all_till_ok(
+                "on_auth_m5", self.sid, self.auth_method, data
+            )
+        except HookError:
+            self.broker.metrics.incr("mqtt_connect_error")
+            if self.connected:
+                # re-auth on an established session: DISCONNECT, never a
+                # second CONNACK (MQTT5 4.12.1)
+                self.send(Disconnect(reason_code=0x8C))
+                self._count_disconnect_sent(0x8C)
+            else:
+                self.send(Connack(session_present=False, rc=0x8C))
+                self._count_connack(0x8C)
+            await self.close("bad_authentication_method")
+            return "error"
+        if isinstance(res, tuple):
+            mods = res[1]
+            out_data = mods.get("authentication_data")
+            if mods.get("continue_auth"):
+                self._in_enhanced_auth = True
+                self.send(Auth(reason_code=0x18, properties={
+                    "authentication_method": self.auth_method,
+                    **({"authentication_data": out_data} if out_data else {}),
+                }))
+                self.broker.metrics.incr("mqtt_auth_sent")
+                return "continue"
+            self._auth_success_data = out_data
+        self._enhanced_done = True
+        return "ok"
+
+    #: v4 CONNACK return code → per-reason counter (vmq_metrics.erl:655-660)
+    _V4_CONNACK_COUNTER = {
+        0: "mqtt_connack_accepted_sent",
+        1: "mqtt_connack_unacceptable_protocol_sent",
+        2: "mqtt_connack_identifier_rejected_sent",
+        3: "mqtt_connack_server_unavailable_sent",
+        4: "mqtt_connack_bad_credentials_sent",
+        5: "mqtt_connack_not_authorized_sent",
+    }
+    #: and the reference's v4 return_code label strings (m4_connack_labels)
+    _V4_CONNACK_LABEL = {
+        0: "success", 1: "unsupported_protocol_version",
+        2: "client_identifier_not_valid", 3: "server_unavailable",
+        4: "bad_username_or_password", 5: "not_authorized",
+    }
+
+    def _count_connack(self, rc: int) -> None:
+        """Flat family counter + per-reason accounting for one CONNACK
+        (the reference keeps both: the v4 per-reason counters AND the
+        reason-labeled family, vmq_metrics.erl:655-660 + :787-813)."""
+        m = self.broker.metrics
+        m.incr("mqtt_connack_sent")
+        if self.proto_ver == PROTO_5:
+            m.incr_labeled("mqtt_connack_sent", mqtt_version="5",
+                           reason_code=reason_name(rc))
+        else:
+            flat = self._V4_CONNACK_COUNTER.get(rc)
+            if flat:
+                m.incr(flat)
+            m.incr_labeled("mqtt_connack_sent", mqtt_version="4",
+                           return_code=self._V4_CONNACK_LABEL.get(
+                               rc, f"rc_{rc}"))
+
+    async def _connack_fail(self, v4_rc: int, v5_rc: int) -> None:
+        self.broker.metrics.incr("mqtt_connect_error")
+        rc = v5_rc if self.proto_ver == PROTO_5 else v4_rc
+        self.send(Connack(session_present=False, rc=rc))
+        self._count_connack(rc)
+        await self.close("connack_fail", send_will=False)
+
+    # ------------------------------------------------------- frame dispatch
+
+    async def handle_frame(self, frame: Frame) -> None:
+        self.last_activity = time.monotonic()
+        self._metric_in(frame)
+        if self.broker.tracer is not None:
+            self.broker.trace_frame("in", self.mountpoint, self.client_id, frame)
+        t = type(frame)
+        if t is Publish:
+            await self._handle_publish(frame)
+        elif t is Puback:
+            self._handle_puback(frame)
+        elif t is Pubrec:
+            self._handle_pubrec(frame)
+        elif t is Pubrel:
+            self._handle_pubrel(frame)
+        elif t is Pubcomp:
+            self._handle_pubcomp(frame)
+        elif t is Subscribe:
+            await self._handle_subscribe(frame)
+        elif t is Unsubscribe:
+            await self._handle_unsubscribe(frame)
+        elif t is Pingreq:
+            self.send(Pingresp())
+            self.broker.metrics.incr("mqtt_pingresp_sent")
+        elif t is Disconnect:
+            # v5 rc 0x04 = disconnect with will
+            send_will = self.proto_ver == PROTO_5 and frame.reason_code == 0x04
+            if self.proto_ver == PROTO_5:
+                sei = frame.properties.get("session_expiry_interval")
+                if sei is not None:
+                    cap = self.broker.config.max_session_expiry_interval
+                    if cap and sei > cap:
+                        sei = cap
+                    self.session_expiry = sei
+                    if self.queue is not None:
+                        self.queue.opts.session_expiry = sei
+                        # sei == 0 ends the session when the network
+                        # connection closes (MQTT5 3.14.2.2.2)
+                        self.queue.opts.clean_session = sei == 0
+            await self.close("client_disconnect", send_will=send_will)
+        elif t is Auth:
+            await self._handle_auth(frame)
+        elif t is Connect:
+            await self.close("protocol_violation_dup_connect")
+        else:
+            await self.close("unexpected_frame")
+
+    # ---------------------------------------------------------- PUBLISH in
+
+    async def _handle_publish(self, f: Publish) -> None:
+        cfg = self.broker.config
+        # flight recorder: the ONE 1-in-N sample decision, made here at
+        # admission; the trace context rides the whole routing path
+        # (including the match-service fold envelope) and yields ONE
+        # record with per-stage deltas (observability/recorder.py)
+        trace = self.broker.recorder.admit(self.client_id or "",
+                                           f.topic, f.qos)
+        # NOTE max_message_size is enforced at the PARSER as a frame cap
+        # for every packet type (vmq_parser.erl semantics; server.py
+        # steady-state loop incrs mqtt_invalid_msg_size_error and sends
+        # v5 DISCONNECT 0x95) — an oversize PUBLISH never reaches here
+        if not self.broker.metrics.check_rate(self.sid, cfg.max_message_rate):
+            # the reference THROTTLES rather than kills the session: the
+            # socket loop pauses reads (vmq_mqtt_fsm.erl:243-262 →
+            # vmq_ranch.erl:198-203); awaiting here backpressures the
+            # reader loop the same way. Instead of the old blind 1.0s
+            # sleep regardless of how much window remained, wait only the
+            # REMAINDER of the rate window — waking early when session
+            # capacity frees (the notify_ready edge via _pump_pending) or
+            # the session closes — and re-check the budget on wake.
+            self.broker.metrics.incr("mqtt_publish_throttled")
+            while not self.closed:
+                self._throttle_wake.clear()
+                try:
+                    await asyncio.wait_for(
+                        self._throttle_wake.wait(),
+                        self.broker.metrics.rate_wait_s(self.sid))
+                except asyncio.TimeoutError:
+                    pass
+                if self.broker.metrics.check_rate(self.sid,
+                                                  cfg.max_message_rate):
+                    break
+            if self.closed:
+                return  # closed while parked: don't route a dead session
+        gov = self.broker.overload
+        if gov is not None:
+            # graded overload shedding (robustness/overload.py): L1
+            # proportional read throttle + L2 token bucket, replacing
+            # the old fixed 0.1s sleep for every producer; in binary
+            # mode this applies the legacy fixed pause. The governor
+            # counts parked sessions while they sleep (its demand
+            # signal for graceful de-escalation).
+            if await gov.throttle_publish(self.sid) > 0:
+                self.broker.metrics.incr("mqtt_publish_throttled")
+            if self.closed:
+                return  # closed (takeover/disconnect) while parked
+            if f.qos == 0 and gov.shed_qos0():
+                # L2+: QoS0 fanout shed at the admission gate — no ack
+                # owed, the cheapest work in the broker to drop
+                return
+        elif self.broker.sysmon is not None and self.broker.sysmon.overloaded:
+            # no governor wired (embedding/tests): legacy binary shed
+            self.broker.metrics.incr("mqtt_publish_throttled")
+            await asyncio.sleep(0.1)
+        # incoming flow control: QoS2 publishes hold a receive credit
+        # until their PUBREL (awaiting_rel IS fc_receive_cnt); at the
+        # announced receive_maximum the next QoS>0 publish is a protocol
+        # error (vmq_mqtt5_fsm.erl:1215-1218 fc_incr_cnt -> error ->
+        # recv_max_exceeded). A retransmitted QoS2 pid already holding a
+        # credit does not count twice.
+        if (self.proto_ver == PROTO_5 and f.qos > 0
+                and self._recv_max_announced
+                and len(self.awaiting_rel) >= self._recv_max_announced
+                and not (f.qos == 2
+                         and f.packet_id in self.awaiting_rel)):
+            self.broker.metrics.incr("mqtt_publish_error")
+            await self._disconnect_v5(RC_RECEIVE_MAX_EXCEEDED)
+            return
+        # v5 topic alias resolution (vmq_mqtt5_fsm.erl:90-93)
+        topic_str = f.topic
+        words: Optional[Tuple[str, ...]] = None
+        if self.proto_ver == PROTO_5:
+            alias = f.properties.get("topic_alias")
+            if alias is not None:
+                if alias == 0 or (cfg.topic_alias_max_client and
+                                  alias > cfg.topic_alias_max_client):
+                    await self._disconnect_v5(RC_TOPIC_ALIAS_INVALID)
+                    return
+                if topic_str:
+                    try:
+                        words = tuple(T.validate_topic("publish", topic_str))
+                    except T.TopicError:
+                        await self._pub_nack(f, RC_TOPIC_NAME_INVALID)
+                        return
+                    self.topic_alias_in[alias] = (words, topic_str)
+                else:
+                    ent = self.topic_alias_in.get(alias)
+                    if ent is None:
+                        await self._disconnect_v5(RC_TOPIC_ALIAS_INVALID)
+                        return
+                    words = ent[0]
+        if words is None:
+            try:
+                words = tuple(T.validate_topic("publish", topic_str))
+            except T.TopicError:
+                self.broker.metrics.incr("mqtt_publish_error")
+                if self.proto_ver == PROTO_5 and f.qos > 0:
+                    await self._pub_nack(f, RC_TOPIC_NAME_INVALID)
+                else:
+                    await self.close("invalid_topic")
+                return
+
+        # auth_on_publish chain; modifiers may rewrite topic/payload/qos
+        try:
+            mods = await self.broker.auth_publish(
+                self.sid, self.username, words, f.payload, f.qos, f.retain,
+                self.proto_ver, f.properties,
+            )
+        except HookError:
+            self.broker.metrics.incr("mqtt_publish_auth_error")
+            if self.proto_ver == PROTO_5 and f.qos > 0:
+                await self._pub_nack(f, RC_NOT_AUTHORIZED)
+            elif self.proto_ver == PROTO_5:
+                await self._disconnect_v5(RC_NOT_AUTHORIZED)
+            else:
+                # v4 has no nack: drop (QoS1 acked to avoid retry storms,
+                # mirroring the reference's behaviour of acking then dropping)
+                if f.qos == 1 and f.packet_id:
+                    self.send(Puback(packet_id=f.packet_id))
+                elif f.qos == 2 and f.packet_id:
+                    self.send(Pubrec(packet_id=f.packet_id))
+                    self._qos2_hold(f.packet_id)
+            return
+        payload = f.payload
+        if mods:
+            if "topic" in mods:
+                words = tuple(mods["topic"])
+            if "payload" in mods:
+                payload = mods["payload"]
+            if "retain" in mods:
+                f.retain = mods["retain"]
+
+        props = {
+            k: v for k, v in f.properties.items()
+            if k in ("payload_format_indicator", "message_expiry_interval",
+                     "content_type", "response_topic", "correlation_data",
+                     "user_property")
+        }
+        msg = Msg(
+            topic=words, payload=payload, qos=f.qos, retain=f.retain,
+            mountpoint=self.mountpoint, properties=props,
+        )
+        expiry = props.get("message_expiry_interval")
+        if expiry:
+            msg.expires_at = time.monotonic() + expiry
+        if trace is not None:
+            # gates passed, topic validated, auth done: admitted
+            trace.stamp("admit")
+
+        if f.qos == 0:
+            await self._route(msg, nowait=True, trace=trace)
+        elif f.qos == 1:
+            matches = await self._route(msg, trace=trace)
+            if matches < 0:
+                # internal routing failure: withhold the PUBACK so the
+                # client's DUP retry re-routes (same contract as QoS2 below)
+                return
+            rc = RC_SUCCESS if matches else RC_NO_MATCHING_SUBSCRIBERS
+            ack = Puback(packet_id=f.packet_id)
+            if self.proto_ver == PROTO_5 and rc:
+                ack.reason_code = rc
+            self.send(ack)
+            self.broker.metrics.incr("mqtt_puback_sent")
+        else:  # qos 2: route on first arrival, dedup until PUBREL
+            if f.packet_id not in self.awaiting_rel:
+                self._qos2_hold(f.packet_id)
+                n = await self._route(msg, trace=trace)
+                if n < 0:
+                    # internal routing failure: forget the packet id so the
+                    # client's DUP retry re-routes instead of being deduped
+                    self.awaiting_rel.pop(f.packet_id, None)
+                    return
+            self.send(Pubrec(packet_id=f.packet_id))
+            self.broker.metrics.incr("mqtt_pubrec_sent")
+
+    def _qos2_hold(self, pid: int) -> None:
+        """Park ``pid`` in the QoS2 dedup window (awaiting PUBREL),
+        bounded at qos2_dedup_max: a client that never releases must
+        not grow the dict without limit, so the OLDEST held pid is
+        evicted (insertion order = arrival order) and counted. An
+        evicted pid's DUP retransmission re-routes — the documented
+        at-least-once degradation at window overflow."""
+        rel = self.awaiting_rel
+        if pid in rel:
+            rel[pid] = time.monotonic()
+            return
+        cap = int(self.broker.config.get("qos2_dedup_max", 4096))
+        if cap > 0:
+            m = self.broker.metrics
+            while len(rel) >= cap:
+                rel.pop(next(iter(rel)))
+                m.incr("qos2_dedup_evictions")
+        rel[pid] = time.monotonic()
+
+    # ------------------------------------------------- wire fast path
+
+    def wire_fast_ready(self) -> bool:
+        """Batch-level gate for the wire fast path (QoS0 AND QoS1/2
+        publishes, plus the 2-byte ack family): True only when NO
+        per-publish Python edge applies — no tracer, no per-publish
+        auth/deliver hooks, no rate limit, governor idle, cluster
+        ready, no payload predicates on this mountpoint. Checked once
+        per parsed batch (and re-checked after cooperative yields);
+        anything that needs per-frame policy falls back to the classic
+        handler frame by frame."""
+        if not self.connected or self.closed:
+            return False
+        b = self.broker
+        cfg = b.config
+        if not cfg.get("wire_fastpath_enabled", True):
+            return False
+        if b.tracer is not None or cfg.max_message_rate:
+            return False
+        gov = b.overload
+        if gov is not None:
+            if gov.level > 0:
+                return False
+        elif b.sysmon is not None and b.sysmon.overloaded:
+            return False
+        h = b.hooks
+        if (h.has("auth_on_publish") or h.has("auth_on_publish_m5")
+                or h.has("on_publish") or h.has("on_deliver")):
+            return False
+        if not b.cluster_ready() \
+                and not cfg.allow_publish_during_netsplit:
+            return False
+        eng = getattr(b, "filter_engine", None)
+        if eng is not None and eng.wants(self.mountpoint):
+            return False
+        return True
+
+    def _wire_cache_topic(self, buf, t_off: int, t_len: int):
+        """Resolve ``(words, topic_str)`` through the per-connection
+        topic cache, or None when the topic is invalid (the classic
+        path raises the canonical error)."""
+        cache = self._wire_topic_cache
+        key = bytes(buf[t_off:t_off + t_len])
+        ent = cache.get(key)
+        if ent is None:
+            try:
+                topic_str = key.decode("utf-8")
+            except UnicodeDecodeError:
+                return None  # codec raises the canonical invalid_utf8
+            if "\x00" in topic_str:
+                return None  # canonical no_null_allowed
+            try:
+                words = tuple(T.validate_topic("publish", topic_str))
+            except T.TopicError:
+                return None  # classic close("invalid_topic")
+            ent = (words, topic_str)
+            # bounded by entries AND entry size: topics run up to 64KB
+            # and each entry holds ~3 copies — a publisher minting
+            # large distinct topics must not pin O(100MB) per
+            # connection. Long topics still fast-path, just uncached
+            # (the cache pays off for short repeated telemetry names).
+            if len(key) <= 1024:
+                if len(cache) >= 512:
+                    cache.clear()
+                cache[key] = ent
+        return ent
+
+    def _wire_topic(self, buf, rec):
+        """``(words, topic_str)`` for a frame-table publish record —
+        the topic cache plus, for v5, the inbound topic-alias table
+        (the frame table classifies an alias-ONLY property block as
+        hot and leaves the 4-byte span for us to read). None = the
+        classic path must serve: invalid topic, alias 0 / over the
+        announced cap / unknown — each raises or disconnects with the
+        canonical reason there."""
+        _k, b0, _pid, f_off, f_end, t_off, t_len, p_off = rec
+        if self.proto_ver == PROTO_5:
+            qos = (b0 >> 1) & 0x03
+            pstart = t_off + t_len + (2 if qos else 0)
+            if p_off - pstart == 4:  # topic-alias-only property block
+                alias = (buf[p_off - 2] << 8) | buf[p_off - 1]
+                cfg = self.broker.config
+                if alias == 0 or (cfg.topic_alias_max_client
+                                  and alias > cfg.topic_alias_max_client):
+                    return None  # classic: TOPIC_ALIAS_INVALID
+                if t_len == 0:
+                    return self.topic_alias_in.get(alias)
+                ent = self._wire_cache_topic(buf, t_off, t_len)
+                if ent is not None:
+                    self.topic_alias_in[alias] = ent
+                return ent
+        return self._wire_cache_topic(buf, t_off, t_len)
+
+    def wire_publish_qos0(self, buf, rec) -> bool:
+        """Admit one QoS0 PUBLISH straight from the frame table:
+        topic resolved through the per-connection cache (and, v5, the
+        inbound alias table), payload sliced once, fanout written as
+        shared wire bytes — no Publish frame, no Msg, no property dict
+        on this path. Returns False when the frame needs classic
+        handling (uncached-invalid topic, alias error, codec edge);
+        the caller materialises it then."""
+        _k, b0, _pid, f_off, f_end, t_off, t_len, p_off = rec
+        b = self.broker
+        ent = self._wire_topic(buf, rec)
+        if ent is None:
+            return False
+        words, topic_str = ent
+        trace = b.recorder.admit(self.client_id, topic_str, 0)
+        if trace is not None:
+            trace.stamp("admit")
+        # a v4 QoS0 frame with flags 0 forwards VERBATIM: the inbound
+        # span IS the outbound frame for every fast recipient — the
+        # payload is NOT copied separately (the dominant cost this
+        # path removes); the route slices it out of the span lazily
+        # only on the complex-row fallback. A v5 inbound frame carries
+        # the extra property-length byte, so those pass the payload
+        # and re-encode a header instead.
+        if self.proto_ver != PROTO_5:
+            span = bytes(buf[f_off:f_end])
+            payload = None
+            pskip = p_off - f_off
+        else:
+            span = None
+            payload = bytes(buf[p_off:f_end])
+            pskip = 0
+        try:
+            b.registry.publish_wire_qos0(
+                self.mountpoint, words, topic_str, payload, self.sid,
+                wire_frame=span, payload_skip=pskip, trace=trace)
+        except RuntimeError as e:
+            b.metrics.incr("mqtt_publish_error")
+            if e.args != ("not_ready",):
+                log.exception("wire publish routing failed for %s",
+                              self.sid)
+            return True  # handled: QoS0 owes no ack (classic parity)
+        except Exception:
+            b.metrics.incr("mqtt_publish_error")
+            log.exception("wire publish routing failed for %s", self.sid)
+            return True
+        return True
+
+    def wire_publish_qos(self, buf, rec) -> bool:
+        """Admit one QoS1/2 PUBLISH straight from the frame table: the
+        pid is stamped into the store/ack state machine from the span
+        and the PUBACK/PUBREC reply is sent without materialising a
+        Publish or Msg on the inbound side (the fanout builds ONE Msg
+        lazily only for QoS≥1 recipients that must track it in
+        waiting_acks). Returns False when the frame needs the exact
+        classic path: receive-max exceeded, invalid topic/alias — each
+        raises or disconnects with the canonical reason there."""
+        _k, b0, pid, f_off, f_end, t_off, t_len, p_off = rec
+        qos = (b0 >> 1) & 0x03
+        b = self.broker
+        # QoS≥1 acks need the synchronous match count for the reason
+        # code; the batched (collector) view routes asynchronously, so
+        # the classic await path serves it
+        if b.registry.batched_view_active():
+            return False
+        # v5 incoming flow control: at the announced receive maximum
+        # the next QoS>0 publish is a protocol error — the classic
+        # path serves the RECEIVE_MAX_EXCEEDED disconnect canonically
+        if (self.proto_ver == PROTO_5 and self._recv_max_announced
+                and len(self.awaiting_rel) >= self._recv_max_announced
+                and not (qos == 2 and pid in self.awaiting_rel)):
+            return False
+        ent = self._wire_topic(buf, rec)
+        if ent is None:
+            return False
+        words, topic_str = ent
+        trace = b.recorder.admit(self.client_id, topic_str, qos)
+        if trace is not None:
+            trace.stamp("admit")
+        if qos == 2 and pid in self.awaiting_rel:
+            # duplicate arrival of an unreleased pid: dedup (no
+            # re-route), refresh the PUBREC (classic parity)
+            self.send(Pubrec(packet_id=pid))
+            b.metrics.incr("mqtt_pubrec_sent")
+            return True
+        payload = bytes(buf[p_off:f_end])
+        if qos == 2:
+            self._qos2_hold(pid)
+        try:
+            matches = b.registry.publish_wire(
+                self.mountpoint, words, topic_str, payload, self.sid,
+                qos, trace=trace)
+        except RuntimeError as e:
+            b.metrics.incr("mqtt_publish_error")
+            if e.args != ("not_ready",):
+                log.exception("wire publish routing failed for %s",
+                              self.sid)
+            # withhold the ack so the client's DUP retry re-routes;
+            # the QoS2 receive credit must not leak meanwhile
+            if qos == 2:
+                self.awaiting_rel.pop(pid, None)
+            return True
+        except Exception:
+            b.metrics.incr("mqtt_publish_error")
+            log.exception("wire publish routing failed for %s", self.sid)
+            if qos == 2:
+                self.awaiting_rel.pop(pid, None)
+            return True
+        if qos == 1:
+            ack = Puback(packet_id=pid)
+            if self.proto_ver == PROTO_5 and not matches:
+                ack.reason_code = RC_NO_MATCHING_SUBSCRIBERS
+            self.send(ack)
+            b.metrics.incr("mqtt_puback_sent")
+        else:
+            self.send(Pubrec(packet_id=pid))
+            b.metrics.incr("mqtt_pubrec_sent")
+        return True
+
+    def wire_ack(self, rec) -> None:
+        """Resolve one 2-byte ack-family frame straight from the frame
+        table: the pid checks against the waiting_acks / awaiting_rel
+        bookkeeping with no frame object. The table only classifies
+        the no-property rc=0 shape as K_ACK, so the v5 reason-code
+        forms stay on the classic codec path."""
+        ptype = rec[1] >> 4
+        pid = rec[2]
+        m = self.broker.metrics
+        self.last_activity = time.monotonic()
+        if ptype == PUBACK_T:
+            m.incr("mqtt_puback_received")
+            entry = self.waiting_acks.get(pid)
+            if entry and entry[0] == "puback":
+                del self.waiting_acks[pid]
+                self._pump_pending()
+            else:  # ack for nothing we sent (vmq_metrics *_invalid_error)
+                m.incr("mqtt_puback_invalid_error")
+        elif ptype == PUBREC_T:
+            m.incr("mqtt_pubrec_received")
+            entry = self.waiting_acks.get(pid)
+            if entry and entry[0] == "pubrec":
+                entry[0] = "pubcomp"
+                entry[2] = time.monotonic()
+                self.send(Pubrel(packet_id=pid))
+                m.incr("mqtt_pubrel_sent")
+            elif not (entry and entry[0] == "pubcomp"):
+                # a DUP PUBREC while we await PUBCOMP is legal
+                # retransmission; anything else is unexpected
+                m.incr("mqtt_pubrec_invalid_error")
+        elif ptype == PUBREL_T:
+            m.incr("mqtt_pubrel_received")
+            existed = self.awaiting_rel.pop(pid, None)
+            comp = Pubcomp(packet_id=pid)
+            if existed is None and self.proto_ver == PROTO_5:
+                comp.reason_code = RC_PACKET_ID_NOT_FOUND
+            self.send(comp)
+            m.incr("mqtt_pubcomp_sent")
+        else:  # PUBCOMP
+            m.incr("mqtt_pubcomp_received")
+            entry = self.waiting_acks.get(pid)
+            if entry and entry[0] == "pubcomp":
+                del self.waiting_acks[pid]
+                self._pump_pending()
+            else:
+                m.incr("mqtt_pubcomp_invalid_error")
+        fastpath.fastpath_acks += 1
+
+    def wire_take_qos(self, msg: Msg) -> Optional[int]:
+        """Register a wire-plane QoS≥1 delivery in the in-flight
+        window: allocate the packet id and the waiting_acks entry (the
+        bookkeeping half of the classic deliver path) WITHOUT encoding
+        the frame — the registry batch-encodes all recipients' headers
+        in one native call. 0 = window full, message parked — session
+        pending first, then the queue-level backlog via the same
+        ``_backpressure`` tier the classic refusal takes (the
+        ack-driven pump and ``notify_ready`` replay deliver it
+        classically later); None = no park tier available, dropped.
+        Neither takes a wire write now."""
+        window = min(self.broker.config.max_inflight_messages,
+                     self.receive_max_out)
+        if len(self.waiting_acks) >= window:
+            if len(self.pending) >= \
+                    self.broker.config.max_online_messages:
+                if self.queue is not None:
+                    self.queue._backpressure(msg)
+                    return 0
+                self.broker.metrics.incr("queue_message_drop")
+                return None
+            self.pending.append(msg)
+            return 0
+        pid = self._next_packet_id()
+        self.waiting_acks[pid] = ["puback" if msg.qos == 1 else "pubrec",
+                                  msg, time.monotonic(), False]
+        return pid
+
+    def wire_v5_fast_ok(self, frame_bound: int = 0) -> bool:
+        """May this v5 session take wire-plane fast delivery? Capless
+        sessions always can. A client maximum_packet_size admits the
+        fast path only when the fanout's conservative worst-case frame
+        bound (full topic, pid, alias property — computed once in
+        ``_wire_route``) fits under the cap: every batch-encoded
+        variant is smaller, so an admitted frame can never violate
+        MQTT-3.1.2-24. An unknown bound (0) keeps the exact classic
+        per-frame measurement (_plan_v5_delivery)."""
+        cap = self.max_packet_out
+        if not cap:
+            return True
+        return 0 < frame_bound <= cap
+
+    def wire_alias_for(self, words: Tuple[str, ...]) -> int:
+        """Outbound topic-alias decision for one wire-plane delivery,
+        against the same per-connection LRU table the classic
+        _build_v5_publish drives. Returns the signed alias convention
+        of ``fastpath.publish_headers_batch``: 0 = no aliasing (full
+        topic), +a = established (alias-only header), -a = newly
+        established here (header carries BOTH topic and alias). A full
+        table evicts the least-recently-sent topic and re-establishes
+        its alias number (MQTT5 3.3.2.3.4 permits remapping)."""
+        amax = self.topic_alias_max_out
+        if not amax:
+            return 0
+        tbl = self.topic_alias_out
+        alias = tbl.get(words)
+        if alias is not None:
+            tbl.move_to_end(words)
+            return alias
+        if len(tbl) < amax:
+            alias = len(tbl) + 1
+        else:
+            _lru, alias = tbl.popitem(last=False)
+        tbl[words] = alias
+        return -alias
+
+    def wire_fast_done(self, n: int, nq: int = 0) -> None:
+        """Batch-level bookkeeping for ``n`` fast-admitted QoS0 and
+        ``nq`` QoS1/2 publishes (classic path does these per frame)."""
+        self.last_activity = time.monotonic()
+        b = self.broker
+        b.metrics.incr("mqtt_publish_received", n + nq)
+        if b.overload is not None:
+            # the heaviest-talker signal keeps integrating even though
+            # the fast path never parks (it only runs at level 0)
+            b.overload.record_publish_n(self.sid, n + nq)
+        fastpath.fastpath_pubs += n
+        fastpath.fastpath_pubs_qos += nq
+
+    async def _route(self, msg: Msg, nowait: bool = False,
+                     trace=None) -> int:
+        """Route via the registry; returns match count, or -1 on an internal
+        matcher failure (distinct from the not_ready gate: internal errors
+        are logged and, for QoS2, leave the packet eligible for re-route on
+        the client's DUP retry). ``nowait`` (QoS0 under the batched view)
+        submits without awaiting the batch window so one publisher can fill
+        a batch instead of sending one message per window. ``trace`` is
+        the flight-recorder context of a sampled publish; the registry
+        finishes it when routing completes (async for nowait)."""
+        try:
+            if self.broker.registry.batched_view_active():
+                if nowait:
+                    n = self.broker.registry.publish_nowait(
+                        msg, from_sid=self.sid, trace=trace)
+                    trace = None  # finished by the route callback
+                else:
+                    n = await self.broker.registry.publish_async(
+                        msg, from_sid=self.sid, trace=trace)
+            else:
+                n = self.broker.registry.publish(msg, from_sid=self.sid,
+                                                 trace=trace)
+            if trace is not None:
+                trace.stamp("route")
+                self.broker.recorder.finish(trace)
+        except RuntimeError as e:
+            self.broker.metrics.incr("mqtt_publish_error")
+            if e.args != ("not_ready",):
+                log.exception("publish routing failed for %s", self.sid)
+            # not_ready (netsplit CAP gate, vmq_reg.erl:293-318) behaves like
+            # the reference's {error, not_ready}: no ack — client retries
+            return -1
+        except Exception:
+            self.broker.metrics.incr("mqtt_publish_error")
+            log.exception("publish routing failed for %s", self.sid)
+            return -1
+        self.broker.hooks_fire_all(
+            "on_publish", self.username, self.sid, msg.qos, msg.topic,
+            msg.payload, msg.retain,
+        )
+        return n
+
+    async def _pub_nack(self, f: Publish, rc: int) -> None:
+        if f.qos == 1:
+            self.send(Puback(packet_id=f.packet_id, reason_code=rc))
+        elif f.qos == 2:
+            self.send(Pubrec(packet_id=f.packet_id, reason_code=rc))
+
+    def _handle_pubrel(self, f: Pubrel) -> None:
+        existed = self.awaiting_rel.pop(f.packet_id, None)
+        comp = Pubcomp(packet_id=f.packet_id)
+        if existed is None and self.proto_ver == PROTO_5:
+            comp.reason_code = RC_PACKET_ID_NOT_FOUND
+        self.send(comp)
+        self.broker.metrics.incr("mqtt_pubcomp_sent")
+
+    # --------------------------------------------------------- PUBLISH out
+
+    def _queue_deliver(self, msg: Msg) -> bool:
+        """Called by the SubscriberQueue to hand a message to this session.
+        Returns False when the session can't take it (caller drops/offlines)."""
+        if self.closed:
+            return False
+        if msg.expires_at is not None and msg.expires_at < time.monotonic():
+            self.broker.metrics.incr("queue_message_expired")
+            return True  # consumed (expired), not a drop by us
+        # only capped clients (maximum_packet_size announced, or
+        # m5_max_packet_size configured) pay the extra build+serialise
+        # inside _plan_v5_delivery; everyone else short-circuits inside
+        plan = self._plan_v5_delivery(msg)
+        if plan == "drop":
+            # the client's maximum_packet_size forbids this frame even
+            # without an alias: drop it (never truncate, never error the
+            # session) with the same hook the reference fires
+            # (vmq_mqtt5_fsm.erl:1422-1427); checked BEFORE packet-id
+            # allocation so nothing leaks into waiting_acks
+            self.broker.metrics.incr("queue_message_drop")
+            self.broker.hooks_fire_all("on_message_drop", self.sid, msg,
+                                       "max_packet_size_exceeded")
+            return True
+        allow_alias = plan == "fits"
+        if msg.qos == 0:
+            self._send_publish(msg, None, allow_alias=allow_alias)
+            return True
+        window = min(self.broker.config.max_inflight_messages, self.receive_max_out)
+        if len(self.waiting_acks) < window:
+            pid = self._next_packet_id()
+            self.waiting_acks[pid] = ["puback" if msg.qos == 1 else "pubrec",
+                                      msg, time.monotonic(), False]
+            self._send_publish(msg, pid, allow_alias=allow_alias)
+        else:
+            if len(self.pending) >= self.broker.config.max_online_messages:
+                return False
+            self.pending.append(msg)
+        return True
+
+    def _build_v5_publish(self, msg: Msg, pid: Optional[int],
+                          dup: bool = False, commit: bool = True,
+                          allow_alias: bool = True) -> Publish:
+        """The ONE place the broker->client v5 PUBLISH frame is shaped:
+        remaining message expiry (MQTT5 3.3.2.3.3) and outbound topic
+        alias (vmq_mqtt5_fsm.erl topic_aliases out).  With
+        ``commit=False`` an alias the send path WOULD allocate is
+        simulated (same 3-byte property, placeholder id) without
+        mutating alias state; ``allow_alias=False`` skips the
+        allocation entirely (an established alias is still used — it
+        only shrinks the frame)."""
+        props = dict(msg.properties)
+        if msg.expires_at is not None:
+            props["message_expiry_interval"] = max(
+                0, int(msg.expires_at - time.monotonic()))
+        topic_str = T.unword(list(msg.topic))
+        if self.topic_alias_max_out:
+            alias = self.topic_alias_out.get(msg.topic)
+            if alias is not None:
+                if commit:
+                    self.topic_alias_out.move_to_end(msg.topic)
+                topic_str = ""
+                props["topic_alias"] = alias
+            elif allow_alias:
+                # LRU allocation: a free slot takes the next number; a
+                # full table evicts the least-recently-SENT topic and
+                # re-establishes its alias number for this one (MQTT5
+                # 3.3.2.3.4 permits remapping mid-connection), so hot
+                # topics keep alias-only frames under churn
+                if len(self.topic_alias_out) < self.topic_alias_max_out:
+                    alias = len(self.topic_alias_out) + 1
+                    if commit:
+                        self.topic_alias_out[msg.topic] = alias
+                else:
+                    if commit:
+                        _lru, alias = self.topic_alias_out.popitem(
+                            last=False)
+                        self.topic_alias_out[msg.topic] = alias
+                    else:  # simulate without mutating (peek the LRU)
+                        alias = next(iter(self.topic_alias_out.values()))
+                # the alias-establishing frame carries BOTH the full
+                # topic and the alias property
+                props["topic_alias"] = alias
+        return Publish(topic=topic_str, payload=msg.payload, qos=msg.qos,
+                       retain=msg.retain, dup=dup, packet_id=pid,
+                       properties=props)
+
+    def _plan_v5_delivery(self, msg: Msg) -> str:
+        """How does this delivery fit the client's maximum_packet_size?
+        Measures the exact frame the send path would build — the analog
+        of maybe_reduce_packet_size serialising to check
+        (vmq_mqtt5_fsm.erl:297-315; we carry no reason-string/user-props
+        on PUBLISH, so the only thing strippable is the alias property):
+
+        - ``"fits"``  — full frame (alias allocation included) fits;
+        - ``"bare"``  — only the alias-ESTABLISHING overhead (full topic
+          + 3-byte property) pushes it over: deliver without allocating
+          the alias rather than lose a legal message;
+        - ``"drop"``  — exceeds the cap even without an alias.
+        """
+        if self.proto_ver != PROTO_5 or not self.max_packet_out:
+            return "fits"
+        pid = 1 if msg.qos else None
+        frame = self._build_v5_publish(msg, pid, commit=False)
+        if len(codec_v5.serialise(frame)) <= self.max_packet_out:
+            return "fits"
+        if "topic_alias" in frame.properties and frame.topic:
+            # the over-measure came from the would-be allocation
+            bare = self._build_v5_publish(msg, pid, commit=False,
+                                          allow_alias=False)
+            if len(codec_v5.serialise(bare)) <= self.max_packet_out:
+                return "bare"
+        return "drop"
+
+    def _send_publish(self, msg: Msg, pid: Optional[int], dup: bool = False,
+                      allow_alias: bool = True) -> None:
+        self.broker.hooks_fire_all(
+            "on_deliver", self.username, self.sid, msg.topic, msg.payload
+        )
+        if (not dup and self.proto_ver != PROTO_5
+                and (pid is not None or msg.qos == 0)
+                and self.broker.tracer is None and not self.closed):
+            # v4 fanout fast path: across recipients the frame is
+            # identical (QoS0: no packet id, no props, no per-session
+            # alias state) or differs only in the 2-byte packet id
+            # (QoS1/2) — one cached header per Msg, the shared payload
+            # rides the transport iovec uncopied (the analog of the
+            # reference serialising in vmq_mqtt_fsm once per frame, but
+            # across recipients, minus the per-recipient payload copy)
+            from .message import wire_v4_iov_qos, wire_v4_iov_qos0
+
+            iov = (wire_v4_iov_qos0(msg) if pid is None
+                   else wire_v4_iov_qos(msg, pid))
+            self.transport.write_iov(iov)
+            m = self.broker.metrics
+            m.incr("bytes_sent", sum(len(c) for c in iov))
+            m.incr("mqtt_publish_sent")
+            return
+        if self.proto_ver == PROTO_5:
+            frame = self._build_v5_publish(msg, pid, dup,
+                                           allow_alias=allow_alias)
+        else:
+            frame = Publish(
+                topic=T.unword(list(msg.topic)), payload=msg.payload,
+                qos=msg.qos, retain=msg.retain, dup=dup, packet_id=pid,
+                properties={},
+            )
+        self.send(frame)
+        self.broker.metrics.incr("mqtt_publish_sent")
+
+    def _next_packet_id(self) -> int:
+        for _ in range(65535):
+            self._next_pid = (self._next_pid % 65535) + 1
+            if self._next_pid not in self.waiting_acks:
+                return self._next_pid
+        raise SessionError("no_free_packet_id")
+
+    def _pump_pending(self) -> None:
+        window = min(self.broker.config.max_inflight_messages, self.receive_max_out)
+        while self.pending and len(self.waiting_acks) < window:
+            msg = self.pending.pop(0)
+            if msg.expires_at is not None and msg.expires_at < time.monotonic():
+                self.broker.metrics.incr("queue_message_expired")
+                continue
+            # re-plan against the cap: alias state may have moved while
+            # the message waited in pending
+            plan = self._plan_v5_delivery(msg)
+            if plan == "drop":
+                self.broker.metrics.incr("queue_message_drop")
+                self.broker.hooks_fire_all("on_message_drop", self.sid,
+                                           msg, "max_packet_size_exceeded")
+                continue
+            pid = self._next_packet_id()
+            self.waiting_acks[pid] = ["puback" if msg.qos == 1 else "pubrec",
+                                      msg, time.monotonic(), False]
+            self._send_publish(msg, pid, allow_alias=plan == "fits")
+        # session window freed and nothing pending here: pull messages the
+        # queue parked under backpressure (notify→active transition)
+        if (not self.pending and self.queue is not None
+                and len(self.waiting_acks) < window):
+            self.queue.notify_ready(self)
+        # capacity freed: a rate-throttled reader may re-check its budget
+        self._throttle_wake.set()
+
+    def _handle_puback(self, f: Puback) -> None:
+        entry = self.waiting_acks.get(f.packet_id)
+        if entry and entry[0] == "puback":
+            del self.waiting_acks[f.packet_id]
+            self._pump_pending()
+        else:  # ack for nothing we sent (vmq_metrics *_invalid_error)
+            self.broker.metrics.incr("mqtt_puback_invalid_error")
+
+    def _handle_pubrec(self, f: Pubrec) -> None:
+        entry = self.waiting_acks.get(f.packet_id)
+        if entry and entry[0] == "pubrec":
+            if self.proto_ver == PROTO_5 and f.reason_code >= 0x80:
+                del self.waiting_acks[f.packet_id]
+                self._pump_pending()
+                return
+            entry[0] = "pubcomp"
+            entry[2] = time.monotonic()
+            self.send(Pubrel(packet_id=f.packet_id))
+            self.broker.metrics.incr("mqtt_pubrel_sent")
+        elif not (entry and entry[0] == "pubcomp"):
+            # a DUP PUBREC while we await PUBCOMP is legal retransmission;
+            # anything else is unexpected
+            self.broker.metrics.incr("mqtt_pubrec_invalid_error")
+
+    def _handle_pubcomp(self, f: Pubcomp) -> None:
+        entry = self.waiting_acks.get(f.packet_id)
+        if entry and entry[0] == "pubcomp":
+            del self.waiting_acks[f.packet_id]
+            self._pump_pending()
+        else:
+            self.broker.metrics.incr("mqtt_pubcomp_invalid_error")
+
+    # ----------------------------------------------------------- SUBSCRIBE
+
+    async def _handle_subscribe(self, f: Subscribe) -> None:
+        cfg = self.broker.config
+        sub_id = None
+        if self.proto_ver == PROTO_5:
+            ids = f.properties.get("subscription_identifier")
+            if ids:
+                sub_id = ids[0]
+        topics: List[Tuple[List[str], SubOpts]] = []
+        codes: List[int] = []
+        filters_on = cfg.get("payload_filters_enabled", True)
+        for topic_str, opts in f.topics:
+            # MQTT+ payload-filter suffix (vernemq_tpu/filters/):
+            # `sensors/+/temp?$gt(value,30)` splits into the plain topic
+            # filter plus a predicate/aggregation expression carried in
+            # SubOpts. Works identically for v4 and v5 (the suffix rides
+            # the topic string, no new packet fields). With the feature
+            # disabled the `?` stays part of the topic, byte-identical
+            # to the pre-filter broker.
+            if filters_on:
+                base_str, fexpr = split_filter_suffix(topic_str)
+                if fexpr is not None:
+                    try:
+                        parse_filter(fexpr)
+                    except FilterError:
+                        self.broker.metrics.incr("mqtt_subscribe_error")
+                        codes.append(0x8F if self.proto_ver == PROTO_5
+                                     else 0x80)
+                        topics.append(None)
+                        continue
+                    topic_str = base_str
+                    opts.filter_expr = fexpr
+            try:
+                words = T.validate_topic("subscribe", topic_str)
+            except T.TopicError:
+                codes.append(0x8F if self.proto_ver == PROTO_5 else 0x80)
+                topics.append(None)
+                continue
+            topics.append((words, opts))
+            codes.append(opts.qos)
+        # auth chain (may rewrite topics/qos)
+        hook = "auth_on_subscribe_m5" if self.proto_ver == PROTO_5 else "auth_on_subscribe"
+        try:
+            res = await self.broker.hooks.all_till_ok(
+                hook, self.username, self.sid,
+                [(t[0], t[1].qos) for t in topics if t],
+            )
+            if isinstance(res, tuple):
+                # modifiers: list of (topic_words, qos) or qos 128 to deny
+                mod_list = res[1]
+                new_topics, new_codes, i = [], [], 0
+                for t in topics:
+                    if t is None:
+                        new_topics.append(None)
+                        new_codes.append(0x8F if self.proto_ver == PROTO_5 else 0x80)
+                        continue
+                    words, qos = mod_list[i]
+                    i += 1
+                    if qos == 128 or qos == 0x80:
+                        new_topics.append(None)
+                        new_codes.append(0x80 if self.proto_ver != PROTO_5 else 0x87)
+                    else:
+                        opts = t[1]
+                        opts.qos = qos
+                        new_topics.append((list(words), opts))
+                        new_codes.append(qos)
+                topics, codes = new_topics, new_codes
+        except HookError as e:
+            # no plugin answered → allowed only without default-deny
+            # (vmq_auth.erl:3-8 registers deny hooks when allow_anonymous=off)
+            if (e.reason != "no_matching_hook_found"
+                    or not self.broker.config.allow_anonymous):
+                self.broker.metrics.incr("mqtt_subscribe_auth_error")
+                fail = 0x80 if self.proto_ver != PROTO_5 else 0x87
+                self.send(Suback(packet_id=f.packet_id,
+                                 reason_codes=[fail] * len(f.topics)))
+                self.broker.metrics.incr("mqtt_suback_sent")
+                return
+        # SUBACK first so retained replay serialises behind it on the wire
+        good = [t for t in topics if t is not None]
+        # netsplit CAP gate, checked before the SUBACK goes out
+        # (vmq_reg:subscribe if_ready, vmq_reg.erl:62-70)
+        if good and not self.broker.cluster_ready() \
+                and not self.broker.config.allow_subscribe_during_netsplit:
+            fail = 0x80 if self.proto_ver != PROTO_5 else 0x83
+            self.send(Suback(packet_id=f.packet_id,
+                             reason_codes=[fail] * len(f.topics)))
+            self.broker.metrics.incr("mqtt_suback_sent")
+            return
+        # SUBACK first so retained replay serialises behind it on the wire
+        self.send(Suback(packet_id=f.packet_id, reason_codes=codes))
+        self.broker.metrics.incr("mqtt_suback_sent")
+        if good:
+            for words, opts in good:
+                if sub_id:
+                    opts.subscription_id = sub_id
+            try:
+                self.broker.registry.subscribe(self.sid, good)
+            except RuntimeError:
+                # gate flipped between check and write: drop the session so
+                # the client re-subscribes on reconnect
+                await self.close("not_ready")
+                return
+            self.broker.hooks_fire_all(
+                "on_subscribe", self.username, self.sid,
+                [(w, o.qos) for w, o in good],
+            )
+
+    async def _handle_unsubscribe(self, f: Unsubscribe) -> None:
+        topics = []
+        filters_on = self.broker.config.get("payload_filters_enabled", True)
+        for topic_str in f.topics:
+            if filters_on:
+                # a filter-suffixed UNSUBSCRIBE targets its base topic
+                # filter (the suffix rides SubOpts, not the sub key)
+                topic_str, _fexpr = split_filter_suffix(topic_str)
+            try:
+                topics.append(T.validate_topic("subscribe", topic_str))
+            except T.TopicError:
+                topics.append(None)
+        try:
+            res = await self.broker.hooks.all_till_ok(
+                "on_unsubscribe", self.username, self.sid,
+                [t for t in topics if t],
+            )
+            if isinstance(res, tuple):
+                topics = [list(t) for t in res[1]]
+        except HookError:
+            pass
+        valid = [t for t in topics if t is not None]
+        try:
+            results = self.broker.registry.unsubscribe(self.sid, valid)
+        except RuntimeError:
+            # netsplit CAP gate (vmq_reg.erl:65-70)
+            fail = 0x80
+            self.send(Unsuback(packet_id=f.packet_id,
+                               reason_codes=[fail] * len(f.topics)))
+            self.broker.metrics.incr("mqtt_unsuback_sent")
+            return
+        codes: List[int] = []
+        ri = iter(results)
+        for t in topics:
+            if t is None:
+                codes.append(0x8F)
+            else:
+                codes.append(RC_SUCCESS if next(ri) else RC_NO_SUBSCRIPTION_EXISTED)
+        self.send(Unsuback(packet_id=f.packet_id, reason_codes=codes))
+        self.broker.metrics.incr("mqtt_unsuback_sent")
+
+    # ---------------------------------------------------------------- AUTH
+
+    async def _handle_auth(self, f: Auth) -> None:
+        if self.proto_ver != PROTO_5:
+            await self.close("protocol_violation")
+            return
+        method = f.properties.get("authentication_method")
+        if method != self.auth_method:
+            await self._disconnect_v5(0x8C)
+            return
+        res = await self._run_enhanced_auth(f.properties.get("authentication_data"))
+        if res == "ok":
+            if self._pending_connect is not None:
+                pc, self._pending_connect = self._pending_connect, None
+                await self._finish_connect(pc)
+            else:
+                # re-auth complete
+                self.send(Auth(reason_code=0, properties={
+                    "authentication_method": self.auth_method}))
+                self.broker.metrics.incr("mqtt_auth_sent")
+
+    # -------------------------------------------------------------- timers
+
+    def _start_timers(self) -> None:
+        loop = asyncio.get_event_loop()
+        if self.keepalive:
+            self._tasks.append(loop.create_task(self._keepalive_loop()))
+        self._tasks.append(loop.create_task(self._retry_loop()))
+
+    async def _keepalive_loop(self) -> None:
+        # close if silent for 1.5× keepalive (vmq_mqtt_fsm.erl:422-432)
+        limit = self.keepalive * 1.5
+        while not self.closed:
+            await asyncio.sleep(max(0.05, limit / 4))
+            if time.monotonic() - self.last_activity > limit:
+                await self.close("keepalive_expired")
+                return
+
+    async def _retry_loop(self) -> None:
+        interval = self.broker.config.retry_interval
+        while not self.closed:
+            await asyncio.sleep(interval)
+            now = time.monotonic()
+            for pid, entry in list(self.waiting_acks.items()):
+                kind, msg, ts, _resent = entry
+                if now - ts < interval:
+                    continue
+                entry[2] = now
+                entry[3] = True
+                if kind in ("puback", "pubrec"):
+                    # re-plan against the client's packet cap: the frame
+                    # the original send skipped an alias allocation for
+                    # must not regrow one on retry. An in-flight message
+                    # is never dropped here — "drop" is unreachable
+                    # within a connection (nothing a frame is built from
+                    # can grow between send and retry), so worst case it
+                    # goes bare
+                    plan = self._plan_v5_delivery(msg)
+                    self._send_publish(msg, pid, dup=True,
+                                       allow_alias=plan == "fits")
+                else:  # pubcomp: retransmit PUBREL
+                    self.send(Pubrel(packet_id=pid))
+
+    # --------------------------------------------------------------- close
+
+    async def close(self, reason: str, send_will: Optional[bool] = None) -> None:
+        if self.closed:
+            return
+        self.closed = True
+        self.close_reason = reason
+        self._throttle_wake.set()  # release a parked throttle wait
+        for t in self._tasks:
+            t.cancel()
+        if send_will is None:
+            send_will = reason not in ("client_disconnect", "connack_fail")
+        if send_will and self.will is not None and self.connected:
+            self.broker.schedule_will(self.sid, self.will, self.mountpoint,
+                                      self.proto_ver, self.session_expiry)
+        if self.connected and self.sid is not None:
+            if self.broker.sessions.get(self.sid) is self:
+                del self.broker.sessions[self.sid]
+            if self.queue is not None:
+                # persistent session keeps undelivered inflight/pending msgs:
+                # move them back to the queue as offline backlog
+                if not self.queue.opts.clean_session:
+                    for pid, (kind, msg, _, _) in sorted(self.waiting_acks.items()):
+                        if kind in ("puback", "pubrec"):
+                            self.queue.offline.append(msg)
+                    for msg in self.pending:
+                        if msg.qos > 0:
+                            self.queue.offline.append(msg)
+                self.waiting_acks.clear()
+                self.pending.clear()
+                self.queue.del_session(self)
+        self.broker.metrics.drop_rate_state(self.sid)
+        self.transport.close()
+
+    async def overload_disconnect(self) -> None:
+        """L3 top-talker shed (robustness/overload.py): Server busy, then
+        the normal close path — persistent sessions keep their backlog,
+        QoS>=1 inflight re-queues, nothing acked is lost."""
+        if self.closed:
+            return
+        if self.proto_ver == PROTO_5:
+            self.send(Disconnect(reason_code=RC_SERVER_BUSY))
+            self._count_disconnect_sent(RC_SERVER_BUSY)
+        await self.close("overload_shed")
+
+    async def redirect_close(self, server_reference: str = "") -> None:
+        """MQTT5 server redirect (live handoff): the session's state is
+        already fenced+adopted at another node, so tell the client
+        WHERE it went — DISCONNECT 0x9D (Server moved, permanent) with
+        the Server Reference property, or 0x9C (Use another server)
+        when no address is known — instead of a bare takeover kick that
+        makes it knock here again. v3/4 clients have no redirect frame
+        and never reach this path (the handoff keeps takeover_close
+        for them)."""
+        if self.proto_ver == PROTO_5:
+            if server_reference:
+                self.send(Disconnect(
+                    reason_code=RC_SERVER_MOVED,
+                    properties={"server_reference": server_reference}))
+                rc = RC_SERVER_MOVED
+            else:
+                self.send(Disconnect(reason_code=RC_USE_ANOTHER_SERVER))
+                rc = RC_USE_ANOTHER_SERVER
+            self._count_disconnect_sent(rc)
+        suppress = self.broker.config.suppress_lwt_on_session_takeover
+        await self.close("server_redirect", send_will=not suppress)
+
+    def detach_inflight(self) -> List[Any]:
+        """Strip this session's undelivered QoS>=1 state (unacked
+        in-flight + pending) WITHOUT closing it, oldest first — the
+        live-handoff drain ships these to the new owner while the
+        connection stays up, instead of close() parking them in the
+        local offline backlog the handoff is about to tear down.
+        Redelivery at the target beats loss, as with any QoS1 retry."""
+        out: List[Any] = []
+        for pid, (kind, msg, _, _) in sorted(self.waiting_acks.items()):
+            if kind in ("puback", "pubrec"):
+                out.append(msg)
+        for msg in self.pending:
+            if msg.qos > 0:
+                out.append(msg)
+        self.waiting_acks.clear()
+        self.pending.clear()
+        return out
+
+    async def takeover_close(self) -> None:
+        """Kicked by a newer session with the same client id."""
+        if self.proto_ver == PROTO_5:
+            self.send(Disconnect(reason_code=RC_SESSION_TAKEN_OVER))
+            self._count_disconnect_sent(RC_SESSION_TAKEN_OVER)
+        suppress = self.broker.config.suppress_lwt_on_session_takeover
+        await self.close("session_taken_over", send_will=not suppress)
+
+    def _count_disconnect_sent(self, rc: int) -> None:
+        m = self.broker.metrics
+        m.incr("mqtt_disconnect_sent")
+        m.incr_labeled("mqtt_disconnect_sent", mqtt_version="5",
+                       reason_code=reason_name(rc,
+                                               zero="normal_disconnect"))
+
+    async def _disconnect_v5(self, rc: int) -> None:
+        if self.proto_ver == PROTO_5:
+            self.send(Disconnect(reason_code=rc))
+            self._count_disconnect_sent(rc)
+        await self.close(f"disconnect_rc_{rc:#x}")
+
+    def info(self) -> Dict[str, Any]:
+        return {
+            "client_id": self.client_id,
+            "mountpoint": self.mountpoint,
+            "user": self.username,
+            "peer_host": self.peer[0],
+            "peer_port": self.peer[1],
+            "protocol": self.proto_ver,
+            "waiting_acks": len(self.waiting_acks),
+            "pending": len(self.pending),
+            "clean_session": self.clean_start,
+            "keepalive": self.keepalive,
+        }
+
+
+RC_CLIENT_ID_NOT_VALID = 0x85
+RC_TOPIC_NAME_INVALID = 0x90
+
+_IN_METRIC = {
+    Publish: "mqtt_publish_received",
+    Puback: "mqtt_puback_received",
+    Pubrec: "mqtt_pubrec_received",
+    Pubrel: "mqtt_pubrel_received",
+    Pubcomp: "mqtt_pubcomp_received",
+    Subscribe: "mqtt_subscribe_received",
+    Unsubscribe: "mqtt_unsubscribe_received",
+    Pingreq: "mqtt_pingreq_received",
+    Disconnect: "mqtt_disconnect_received",
+    Auth: "mqtt_auth_received",
+}
+
+
+class Transport:
+    """Minimal transport interface the session writes to; implemented by the
+    asyncio server (write-batched like vmq_ranch.erl:253-262) and by test
+    fixtures."""
+
+    def write(self, data: bytes) -> None:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def write_iov(self, chunks) -> None:
+        """Write a writev-ready iovec. Transports that can scatter
+        (StreamTransport) override; the default join keeps framing
+        transports (websocket, test fixtures) seeing ONE contiguous
+        write per frame — byte-identical on the wire either way."""
+        self.write(b"".join(chunks))
+
+    def close(self) -> None:  # pragma: no cover - interface
+        raise NotImplementedError

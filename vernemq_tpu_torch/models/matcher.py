@@ -24,11 +24,10 @@ concurrent PUBLISHes.
   (windows, two in flight, super-batches under load) and sheds to the host
   trie whenever the device cannot answer promptly.
 
-Not yet ported (ROADMAP): the payload-predicate phase (``filter_engine``),
-the flight-recorder trace and match-service fold meta of the collector, the
-overload governor, and the mesh seats of the view. The reference's
-warm-signature gate and warm-up ladders have no counterpart: they bound XLA
-compiles, and eager PyTorch compiles nothing per shape.
+Not yet ported (ROADMAP): the collector's match-service fold meta (worker
+mode) and the mesh seats of the view. The reference's warm-signature gate
+and warm-up ladders have no counterpart: they bound XLA compiles, and eager
+PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -278,6 +277,8 @@ class GpuMatcher:
         self.async_rebuild = False
         self._rebuild_thread: Optional[threading.Thread] = None
         self._rebuild_barrier: Optional[threading.Event] = None  # tests
+        self._closed = False  # close(): no rebuild respawns itself
+        self.warm_ms: Optional[float] = None  # _warm_locked's wall
         # the first CUDA fault the device path met (dispatch, delta or
         # build): the context is unusable from then on, so every later
         # sync raises it as KernelError instead of rebuilding, shedding to
@@ -433,7 +434,8 @@ class GpuMatcher:
                         return
                     t = self.table
                     if t.resized or t.id_bits != state["bits"]:
-                        self._spawn_rebuild_locked()
+                        if not self._closed:
+                            self._spawn_rebuild_locked()
                         return
                     self._install_built(built, state)
                     self._rebuild_thread = None
@@ -448,6 +450,20 @@ class GpuMatcher:
                               daemon=True)
         self._rebuild_thread = th
         th.start()
+
+    def close(self) -> None:
+        """Shut down (the broker's stop): a background rebuild respawns no
+        more and is joined — at most ``rebuild_deadline_s``, past which
+        the stall watchdog owns it — and the card's queued work is
+        waited for, so nothing of this matcher runs on the device after
+        the event loop closes."""
+        with self.lock:
+            self._closed = True
+            th = self._rebuild_thread
+        if th is not None:
+            th.join(self.rebuild_deadline_s or None)
+        if self.device.type == "cuda" and self._cuda_fault is None:
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ delta sync
 
@@ -483,6 +499,8 @@ class GpuMatcher:
             self._install_built(self._build_device(state), state)
             t.resized = False
             t.dirty.clear()
+            if self.warm_ms is None:
+                self._warm_locked()
             return
         if not t.dirty:
             return
@@ -505,6 +523,33 @@ class GpuMatcher:
         # regions may move without a resize (relocation into the spare)
         self._reg_start = t.reg_start.copy()
         self._reg_end = (t.reg_start + t.reg_cap).copy()
+
+    def _warm_locked(self) -> None:
+        """After the first build (lock held), run the match dispatch and
+        the delta scatter once on the card, results discarded: CUDA loads
+        a kernel's module at its first launch, and the first flush of a
+        fresh process would otherwise pay that for every kernel of the
+        path (about a second) while the publishes queued behind it expire
+        to the trie. The reference warms its XLA shapes at matcher start
+        for the same reason. The scatter rewrites slot 0 with its own
+        device values; no fault point, counter or histogram sees either
+        call. Records ``warm_ms``."""
+        t0 = time.monotonic()
+        if (self.device.type == "cuda" and self._bucketed
+                and self._operands is not None):
+            enc = self._encode_batch_ex([("$warm",)])
+            args, statics, _ = self._flat_prep(
+                self._layout_locked(), int(self._operands[0].shape[1]),
+                *enc, 1)
+            self._dispatch_flat(self._dev_arrays, self._operands, args,
+                                statics)
+            K.apply_delta_fused_nometa(
+                self._dev_arrays, self._operands,
+                torch.zeros(1, dtype=torch.int64, device=self.device),
+                *(a[:1].clone() for a in self._dev_arrays),
+                id_bits=self._ops_bits)
+            torch.cuda.synchronize(self.device)
+        self.warm_ms = (time.monotonic() - t0) * 1e3
 
     def _apply_delta_device(self, slots: np.ndarray) -> None:
         """Device half of a delta sync (lock held), registered with the
@@ -1004,7 +1049,8 @@ class GpuRegView:
     """Reg-view adapter over per-mountpoint :class:`GpuMatcher` s: the
     production seat. Growth rebuilds run in the background while the
     registry's trie serves, a circuit breaker (``breaker_*``) degrades the
-    device path to the trie after repeated failures, and a stall
+    device path to the trie after repeated failures (with
+    ``breaker_enabled`` off a device error reaches the caller), and a stall
     ``watchdog`` abandons rebuilds past ``rebuild_deadline_s``. The
     defaults are the reference's (its ``tpu_breaker_*`` knobs).
 
@@ -1017,6 +1063,7 @@ class GpuRegView:
     def __init__(self, registry, max_levels: int = 16,
                  initial_capacity: int = 1024, max_fanout: int = 256,
                  flat_avg: int = 128,
+                 breaker_enabled: bool = True,
                  breaker_failure_threshold: int = 3,
                  breaker_backoff_initial: float = 0.2,
                  breaker_backoff_max: float = 10.0,
@@ -1031,6 +1078,7 @@ class GpuRegView:
                         initial_capacity=initial_capacity,
                         max_fanout=max_fanout, flat_avg=flat_avg,
                         device=self.device)
+        self._breaker_enabled = breaker_enabled
         self._breaker_kw = dict(failure_threshold=breaker_failure_threshold,
                                 backoff_initial=breaker_backoff_initial,
                                 backoff_max=breaker_backoff_max,
@@ -1040,7 +1088,8 @@ class GpuRegView:
     def _mk(self) -> GpuMatcher:
         m = GpuMatcher(**self._kw)
         m.async_rebuild = True
-        m.breaker = CircuitBreaker(**self._breaker_kw)
+        m.breaker = (CircuitBreaker(**self._breaker_kw)
+                     if self._breaker_enabled else None)
         m.watchdog = self.watchdog
         m.rebuild_deadline_s = self.rebuild_deadline_s
         return m
@@ -1107,6 +1156,11 @@ class GpuRegView:
         return {mp or "(default)": m.breaker.status()
                 for mp, m in self._matchers.items()}
 
+    def close(self) -> None:
+        """Close every mountpoint's matcher (:meth:`GpuMatcher.close`)."""
+        for m in self._matchers.values():
+            m.close()
+
 
 class BatchCollector:
     """Coalesce concurrent publishes into device calls.
@@ -1120,10 +1174,12 @@ class BatchCollector:
     an expired item, a dispatch past ``dispatch_deadline_ms`` under the
     ``watchdog``, a lock busy past ``lock_busy_shed_ms``, a rebuild or an
     open breaker — the registry's trie serves instead, with identical
-    results. A kernel fault (``KernelError``) reaches the futures as an
-    error. A copy of the reference's collector without its
-    payload-predicate phase, flight-recorder traces and match-service fold
-    meta."""
+    results; each such publish is counted (``*_host_pubs``), and an
+    expired or stalled one is logged as a warning too. A kernel fault (``KernelError``) reaches the futures as an
+    error. With a ``filter_engine`` every flush's matched fanout runs the
+    payload-predicate phase before the futures settle, on every shed path
+    too. A copy of the reference's collector without the match-service
+    fold meta (``meta_box``), which only its worker mode fills."""
 
     #: device calls allowed in flight at once: two slots double-buffer the
     #: pipeline (batch N+1's host encode overlaps batch N's device work)
@@ -1133,8 +1189,13 @@ class BatchCollector:
                  host_threshold: int = 0, lock_busy_shed_ms: int = 500,
                  super_batch_k: int = 8, latency_budget_ms: float = 50.0,
                  watchdog=None, dispatch_deadline_ms: float = 0.0,
-                 item_expiry_ms: float = 0.0):
+                 item_expiry_ms: float = 0.0, filter_engine=None):
         self.view = view
+        # payload-filter engine (filters/engine.py): when set, each
+        # flush's matched fanout runs the predicate phase before the
+        # futures settle, and every trie-served publish is filtered too.
+        # None touches nothing on any path.
+        self.filter_engine = filter_engine
         # stall watchdog: with a deadline set, device flushes run as
         # SACRIFICIAL dispatches — the await is released at the deadline
         # (StallAbandoned: the trie serves, the breaker is fed) and the
@@ -1145,6 +1206,7 @@ class BatchCollector:
         self.item_expiry = item_expiry_ms / 1e3
         self.stalled_host_pubs = 0  # trie-served after an abandon
         self.expired_host_pubs = 0  # trie-served past item expiry
+        self._late_logged = float("-inf")  # last _log_late warning
         self._expiry_handle: Optional[asyncio.TimerHandle] = None
         self.window = window_us / 1e6
         self.max_batch = max_batch
@@ -1228,21 +1290,44 @@ class BatchCollector:
             f._vmq_res = f._vmq_exc = None
 
     def _settle_via_trie(self, mp: str, topic, fut,
-                         fallback_exc: Optional[BaseException] = None) -> None:
+                         fallback_exc: Optional[BaseException] = None,
+                         feat=None) -> None:
         """Serve one publish from the host trie and settle its future;
-        without a registry the original cause reaches the caller."""
+        without a registry the original cause reaches the caller. The
+        payload-predicate phase applies here too (exact host evaluator),
+        so a shed publish delivers the same filtered fanout."""
         reg = getattr(self.view, "registry", None)
         if reg is None:
             self._settle(fut, exc=fallback_exc
                          or RuntimeError("no registry for trie fallback"))
             return
         try:
-            self._settle(fut, res=reg.trie(mp).match(list(topic)))
+            rows = reg.trie(mp).match(list(topic))
+            eng = self.filter_engine
+            if eng is not None and eng.wants(mp):
+                rows = eng.filter_single(mp, topic, feat, list(rows))
+            self._settle(fut, res=rows)
         except Exception as e:
             self._settle(fut, exc=e)
 
-    def submit(self, mountpoint: str, topic: Sequence[str]) -> asyncio.Future:
-        """Queue one publish; the future resolves to its match rows."""
+    def _log_late(self, n: int, why: str) -> None:
+        """Publishes the device path was too slow for (``why``: expired
+        in the queue, or a stalled dispatch) went to the trie: say so, at
+        most once a second, beside the counters."""
+        now = time.monotonic()
+        if now - self._late_logged >= 1.0:
+            self._late_logged = now
+            log.warning("%d publish(es) %s: answered by the host trie "
+                        "(%d expired, %d stalled in all)", n, why,
+                        self.expired_host_pubs, self.stalled_host_pubs)
+
+    def submit(self, mountpoint: str, topic: Sequence[str],
+               trace=None, feat=None) -> asyncio.Future:
+        """Queue one publish; the future resolves to its match rows.
+        ``trace``: a flight-recorder trace (observability/recorder.py),
+        stamped at submit, dequeue and match. ``feat``: the publish's
+        payload feature row (``FilterEngine.encode``) for the predicate
+        phase; None for unfiltered mountpoints."""
         loop = asyncio.get_event_loop()
         fut = self._enqueue_fut(loop)
         if (self._inflight >= self.MAX_INFLIGHT
@@ -1257,11 +1342,14 @@ class BatchCollector:
             # dispatch when a slot frees.
             if getattr(self.view, "registry", None) is not None:
                 self.overload_host_pubs += 1
-                self._settle_via_trie(mountpoint, topic, fut)
+                self._settle_via_trie(mountpoint, topic, fut, feat=feat)
                 return fut
         now_sub = time.monotonic()
         exp = now_sub + self.item_expiry if self.item_expiry > 0 else None
-        self._pending.append((mountpoint, tuple(topic), fut, exp, now_sub))
+        if trace is not None:
+            trace.stamp("submit")
+        self._pending.append((mountpoint, tuple(topic), fut, exp, now_sub,
+                              trace, feat))
         if exp is not None and self._expiry_handle is None:
             # the expiry sweep fires even when no flush can (both slots
             # wedged): the queued-tail bound
@@ -1302,11 +1390,13 @@ class BatchCollector:
             if (exp is not None and now >= exp
                     and settled < self._EXPIRE_CHUNK):
                 self.expired_host_pubs += 1
-                self._settle_via_trie(mp, topic, fut)
+                self._settle_via_trie(mp, topic, fut, feat=item[6])
                 settled += 1
             else:
                 keep.append(item)
         self._pending = keep
+        if settled:
+            self._log_late(settled, "expired in the collector queue")
         if self._pending and self._pending[0][3] is not None:
             delay = (0.0 if now >= self._pending[0][3]  # chunk remainder
                      else max(0.005, self._pending[0][3] - now))
@@ -1321,8 +1411,8 @@ class BatchCollector:
         if len(self._pending) <= self.host_threshold and reg is not None:
             pending, self._pending = self._pending, []
             self.host_hybrid_pubs += len(pending)
-            for mp, topic, fut, _exp, _t_sub in pending:
-                self._settle_via_trie(mp, topic, fut)
+            for mp, topic, fut, _exp, _t_sub, _trace, feat in pending:
+                self._settle_via_trie(mp, topic, fut, feat=feat)
             return
         if self._inflight >= self.MAX_INFLIGHT:
             # both slots busy: leave the items pending so late arrivals
@@ -1360,8 +1450,8 @@ class BatchCollector:
     async def _settle_items_via_trie(self, mp, items, exc) -> None:
         """Serve a flush's items from the trie, yielding to the loop every
         64 (trie reads stay on the loop, where the trie is mutated)."""
-        for i, (t_, fut) in enumerate(items):
-            self._settle_via_trie(mp, t_, fut, fallback_exc=exc)
+        for i, (t_, fut, feat) in enumerate(items):
+            self._settle_via_trie(mp, t_, fut, fallback_exc=exc, feat=feat)
             if (i + 1) % 64 == 0:
                 await asyncio.sleep(0)
 
@@ -1374,25 +1464,32 @@ class BatchCollector:
         # group by mountpoint; items that expired while queued go to the
         # exact trie instead of riding a device dispatch
         now = time.monotonic()
-        by_mp: Dict[str, List[Tuple[Tuple[str, ...], asyncio.Future]]] = {}
+        by_mp: Dict[str, List[Tuple[Tuple[str, ...], asyncio.Future,
+                                    Any]]] = {}
+        traces_mp: Dict[str, list] = {}
         expired = []
         oldest_sub = None
-        for mp, topic, fut, exp, t_sub in pending:
+        for mp, topic, fut, exp, t_sub, trace, feat in pending:
             if exp is not None and now >= exp:
-                expired.append((mp, topic, fut))
+                expired.append((mp, topic, fut, feat))
             else:
-                by_mp.setdefault(mp, []).append((topic, fut))
+                by_mp.setdefault(mp, []).append((topic, fut, feat))
                 if oldest_sub is None or t_sub < oldest_sub:
                     oldest_sub = t_sub
+                if trace is not None:
+                    trace.stamp("dequeue")
+                    traces_mp.setdefault(mp, []).append(trace)
         if oldest_sub is not None:
             obs.observe("stage_collector_wait_ms", (now - oldest_sub) * 1e3)
-        for i, (mp, t_, fut) in enumerate(expired):
-            self.expired_host_pubs += 1
-            self._settle_via_trie(mp, t_, fut)
+        if expired:
+            self.expired_host_pubs += len(expired)
+            self._log_late(len(expired), "expired in the collector queue")
+        for i, (mp, t_, fut, feat) in enumerate(expired):
+            self._settle_via_trie(mp, t_, fut, feat=feat)
             if (i + 1) % 64 == 0:
                 await asyncio.sleep(0)
         for mp, items in by_mp.items():
-            topics = [t for t, _ in items]
+            topics = [t for t, _, _ in items]
             self.view.matcher(mp)  # first load on the loop thread
             lock_to = (self.lock_busy_shed_ms / 1e3
                        if self.lock_busy_shed_ms else None)
@@ -1434,6 +1531,8 @@ class BatchCollector:
                 # deadline overrun: a device failure for the breaker; THIS
                 # flush is served by the trie, the late result discarded
                 self.stalled_host_pubs += len(items)
+                self._log_late(len(items), "rode a dispatch that stalled "
+                               "past its deadline")
                 m = (self.view.matcher(mp)
                      if hasattr(self.view, "matcher") else None)
                 if m is not None and hasattr(m, "record_stall"):
@@ -1453,10 +1552,37 @@ class BatchCollector:
                 await self._settle_items_via_trie(mp, items, rb)
                 continue
             except Exception as e:  # a kernel fault, a bug: the futures fail
-                for _, fut in items:
+                for _, fut, _feat in items:
                     self._settle(fut, exc=e)
                 continue
-            for (_, fut), rows in zip(items, results):
+            # the payload-predicate phase behind topic match, skipped at
+            # one dict probe when the mountpoint carries no predicates; a
+            # wedged phase is abandoned at the same dispatch deadline and
+            # the host evaluator serves
+            eng = self.filter_engine
+            if eng is not None:
+                if not eng.wants(mp):
+                    eng.note_skip()
+                else:
+                    tf = [(t, feat) for t, _fut, feat in items]
+                    try:
+                        if sacrificial:
+                            results = await wd.dispatch_async(
+                                "device.predicate",
+                                lambda m=mp, x=tf, r=results:
+                                    eng.filter_batch(m, x, r),
+                                self.dispatch_deadline,
+                                label=f"predicate:{mp or '(default)'}")
+                        else:
+                            results = await loop.run_in_executor(
+                                None, eng.filter_batch, mp, tf, results)
+                    except StallAbandoned as sa:
+                        eng.record_stall(sa)
+                        results = await loop.run_in_executor(
+                            None, eng.filter_batch_host, mp, tf, results)
+            for tr in traces_mp.get(mp, ()):
+                tr.stamp("match")
+            for (_, fut, _feat), rows in zip(items, results):
                 self._settle(fut, res=rows)
         # the pressure EWMA: whole-flush service time (shed and degraded
         # paths included — a slow fallback is pressure too)

@@ -418,3 +418,16 @@ class SubscriptionTable:
         w0 = int(row[0]) if n else UNKNOWN_ID
         w1 = int(row[1]) if n >= 2 else UNKNOWN_ID
         return (row, n, dollar, self.pub_bucket(w0), self.pub_gbucket(w1))
+
+    def stats(self) -> Dict[str, int]:
+        """Row count, capacity and host bytes (the registry's gauges)."""
+        return {
+            "subscriptions": self.count,
+            "capacity": self.cap,
+            "interned_words": len(self.interner),
+            "overflow": len(self.overflow),
+            "table_bytes": int(
+                self.words.nbytes + self.eff_len.nbytes + self.has_hash.nbytes
+                + self.first_wild.nbytes + self.active.nbytes
+            ),
+        }

@@ -1,19 +1,27 @@
-"""Host-side subscription trie: the exact oracle of the GPU match engine and
-the subscription table's store for filters longer than ``L`` levels.
+"""Host-side subscription trie — the broker's CPU matcher and the parity
+oracle for the TPU match engine.
 
-The match walk tries, at every level, the exact word edge, the ``+`` edge
-and a terminal ``#`` edge (``vmq_reg_trie.erl:358-383``), skips root-level
-wildcards for ``$``-prefixed topics (``vmq_reg_trie.erl:283-288``), and lets
-a trailing ``#`` match its parent level.
+Functional equivalent of the reference's in-RAM subscription index
+(``apps/vmq_server/src/vmq_reg_trie.erl``): a per-node topic trie whose match
+walk tries, at every level, the exact word edge, the ``+`` edge, and a
+terminal ``#`` edge (``vmq_reg_trie.erl:358-383``), excludes root-level
+wildcards for ``$``-prefixed topic names (MQTT-4.7.2-1,
+``vmq_reg_trie.erl:283-288``), and lets a trailing ``#`` match its parent
+level. The reference's ETS edge/node tables become Python dict nodes; its
+fanout-table auto-promotion (``vmq_reg_trie.erl:448-496``) is unnecessary
+here because entries per filter already live in one dict.
+
+Entries are opaque ``(key, value)`` pairs stored per topic *filter* — the
+registry layer stores local subscribers, shared-group members, and
+remote-node pointers through the same structure, mirroring how
+``vmq_trie_subs`` vs ``vmq_trie_remote_subs`` share one walk.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Hashable, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 from ..protocol.topic import HASH, PLUS
-
-Row = Tuple[Tuple[str, ...], Hashable, Any]
 
 
 class _Node:
@@ -21,7 +29,7 @@ class _Node:
 
     def __init__(self) -> None:
         self.children: Dict[str, _Node] = {}
-        self.subs: Dict[Hashable, Any] = {}
+        self.subs: Dict[Hashable, Any] = {}  # entries terminating at this node
 
 
 class SubscriptionTrie:
@@ -29,13 +37,13 @@ class SubscriptionTrie:
 
     def __init__(self) -> None:
         self._root = _Node()
-        self._count = 0
+        self._count = 0  # number of (filter, key) entries
 
     def __len__(self) -> int:
         return self._count
 
-    def add(self, filter_words: Sequence[str], key: Hashable,
-            value: Any = None) -> None:
+    def add(self, filter_words: Sequence[str], key: Hashable, value: Any = None) -> None:
+        """Insert/update an entry under a (validated) subscription filter."""
         node = self._root
         for w in filter_words:
             nxt = node.children.get(w)
@@ -48,7 +56,8 @@ class SubscriptionTrie:
         node.subs[key] = value
 
     def remove(self, filter_words: Sequence[str], key: Hashable) -> bool:
-        """Remove an entry, pruning branches left empty."""
+        """Remove an entry; prunes now-empty trie branches (the reference
+        deletes edge rows bottom-up, vmq_reg_trie.erl trie_delete_path)."""
         path: List[Tuple[_Node, str]] = []
         node = self._root
         for w in filter_words:
@@ -61,6 +70,7 @@ class SubscriptionTrie:
             return False
         del node.subs[key]
         self._count -= 1
+        # prune empty leaves bottom-up
         for parent, w in reversed(path):
             child = parent.children[w]
             if child.subs or child.children:
@@ -68,15 +78,27 @@ class SubscriptionTrie:
             del parent.children[w]
         return True
 
-    def match(self, topic_words: Sequence[str]) -> List[Row]:
-        """All ``(filter, key, value)`` rows whose filter matches the topic."""
-        out: List[Row] = []
+    def match(self, topic_words: Sequence[str]) -> List[Tuple[Tuple[str, ...], Hashable, Any]]:
+        """All entries whose filter matches the topic name.
+
+        Returns ``[(filter, key, value)]`` — one row per matching
+        subscription, like ``vmq_reg_trie:fold/4`` invoking the fold fun per
+        matched topic row.
+        """
+        out: List[Tuple[Tuple[str, ...], Hashable, Any]] = []
         skip_root_wild = bool(topic_words) and topic_words[0].startswith("$")
         self._walk(self._root, topic_words, 0, (), skip_root_wild, out)
         return out
 
-    def _walk(self, node: _Node, words: Sequence[str], i: int,
-              path: Tuple[str, ...], skip_wild: bool, out: List[Row]) -> None:
+    def _walk(
+        self,
+        node: _Node,
+        words: Sequence[str],
+        i: int,
+        path: Tuple[str, ...],
+        skip_wild: bool,
+        out: List[Tuple[Tuple[str, ...], Hashable, Any]],
+    ) -> None:
         if i == len(words):
             for k, v in node.subs.items():
                 out.append((path, k, v))
@@ -91,7 +113,8 @@ class SubscriptionTrie:
         exact = node.children.get(w)
         if exact is not None:
             self._walk(exact, words, i + 1, path + (w,), skip_wild, out)
-        if not (skip_wild and i == 0):
+        wild_ok = not (skip_wild and i == 0)
+        if wild_ok:
             plus = node.children.get(PLUS)
             if plus is not None:
                 self._walk(plus, words, i + 1, path + (PLUS,), False, out)
@@ -101,8 +124,9 @@ class SubscriptionTrie:
                 for k, v in hash_child.subs.items():
                     out.append((hp, k, v))
 
-    def entries(self) -> Iterator[Row]:
-        """Every ``(filter, key, value)`` row (warm-loading the table)."""
+    def entries(self) -> Iterator[Tuple[Tuple[str, ...], Hashable, Any]]:
+        """Iterate every (filter, key, value) — used for warm-loading the TPU
+        table, mirroring the trie warm-load fold (vmq_reg_trie.erl:144-151)."""
         stack: List[Tuple[_Node, Tuple[str, ...]]] = [(self._root, ())]
         while stack:
             node, path = stack.pop()
@@ -110,3 +134,21 @@ class SubscriptionTrie:
                 yield (path, k, v)
             for w, child in node.children.items():
                 stack.append((child, path + (w,)))
+
+    def stats(self) -> Dict[str, int]:
+        """Subscription count + rough memory, feeding the
+        ``router_subscriptions`` / ``router_memory`` gauges
+        (vmq_reg_trie.erl:101-112)."""
+        import sys
+
+        nodes = 0
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            nodes += 1
+            stack.extend(n.children.values())
+        return {
+            "subscriptions": self._count,
+            "nodes": nodes,
+            "memory": nodes * (sys.getsizeof({}) * 2 + 64),
+        }

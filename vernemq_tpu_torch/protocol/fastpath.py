@@ -1,0 +1,528 @@
+"""The wire plane: shared dispatch for the native codec (native/codec.cc).
+
+Three seams live here, each with a bit-identical pure-Python fallback so
+the broker works (and behaves byte-identically) without a toolchain:
+
+- **per-frame fast parse** (:func:`parse_native`) — the original hot-shape
+  accelerator both protocol codecs call first;
+- **batch parse** (:func:`parse_batch`) — one call turns a recv buffer
+  into a packed *frame table* (fixed-width 24-byte records: kind, raw
+  header byte, pid, frame/topic/payload spans) with NO per-frame Python
+  objects; the server's steady-state loop walks the table and
+  materialises frame objects only for records that need loop-side
+  handling;
+- **batch encode** (:func:`publish_header`) — a writev-ready PUBLISH
+  header so transports write ``(header, payload)`` iovecs without
+  per-frame ``bytes`` assembly (the payload is never copied).
+
+The codec boundary is a registered fault/breaker seam: ``wire.parse`` /
+``wire.encode`` in :data:`~vernemq_tpu.robustness.faults.KNOWN_POINTS`
+and path ``wire`` in
+:data:`~vernemq_tpu.robustness.breaker.BREAKER_PATHS`.  A native-side
+failure (injected or real) feeds the breaker and degrades to the pure
+codec with a counter — never a dropped connection the Python codec
+would have served.
+
+The loader demands ``REQUIRED_VERSION`` so a stale prebuilt
+``_vmq_codec.so`` (older signatures / record layout) is rebuilt or
+rejected instead of raising TypeError mid-parse. ``VMQ_NATIVE_CODEC=0``
+is the operator escape hatch: the whole native codec (per-frame and
+batch) stays off for the process.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import struct
+from typing import Optional, Tuple
+
+from ..observability import events
+from ..robustness import faults
+from ..robustness.breaker import CircuitBreaker
+from .types import (PINGREQ, PINGRESP, PUBACK, PUBCOMP, PUBLISH, PUBREC,
+                    PUBREL, Frame, Pingreq, Pingresp, Puback, Pubcomp,
+                    Publish, Pubrec, Pubrel)
+
+log = logging.getLogger("vernemq_tpu_torch.wire")
+
+#: bump together with FASTPATH_VERSION in native/codec.cc
+REQUIRED_VERSION = 4
+
+ACK_CTORS = {PUBACK: Puback, PUBREC: Pubrec, PUBREL: Pubrel,
+             PUBCOMP: Pubcomp}
+
+#: sentinel: the extension declined — run the pure-Python parser
+FALLBACK = object()
+
+# ------------------------------------------------------------ frame table
+#
+# Record layout — struct '<BBHIIIII', 24 bytes, identical bit-for-bit
+# between native/codec.cc parse_batch and _parse_batch_py below (the
+# differential fuzz test in tests/test_native_codec.py asserts table
+# equality on arbitrary byte streams):
+#
+#   kind armour: K_PY frames (anything that is not a hot shape,
+#   including every malformed input) are handed to the protocol codec's
+#   parse() over their exact span, so error behaviour stays canonical.
+
+REC = struct.Struct("<BBHIIIII")
+REC_SIZE = REC.size
+
+K_PY = 0       #: python codec owns this span (incl. all error paths)
+K_PUB0 = 1     #: QoS0 PUBLISH hot shape
+K_PUB = 2      #: QoS1/2 PUBLISH hot shape
+K_ACK = 3      #: 2-byte PUBACK/PUBREC/PUBREL/PUBCOMP
+K_PING = 4     #: PINGREQ / PINGRESP
+
+
+_cached = False
+_native = None
+_pure_warned = False
+#: test/bench hook: force the pure-Python plane (parse_batch + headers
+#: + the per-frame parse in the codecs consult load_native once at
+#: import, so tests swap codec_v4._C/_C5 alongside this)
+_force_pure = False
+
+#: the codec-boundary circuit breaker (path "wire"): native-side
+#: failures open it and every batch serves from the pure codec until a
+#: half-open probe succeeds. One process-global breaker — the codec is
+#: process-global state, not per-mountpoint.
+breaker = CircuitBreaker(failure_threshold=3, backoff_initial=1.0,
+                         backoff_max=30.0, name="wire")
+
+# wire-plane counters (process-global like robustness/faults; surfaced
+# as gauges through Registry.stats -> broker._gauges)
+native_batches = 0      #: batches parsed by the native table parser
+pure_batches = 0        #: batches parsed by the pure-Python twin
+native_errors = 0       #: native calls that failed (fed the breaker)
+degraded_batches = 0    #: batches served pure while the breaker was open
+fastpath_pubs = 0       #: QoS0 publishes admitted object-free
+fastpath_pubs_qos = 0   #: QoS1/2 publishes admitted object-free
+fastpath_acks = 0       #: ack frames resolved object-free
+fanout_batches = 0      #: batched fanout header encodes (one per fanout)
+
+
+def load_native():
+    """The codec extension, version-checked, or None — memoised so the
+    two codec modules share one load (and at most one rebuild attempt).
+    ``VMQ_NATIVE_CODEC=0`` disables the native codec for the process."""
+    global _cached, _native
+    if not _cached:
+        _cached = True
+        if os.environ.get("VMQ_NATIVE_CODEC", "1").lower() in (
+                "0", "false", "off"):
+            _native = None
+            return None
+        try:
+            from ..native import load_extension
+
+            _native = load_extension("_vmq_codec",
+                                     min_version=REQUIRED_VERSION)
+        except Exception:  # pragma: no cover - import cycle / bad install
+            _native = None
+    return _native
+
+
+def native_active() -> bool:
+    """True when batch calls are currently served by the extension."""
+    return (not _force_pure and load_native() is not None
+            and breaker.is_closed)
+
+
+def _warn_pure_once() -> None:
+    global _pure_warned
+    if not _pure_warned:
+        _pure_warned = True
+        log.warning("native wire codec unavailable; the pure-Python "
+                    "batch codec serves (bit-identical, slower) — "
+                    "build native/ or unset VMQ_NATIVE_CODEC to "
+                    "silence")
+
+
+def stats():
+    """Gauge snapshot for the metrics/$SYS surface (merged by
+    Registry.stats like robustness.faults.stats)."""
+    return {
+        "wire_native_active": 1.0 if native_active() else 0.0,
+        "wire_native_batches": float(native_batches),
+        "wire_pure_batches": float(pure_batches),
+        "wire_native_errors": float(native_errors),
+        "wire_degraded_batches": float(degraded_batches),
+        "wire_fastpath_pubs": float(fastpath_pubs),
+        "wire_fastpath_pubs_qos": float(fastpath_pubs_qos),
+        "wire_fastpath_acks": float(fastpath_acks),
+        "wire_fanout_batches": float(fanout_batches),
+        "wire_breaker_state": float(breaker.state),
+    }
+
+
+# ------------------------------------------------------------ batch parse
+
+
+def parse_batch(data, max_size: int = 0,
+                v5: bool = False) -> Tuple[bytes, int, int]:
+    """Batch-parse ``data`` into ``(table, n_frames, consumed)``.
+
+    Native when built and the wire breaker is closed; otherwise the
+    bit-identical pure-Python twin. A native failure (real or an
+    injected ``wire.parse`` fault) counts, feeds the breaker, and the
+    SAME buffer is re-parsed pure — a malformed-batch fault can never
+    drop a connection the Python codec would have served."""
+    global native_batches, pure_batches, native_errors, degraded_batches
+    C = None if _force_pure else load_native()
+    if C is not None:
+        if breaker.allow():
+            try:
+                faults.inject("wire.parse", max_delay_s=1.0)
+                out = C.parse_batch(data, max_size, v5)
+                native_batches += 1
+                breaker.record_success()
+                return out
+            except Exception:
+                native_errors += 1
+                if breaker.record_failure():
+                    events.emit("wire_fallback", detail="parse")
+                    log.error("native wire parse failed; breaker open — "
+                              "serving the pure-Python codec",
+                              exc_info=True)
+        else:
+            degraded_batches += 1
+    else:
+        _warn_pure_once()
+    pure_batches += 1
+    return _parse_batch_py(data, max_size, v5)
+
+
+def _parse_batch_py(data, max_size: int = 0,
+                    v5: bool = False) -> Tuple[bytes, int, int]:
+    """Pure-Python frame-table parser — byte-identical to the native
+    ``parse_batch`` (same records, same stop rules)."""
+    d = data
+    dlen = len(d)
+    recs = bytearray()
+    pack_into = REC.pack_into
+    pos = 0
+    n = 0
+    consumed = 0
+    while dlen - pos >= 2:
+        b0 = d[pos]
+        body_len = 0
+        shift = 0
+        hlen = 0
+        i = pos + 1
+        end = min(dlen, pos + 5)
+        while i < end:
+            b = d[i]
+            body_len |= (b & 0x7F) << shift
+            if not b & 0x80:
+                hlen = i - pos + 1
+                break
+            shift += 7
+            i += 1
+        if hlen == 0:
+            if dlen - pos >= 5:
+                hlen = -1
+            else:
+                break
+        if hlen < 0 or (max_size > 0 and body_len > max_size):
+            recs += REC.pack(K_PY, b0, 0, pos, dlen, 0, 0, pos)
+            n += 1
+            consumed = dlen
+            break
+        if dlen - pos < hlen + body_len:
+            break
+        frame_end = pos + hlen + body_len
+        body_off = pos + hlen
+        ptype = b0 >> 4
+        flags = b0 & 0x0F
+
+        kind = K_PY
+        pid = 0
+        topic_off = topic_len = 0
+        payload_off = pos
+
+        if ptype == PUBLISH:
+            qos = (flags >> 1) & 0x03
+            while True:  # single-pass classify; break = PY
+                if qos == 3 or body_len < 2:
+                    break
+                tlen = (d[body_off] << 8) | d[body_off + 1]
+                tpos = 2 + tlen
+                if tpos > body_len:
+                    break
+                if qos > 0:
+                    if tpos + 2 > body_len:
+                        break
+                    pid = (d[body_off + tpos] << 8) | d[body_off + tpos + 1]
+                    if pid == 0:
+                        break
+                    tpos += 2
+                if v5:
+                    # hot v5 shapes: empty property block, or ONLY a
+                    # topic-alias property (0x03 0x23 hi lo) — the
+                    # consumer re-reads the alias from the 4-byte span
+                    # between pid and payload_off
+                    if tpos >= body_len:
+                        break
+                    pb = d[body_off + tpos]
+                    if pb == 0:
+                        tpos += 1
+                    elif (pb == 3 and tpos + 4 <= body_len
+                          and d[body_off + tpos + 1] == 0x23):
+                        tpos += 4
+                    else:
+                        break
+                kind = K_PUB0 if qos == 0 else K_PUB
+                topic_off = body_off + 2
+                topic_len = tlen
+                payload_off = body_off + tpos
+                break
+            if kind == K_PY:
+                pid = 0
+        elif ptype in (PUBACK, PUBREC, PUBREL, PUBCOMP):
+            want_flags = 2 if ptype == PUBREL else 0
+            if flags == want_flags and body_len == 2:
+                pid = (d[body_off] << 8) | d[body_off + 1]
+                if v5 and pid == 0:
+                    pid = 0
+                else:
+                    kind = K_ACK
+        elif ptype in (PINGREQ, PINGRESP):
+            if flags == 0 and body_len == 0:
+                kind = K_PING
+
+        recs += REC.pack(kind, b0, pid, pos, frame_end, topic_off,
+                         topic_len, payload_off)
+        n += 1
+        pos = frame_end
+        consumed = pos
+    return bytes(recs), n, consumed
+
+
+def materialize(codec, buf, rec, max_size: int = 0) -> Frame:
+    """Turn one frame-table record into a frame object for classic
+    loop-side handling. Hot kinds build the frame directly from the
+    spans (no re-parse); K_PY — and any topic that fails strict UTF-8 /
+    the NUL ban — re-runs the codec over the exact span so the
+    canonical ParseError surfaces (``max_size`` rides along so the
+    unparseable-head record raises frame_too_large, not need-more)."""
+    kind, b0, pid, f_off, f_end, t_off, t_len, p_off = rec
+    if kind in (K_PUB0, K_PUB):
+        # a 4-byte v5 property span is the topic-alias-only hot shape:
+        # the codec owns it so the alias lands in frame.properties
+        # canonically (the empty block is 1 byte; v4 is 0)
+        if p_off - (t_off + t_len + (2 if kind == K_PUB else 0)) == 4:
+            frame, _rest = codec.parse(bytes(buf[f_off:f_end]), max_size)
+            return frame
+        try:
+            topic = bytes(buf[t_off:t_off + t_len]).decode("utf-8")
+        except UnicodeDecodeError:
+            topic = None
+        if topic is None or "\x00" in topic:
+            frame, _rest = codec.parse(bytes(buf[f_off:f_end]), max_size)
+            return frame
+        flags = b0 & 0x0F
+        return Publish(topic=topic, payload=bytes(buf[p_off:f_end]),
+                       qos=(flags >> 1) & 0x03, retain=bool(flags & 0x01),
+                       dup=bool(flags & 0x08),
+                       packet_id=pid if kind == K_PUB else None)
+    if kind == K_ACK:
+        return ACK_CTORS[b0 >> 4](packet_id=pid)
+    if kind == K_PING:
+        return Pingreq() if (b0 >> 4) == PINGREQ else Pingresp()
+    # K_PY: the codec owns the span (raises canonically on malformed)
+    frame, _rest = codec.parse(bytes(buf[f_off:f_end]), max_size)
+    return frame
+
+
+# ------------------------------------------------------------ batch encode
+
+
+def publish_header(topic: str, qos: int, retain: bool, dup: bool,
+                   packet_id: Optional[int], payload_len: int,
+                   v5: bool = False) -> bytes:
+    """Writev-ready PUBLISH header: everything up to (excluding) the
+    payload. Transports write ``(header, payload)`` as an iovec — the
+    fanout's shared payload bytes object is never copied per recipient.
+    Native when available; the pure twin is byte-identical. ValueError
+    refusals (pid range, topic length, frame size) propagate so callers
+    fall back to the full codec for the canonical error."""
+    C = None if _force_pure else load_native()
+    if C is not None and breaker.allow():
+        try:
+            faults.inject("wire.encode", max_delay_s=1.0)
+            out = C.encode_publish_header(
+                topic, qos, 1 if retain else 0, 1 if dup else 0,
+                packet_id, payload_len, v5)
+            breaker.record_success()
+            return out
+        except ValueError:
+            # deliberate refusal — a HEALTHY native verdict, not a
+            # codec failure: it must resolve a half-open probe (else
+            # the breaker wedges half-open with no retry deadline and
+            # the whole plane stays pure until a manual reset)
+            breaker.record_success()
+            raise
+        except Exception:
+            global native_errors
+            native_errors += 1
+            if breaker.record_failure():
+                events.emit("wire_fallback", detail="encode")
+                log.error("native wire encode failed; breaker open — "
+                          "serving the pure-Python codec", exc_info=True)
+    return _publish_header_py(topic, qos, retain, dup, packet_id,
+                              payload_len, v5)
+
+
+def _publish_header_py(topic: str, qos: int, retain: bool, dup: bool,
+                       packet_id: Optional[int], payload_len: int,
+                       v5: bool = False) -> bytes:
+    tb = topic.encode("utf-8")
+    if len(tb) > 65535:
+        raise ValueError("topic too long")
+    # validation order/scope mirrors the native encoder exactly: any
+    # non-None pid is range-checked regardless of qos (the twins must
+    # refuse identically or the native-absent posture diverges)
+    if packet_id is not None and not 1 <= packet_id <= 65535:
+        raise ValueError("packet_id out of range")
+    if qos > 0 and packet_id is None:
+        raise ValueError("missing_packet_id")
+    from . import wire
+
+    body_len = (2 + len(tb) + (2 if qos > 0 else 0) + (1 if v5 else 0)
+                + payload_len)
+    if body_len > wire.MAX_VARINT:
+        raise ValueError("frame too large")
+    head = bytes([(PUBLISH << 4) | (0x08 if dup else 0)
+                  | ((qos & 3) << 1) | (0x01 if retain else 0)])
+    out = (head + wire.encode_varint(body_len)
+           + len(tb).to_bytes(2, "big") + tb)
+    if qos > 0:
+        out += packet_id.to_bytes(2, "big")
+    if v5:
+        out += b"\x00"
+    return out
+
+
+def publish_headers_batch(topic: str, qos: int, retain: bool, dup: bool,
+                          pids, payload_len: int, v5: bool = False,
+                          aliases=None) -> Tuple[bytes, tuple]:
+    """One call emits N per-recipient PUBLISH headers into a single
+    arena: ``(arena, offsets)`` with N+1 offsets so header *i* is
+    ``arena[offsets[i]:offsets[i+1]]``. The caller slices with a
+    memoryview and pairs each header with the SHARED payload bytes in
+    an iovec — one native call replaces the per-recipient Python
+    encode loop of a QoS≥1 fanout.
+
+    ``pids[i]`` is recipient *i*'s packet id (None = no pid; refused
+    for qos>0). ``aliases[i]`` (v5 only): 0 = full topic + empty
+    property block; +a = alias-only header (empty topic + topic-alias
+    property); -a = alias-establishing header (topic AND alias).
+
+    Same dispatch contract as :func:`publish_header`: native behind
+    the wire breaker with the ``wire.encode`` fault point; ValueError
+    refusals are healthy native verdicts (re-raised after feeding the
+    breaker a success); real failures degrade to the bit-identical
+    pure twin."""
+    C = None if _force_pure else load_native()
+    if C is not None and breaker.allow():
+        try:
+            faults.inject("wire.encode", max_delay_s=1.0)
+            out = C.encode_publish_headers_batch(
+                topic, qos, 1 if retain else 0, 1 if dup else 0,
+                pids, payload_len, v5, aliases)
+            breaker.record_success()
+            return out
+        except ValueError:
+            breaker.record_success()
+            raise
+        except Exception:
+            global native_errors
+            native_errors += 1
+            if breaker.record_failure():
+                events.emit("wire_fallback", detail="encode")
+                log.error("native wire batch encode failed; breaker "
+                          "open — serving the pure-Python codec",
+                          exc_info=True)
+    return _publish_headers_batch_py(topic, qos, retain, dup, pids,
+                                     payload_len, v5, aliases)
+
+
+def _publish_headers_batch_py(topic: str, qos: int, retain: bool,
+                              dup: bool, pids, payload_len: int,
+                              v5: bool = False,
+                              aliases=None) -> Tuple[bytes, tuple]:
+    """Pure twin of the native batch encoder — byte-identical arena
+    and offsets, same ValueError spellings in the same order."""
+    tb = topic.encode("utf-8")
+    if len(tb) > 65535:
+        raise ValueError("topic too long")
+    if aliases is not None:
+        if not v5:
+            raise ValueError("aliases require v5")
+        if len(aliases) != len(pids):
+            raise ValueError("aliases length mismatch")
+    from . import wire
+
+    head = bytes([(PUBLISH << 4) | (0x08 if dup else 0)
+                  | ((qos & 3) << 1) | (0x01 if retain else 0)])
+    tb_len2 = len(tb).to_bytes(2, "big")
+    arena = bytearray()
+    offsets = [0]
+    for i, pid in enumerate(pids):
+        if pid is not None and not 1 <= pid <= 65535:
+            raise ValueError("packet_id out of range")
+        if qos > 0 and pid is None:
+            raise ValueError("missing_packet_id")
+        alias = aliases[i] if aliases is not None else 0
+        mag = -alias if alias < 0 else alias
+        if mag > 65535:
+            raise ValueError("topic_alias out of range")
+        t = b"" if (v5 and alias > 0) else tb
+        props_len = (4 if alias != 0 else 1) if v5 else 0
+        body_len = (2 + len(t) + (2 if qos > 0 else 0) + props_len
+                    + payload_len)
+        if body_len > wire.MAX_VARINT:
+            raise ValueError("frame too large")
+        arena += head
+        arena += wire.encode_varint(body_len)
+        arena += tb_len2 if t else b"\x00\x00"
+        arena += t
+        if qos > 0:
+            arena += pid.to_bytes(2, "big")
+        if v5:
+            if alias != 0:
+                arena += b"\x03\x23"
+                arena += mag.to_bytes(2, "big")
+            else:
+                arena += b"\x00"
+        offsets.append(len(arena))
+    return bytes(arena), tuple(offsets)
+
+
+# ------------------------------------------------------ per-frame parse
+
+
+def parse_native(C, data, max_size: int, v5: bool):
+    """Try the native parse. Returns ``FALLBACK`` when the frame is not
+    a hot shape (the caller's pure parser owns it — including every
+    malformed-input error), else the codec ``parse`` contract:
+    ``(frame | None, rest)``."""
+    r = C.parse_fast(data, max_size, v5)
+    kind = r[0]
+    if kind == 1:  # publish (v5: empty property block)
+        _, topic, payload, qos, retain, dup, pid, consumed = r
+        return Publish(topic=topic, payload=payload, qos=qos,
+                       retain=bool(retain), dup=bool(dup),
+                       packet_id=pid), data[consumed:]
+    if kind == 2:  # 2-byte ack (v5: reason code 0, no properties)
+        _, ptype, pid, consumed = r
+        return ACK_CTORS[ptype](packet_id=pid), data[consumed:]
+    if kind == 4:  # ping
+        _, ptype, consumed = r
+        return (Pingreq() if ptype == PINGREQ else Pingresp()), \
+            data[consumed:]
+    if kind == 0:  # need more bytes
+        return None, data
+    return FALLBACK

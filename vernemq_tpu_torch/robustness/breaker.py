@@ -1,24 +1,25 @@
-"""Circuit breaker for the device dispatch path.
+"""Circuit breaker for the TPU dispatch path.
 
-A copy of ``vernemq_tpu/robustness/breaker.py`` (``CircuitBreaker``).
 The matcher already degrades *per publish* (host fallback on overflow,
 trie service during rebuilds); the breaker promotes that into a coherent
-degraded **mode**: after ``failure_threshold`` consecutive device failures
-it opens, every match serves from the exact host trie, and a single
+degraded **mode**: after ``failure_threshold`` consecutive device
+failures it opens, every match serves from the exact host trie (the
+correctness oracle — zero dropped or wrong fanouts), and a single
 half-open probe per backoff window retries the device. Backoff grows
 exponentially with jitter up to ``backoff_max``; on probe success the
-matcher re-warms and the breaker closes — the device path returns with no
-restart.
+matcher re-warms and the breaker closes — the device path returns with
+no broker restart.
 
-State machine:
+State machine (classic Nygard breaker, adapted to the matcher's
+executor-thread call pattern):
 
 - ``CLOSED``: dispatch normally; a success resets the failure run.
 - ``OPEN``: :meth:`allow` is False until the retry deadline; the first
   ``allow`` past it transitions to ``HALF_OPEN`` and grants exactly one
   probe.
-- ``HALF_OPEN``: the probe is in flight; everyone else is refused. Probe
-  success closes (and resets backoff); failure re-opens with doubled
-  backoff.
+- ``HALF_OPEN``: the probe is in flight; everyone else is refused.
+  Probe success closes (and resets backoff); failure re-opens with
+  doubled backoff.
 """
 
 from __future__ import annotations
@@ -33,6 +34,15 @@ from ..observability import events
 CLOSED, HALF_OPEN, OPEN = 0, 1, 2
 _NAMES = {CLOSED: "closed", HALF_OPEN: "half_open", OPEN: "open"}
 
+#: The registered breaker paths: every device path that carries a
+#: circuit breaker, as spelled by the admin surface (``vmq-admin
+#: breaker show|trip|reset path=...``).  A new breakered device phase
+#: registers here FIRST — the ``fault-registry`` vmqlint pass proves
+#: the admin rows and the trip/reset filter both match this set
+#: exactly, so a path can't ship un-drillable.
+BREAKER_PATHS = ("match", "retained", "predicate", "wire", "store",
+                 "handoff")
+
 
 class CircuitBreaker:
     def __init__(self, failure_threshold: int = 3,
@@ -41,8 +51,9 @@ class CircuitBreaker:
                  clock: Callable[[], float] = time.monotonic,
                  rng: Optional[random.Random] = None,
                  name: str = ""):
-        #: breaker name for the control-plane event journal ("match");
-        #: unnamed breakers journal with an empty detail
+        #: breaker path name for the control-plane event journal
+        #: (BREAKER_PATHS spelling, or "<path>:<mountpoint>"); unnamed
+        #: breakers (tests, embedded) journal with an empty detail
         self.name = name
         self.failure_threshold = max(1, failure_threshold)
         self.backoff_initial = backoff_initial
@@ -186,7 +197,8 @@ class CircuitBreaker:
     def trip(self) -> None:
         """Force-open and PIN: matching stays on the host trie — no
         half-open probes, no success can close it — until an explicit
-        :meth:`reset` (a drill or keep-off switch)."""
+        :meth:`reset` (the ``vmq-admin breaker trip`` drill / keep-off
+        switch)."""
         with self._lock:
             self._forced = True
             if self._state != OPEN:
