@@ -16,7 +16,10 @@ kernels are built for sm_90a). It
    24-bit-id shape (K = 48) on operands that include ids at the byte-plane
    edges, at K = 96 with every id 2^24 - 1 or 65535 (the largest partial
    sums its exactness argument allows), and with publishes longer than L
-   and ``$`` publishes against wildcard-first rows;
+   and ``$`` publishes against wildcard-first rows; and the reverse-compare
+   kernel against its plain version at probe windows of 512 and 16,384
+   rows (16- and 24-bit ids) and the dense window of a 2^20-row table,
+   with ``$``-topics, inactive rows and lc < L;
 3. drives the port's main path — ``GpuRegView.fold_batch`` over a
    1,000,000-subscription table (the bench.py headline corpus: 60% exact,
    20% ``w0/+/w2``, 10% ``+/w1/w2``, 10% ``w0/w1/#``; L = 8, max_fanout 256,
@@ -68,7 +71,28 @@ kernels are built for sm_90a). It
    deliveries equal the registry trie's rows for its subscriptions, in
    publish order per publisher; every host-served counter 0; the tile
    kernel launched; publishes/s, PUBLISH→delivery and PUBACK p50/p99
-   printed.
+   printed;
+12. retained reverse match (bench.py config 8, the retained subscribe
+   storm): 1,000,000 retained inserts of ``r{0..63}/d{0..255}/m{0..63}``
+   topics through a ``RetainStore`` whose dirty hook writes through to a
+   ``RetainedIndex`` on the card (L = 8, capacity 2^20, background first
+   build waited for), 8 batches of 4096 filters of the storm mix (85%
+   ``r/+/m``, 10% ``r/d/#``, 5% ``+/d/m``) through ``match_filters`` with
+   every filter equal to ``RetainStore.match_filter``, then 1,000 retain
+   deletes and 1,000 new topics scattered in place and one more batch
+   checked the same way; filters/s and
+   replayed rows/s beside the host walk's, host-fallback filters, the
+   reverse kernel's launches per batch, and its probe and dense launches
+   timed (CUDA events) beside their bound, their plain version and the
+   reference's coded dense product as one fp32 ``torch.matmul``;
+13. retained replay through the port's broker: the same 1,000,000 stores
+   into the broker's ``RetainStore`` (write-through to the GPU index,
+   built and waited for), then 16 MQTT subscribers in a second process
+   each SUBSCRIBE with 16 storm filters at once: every client's replays,
+   as a multiset of (topic, payload, retain), equal the store's matches;
+   the replay collector's device path served filters; every degraded,
+   rebuild, fallback, stalled and expired replay counter 0 at the broker's
+   default expiry; the reverse kernel launched.
 
 Its last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it. Without CUDA it exits non-zero at once.
@@ -117,9 +141,25 @@ BROKER_PUBLISHERS = 16
 BROKER_PUBS = BURST_WINDOWS * BATCH
 BROKER_QOS1 = 0.25
 BROKER_WAIT_S = 300
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
+# retained phases, the reference's bench.py config 8 ("retained subscribe
+# storm", bench.py:888-1020): RET_N inserts of r{0..63}/d{0..255}/m{0..63}
+# topics (L = 8, capacity 2^20), RET_BATCHES batches of BATCH filters of its
+# storm mix, the host walk timed on RET_HOST filters; the broker replay:
+# RET_SUBSCRIBERS MQTT clients of one SUBSCRIBE of RET_FILTERS storm-mix
+# filters each, all replays due within RET_WAIT_S
+RET_N = 1_000_000
+RET_BATCHES = 8
+RET_DELTA = 1000
+RET_HOST = 500
+RET_SUBSCRIBERS = 16
+RET_FILTERS = 16
+RET_WAIT_S = 300
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate; the
+# CUDA cores' float32 rate stands for the reverse kernel's integer compares
+# (the data sheet's table has no int32 rate)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+CUDA_CORE_OPS_PER_S = 67e12
 DEVICE = "cuda"
 # the tile kernel's first version (fp32 FMAs on the CUDA cores), probe A + B
 # per batch, measured by this script's first version on one H100 80GB HBM3 at
@@ -139,6 +179,15 @@ KERNEL_SHAPES = [
      dict(vocab=[(1 << 24) - 1, 65535], eff_lo=15)),
     ("plen>L $ wild", 16, 8, 1 << 20, 8, 256, 65_536, True,
      dict(long_pubs=0.3)),
+]
+# the reverse kernel against its plain version: (label, N, L, id bits, lc,
+# tiles of 32 queries, seg) — probe windows of 512 and 16,384 rows (16- and
+# 24-bit ids) and the dense phase's window of a whole 2^20-row table, with
+# lc < L, $-topics and inactive rows
+REVERSE_SHAPES = [
+    ("probe seg=512 lc=3", 1 << 20, 8, 16, 3, 128, 512),
+    ("probe seg=16384 24-bit lc=8", 1 << 20, 8, 24, 8, 128, 16_384),
+    ("dense 2^20 rows lc=3<L", 1 << 20, 8, 16, 3, 8, 1 << 20),
 ]
 
 
@@ -302,6 +351,17 @@ def ptxas_report(text: str):
     return out
 
 
+def window_rows(starts, seg: int) -> int:
+    """Distinct table rows in the windows [s, s + seg) of ``starts``."""
+    rows, hi = 0, -1
+    for s in sorted(int(x) for x in starts):
+        lo = max(s, hi)
+        if s + seg > lo:
+            rows += s + seg - lo
+        hi = max(hi, s + seg)
+    return rows
+
+
 def probe_bound(inputs, seg: int):
     """(bytes, FLOP) the tile function must move and do: every table row
     the windows touch read once (its K bf16 operands, t1, eff, flags), the
@@ -310,12 +370,7 @@ def probe_bound(inputs, seg: int):
     F_t, _t1, _eff, _flags, Gt, _plt, _pdt, start = inputs
     K = F_t.shape[0]
     T, TP, _ = Gt.shape
-    rows, hi = 0, -1
-    for s in sorted(int(x) for x in start.cpu()):
-        lo = max(s, hi)
-        if s + seg > lo:
-            rows += s + seg - lo
-        hi = max(hi, s + seg)
+    rows = window_rows(start.cpu().tolist(), seg)
     nbytes = (rows * (2 * K + 12) + T * TP * (2 * K + 8) + T * 4
               + T * TP * seg // 8)
     return nbytes, 2.0 * T * TP * seg * K
@@ -1178,6 +1233,510 @@ def phase_broker(card: str, path_S: int) -> int:
     return asyncio.run(run())
 
 
+# ------------------------------------------------------ retained replay
+
+def synthetic_reverse(torch, TR, N: int, L: int, bits: int, lc: int, T: int,
+                      seg: int, seed: int, B: int = 1024):
+    """Random operands of the reverse-compare kernel on the card and the
+    host copy of the window starts: N retained rows of 1..lc levels (~10%
+    $-topics, ~10% inactive, pad words past each row's length) over a small
+    vocabulary with byte-plane edge ids, and B filters, half copied from
+    rows, widened with ``+``, cut to ``#`` prefixes or given unknown words;
+    T tiles of 32 random query slots at random window starts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = np.array([3, 4, 5, 6, 7, 255, 256, 65535]
+                     + ([65536, (1 << 24) - 1] if bits == 24 else []),
+                     np.int32)
+    words = rng.choice(vocab, (N, L)).astype(np.int32)
+    row_len = rng.integers(1, lc + 1, N).astype(np.int32)
+    words[np.arange(L)[None, :] >= row_len[:, None]] = TR.PAD_ID
+    meta = TR.pack_row_meta(row_len, rng.random(N) < 0.1,
+                            rng.random(N) < 0.9)
+    src = rng.integers(0, N, B)
+    qw, qe = words[src].copy(), row_len[src].copy()
+    qh = rng.random(B) < 0.25
+    qe[qh] = rng.integers(0, qe[qh] + 1)
+    fresh = rng.random(B) < 0.5
+    qw[fresh] = rng.choice(vocab, (int(fresh.sum()), L))
+    qe[fresh] = rng.integers(1, lc + 2, int(fresh.sum()))
+    qw[rng.random((B, L)) < 0.2] = TR.PLUS_ID
+    qw[rng.random((B, L)) < 0.03] = -2  # UNKNOWN_ID
+    qw[np.arange(L)[None, :] >= qe[:, None]] = TR.PAD_ID
+    qf = (qw[:, 0] == TR.PLUS_ID) | ((qe == 0) & qh)
+    sel = rng.integers(0, B, (T, TR.TILE_QUERIES)).astype(np.int32)
+    start = rng.integers(0, N - seg + 1, T).astype(np.int32)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    return (cuda(words), cuda(meta), cuda(qw), cuda(qe.astype(np.int32)),
+            TR.query_flags(cuda(qh), cuda(qf)), cuda(sel), cuda(start)), start
+
+
+def reverse_bound(starts, seg: int, lc: int, n_queries: int):
+    """(bytes, operations) the reverse compare must move and do for
+    ``n_queries`` real queries against windows of ``seg`` rows at
+    ``starts``: every distinct window row's lc words and meta read once,
+    each query's lc words, eff and flags read once, its packed mask row
+    written once; lc + 3 integer operations per (query, row) pair (lc
+    level compares, the length rule, the $ rule, liveness)."""
+    nbytes = (window_rows(starts, seg) * (4 * lc + 4)
+              + n_queries * (4 * lc + 8 + seg // 8))
+    return nbytes, float(n_queries) * seg * (lc + 3)
+
+
+def retained_pools():
+    """bench.py config 8's topic words (bench.py:913-915)."""
+    return ([f"r{i}" for i in range(64)], [f"d{i}" for i in range(256)],
+            [f"m{i}" for i in range(64)])
+
+
+def storm_filters(rng: random.Random, pools, n: int):
+    """bench.py config 8's storm mix as its code draws it (a copy of its
+    ``mk_filters``, bench.py:934-947): 85% ``r/+/m``, 10% ``r/d/#``, 5%
+    ``+/d/m`` (the dense phase)."""
+    l0, l1, l2 = pools
+    out = []
+    for _ in range(n):
+        r = rng.random()
+        if r < 0.85:
+            out.append((rng.choice(l0), "+", rng.choice(l2)))
+        elif r < 0.95:
+            out.append((rng.choice(l0), rng.choice(l1), "#"))
+        else:
+            out.append(("+", rng.choice(l1), rng.choice(l2)))
+    return out
+
+
+def load_retained(rng: random.Random, pools, insert) -> None:
+    """RET_N retained inserts of bench.py config 8's topics (bench.py:
+    926-930; a topic drawn again replaces its message), each with its own
+    payload ``b"<i>"`` (the bench stores one payload for all) so a replay
+    that returned another row's message would show."""
+    l0, l1, l2 = pools
+    for i in range(RET_N):
+        insert((rng.choice(l0), rng.choice(l1), rng.choice(l2)),
+               b"%d" % i)
+
+
+def settle_retained(idx) -> None:
+    """Wait out the index's background build (the first build included):
+    sync until nothing is left to install."""
+    from vernemq_tpu_torch.models.matcher import RebuildInProgress
+
+    while True:
+        with idx.lock:
+            try:
+                idx.sync()
+                return
+            except RebuildInProgress:
+                th = idx._rebuild_thread
+        if th is not None:
+            th.join()
+
+
+def phase_retained(card: str) -> dict:
+    """The retained reverse match at the storm's width: a ``RetainStore``
+    whose dirty hook writes through to a ``RetainedIndex`` on the card (the
+    production wiring, background first build), RET_N inserts, then
+    RET_BATCHES batches of BATCH storm-mix filters through
+    ``match_filters`` with every filter held to ``RetainStore.
+    match_filter``; then both kernel launches of one batch timed (CUDA
+    events) beside their plain version, the bound and the reference's
+    coded dense product (fp32 ``torch.matmul``, never called by the port).
+    Returns the numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.broker.retain import RetainStore
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import reverse_kernel as TR
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
+    from vernemq_tpu_torch.retained.index import RetainedIndex
+
+    holder = {}
+    store = RetainStore(on_dirty=lambda mp, t, v: holder["idx"].on_retain(
+        t, v))
+    idx = holder["idx"] = RetainedIndex(
+        store, max_levels=8, initial_capacity=1 << (RET_N - 1).bit_length(),
+        max_fanout=256, device=DEVICE)
+    rng = random.Random(SEED + 8)
+    pools = retained_pools()
+    t0 = time.perf_counter()
+    load_retained(rng, pools, lambda t, v: store.insert("", t, v))
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    settle_retained(idx)  # the async first build, with its warm dispatch
+    t_build = time.perf_counter() - t0
+    tab = idx.table
+    print(f"[retained] {card} | {RET_N} retained inserts ({len(store)} "
+          f"distinct topics) through the store's dirty hook in "
+          f"{t_load:.1f}s; table S={tab.cap} NB={tab.NB} (dedicated "
+          f"{tab.NBD}) widest live region {idx._bucket_max} rows, lc "
+          f"{idx._lc}; background first build {t_build:.2f}s (warm "
+          f"dispatch {idx.warm_ms:.1f} ms)", flush=True)
+
+    def norm(rows):
+        return sorted((t, v) for t, v in rows)
+
+    # the serial host walk (the broker's path without the index)
+    host_f = storm_filters(rng, pools, RET_HOST)
+    t0 = time.perf_counter()
+    host_rows = sum(len(store.match_filter("", list(f))) for f in host_f)
+    host_s = time.perf_counter() - t0
+
+    batches = [storm_filters(rng, pools, BATCH) for _ in range(RET_BATCHES)]
+    fb0 = idx.host_fallback_queries
+    walls, replayed = [], 0
+    RT.launches = 0
+    for b, filters in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = idx.match_filters(filters)
+        walls.append(time.perf_counter() - t1)
+        for f, rows in zip(filters, res):
+            want = store.match_filter("", list(f))
+            if rows is None:
+                rows = want  # a per-filter escape: the host walk answers
+            if norm(rows) != norm(want):
+                fail(f"retained batch {b}: filter {f} got {len(rows)} rows, "
+                     f"the store {len(want)}")
+            replayed += len(rows)
+    # deltas on the card: retain deletes and new topics through the store,
+    # scattered in place (no rebuild), then one more batch held to the store
+    builds = idx.rebuilds
+    drng = random.Random(SEED + 10)
+    topics = [t for t, _ in store.items("")]
+    for i in range(RET_DELTA):
+        store.delete("", drng.choice(topics))
+        store.insert("", (drng.choice(pools[0]), f"d{256 + i % 32}",
+                          drng.choice(pools[2])), b"delta%d" % i)
+    filters = storm_filters(drng, pools, BATCH)
+    for f, rows in zip(filters, idx.match_filters(filters)):
+        want = store.match_filter("", list(f))
+        if norm(want if rows is None else rows) != norm(want):
+            fail(f"retained after deltas: filter {f} disagrees with the "
+                 f"store")
+    if idx.rebuilds != builds:
+        fail("retained: the deltas rebuilt the table instead of "
+             "scattering in place")
+    print(f"[retained] {card} | {RET_DELTA} retain deletes + {RET_DELTA} new "
+          f"topics scattered in place (no rebuild); a batch after them "
+          f"equal to the store", flush=True)
+    launches = RT.launches
+    fallbacks = idx.host_fallback_queries - fb0
+    if launches <= 0:
+        fail("retained: the reverse kernel was never launched")
+    if idx.device_failures or idx.degraded_sheds:
+        fail(f"retained: device failures {idx.device_failures}, degraded "
+             f"sheds {idx.degraded_sheds}")
+    n_f = RET_BATCHES * BATCH
+    dev_s = sum(walls)
+    print(f"[retained] {card} | {RET_BATCHES} batches x {BATCH} storm "
+          f"filters through match_filters: {n_f / dev_s:.0f} filters/s, "
+          f"{replayed / dev_s:.0f} replayed rows/s (batch wall p50 "
+          f"{1e3 * float(np.percentile(walls, 50)):.2f} ms, host resolve "
+          f"included); the host walk {RET_HOST / host_s:.0f} filters/s, "
+          f"{host_rows / host_s:.0f} rows/s; every filter equal to "
+          f"RetainStore.match_filter ({replayed} rows); host-fallback "
+          f"filters {fallbacks}; reverse launches {launches} "
+          f"({launches / (RET_BATCHES + 1):.1f} per batch over these "
+          f"batches and the one after the deltas)", flush=True)
+
+    # where one batch's time goes, then its two launches at the shapes the
+    # path gave them
+    filters = batches[0]
+    t1 = time.perf_counter()
+    with idx.lock:
+        idx.sync()
+        layout = idx._layout_locked()
+        idx._enc_cache.clear()  # a cold encode, as a batch of new filters
+        enc = idx._encode_locked([tuple(f) for f in filters])
+        rw, meta = idx._dev
+    t2 = time.perf_counter()
+    a, _, _, _ = idx._prep(layout, *enc, len(filters))
+    t3 = time.perf_counter()
+    calls = []
+    for _ in range(5):  # uploads, the device path, one download (a sync)
+        t4 = time.perf_counter()
+        idx._device_call((rw, meta), a)
+        calls.append((time.perf_counter() - t4) * 1e3)
+    cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+    targs = [cuda(a[k]) for k in ("qw", "qe", "qh", "qf", "t_sel")]
+    tail = [cuda(a[k]) for k in ("q_tile", "q_pos", "d_sel", "d_valid")]
+    path_ms = event_ms(lambda: TR.reverse_match(
+        rw, meta, *targs, a["t_start"], *tail, k=a["k"], seg=a["seg"],
+        lc=a["lc"]), 10)
+    wall_ms = 1e3 * float(np.percentile(walls, 50))
+    call_ms = float(np.median(calls))
+    print(f"[retained] {card} | where a {BATCH}-filter batch's "
+          f"{wall_ms:.1f} ms go: encode under the lock (cold cache) "
+          f"{(t2 - t1) * 1e3:.2f} ms, window prep {(t3 - t2) * 1e3:.2f} ms, "
+          f"the device call {call_ms:.2f} ms (of it the device path "
+          f"{path_ms:.2f} ms by CUDA events: both launches, extraction), "
+          f"the rest ~{wall_ms - call_ms - (t3 - t1) * 1e3:.1f} ms (resolving "
+          f"~{replayed // RET_BATCHES} replayed rows into Python lists)",
+          flush=True)
+    qw, qe = cuda(a["qw"]), cuda(a["qe"])
+    flags = TR.query_flags(cuda(a["qh"]), cuda(a["qf"]))
+    lc, seg, N = a["lc"], a["seg"], rw.shape[0]
+    d_real = int(a["d_valid"].sum())
+    nt = -(-len(a["d_sel"]) // TR.TILE_QUERIES)
+    dsel = np.zeros(nt * TR.TILE_QUERIES, np.int32)
+    dsel[:len(a["d_sel"])] = a["d_sel"]
+    zeros = np.zeros(nt, np.int32)
+    tiled = a["q_tile"][a["q_tile"] >= 0]
+    # (inputs, sizes, host starts, windows of real queries, real queries)
+    launches_of = {
+        "probe": ((rw, meta, qw, qe, flags, cuda(a["t_sel"]),
+                   cuda(a["t_start"])), dict(seg=seg, lc=lc),
+                  a["t_start"], a["t_start"][np.unique(tiled)], len(tiled)),
+        "dense": ((rw, meta, qw, qe, flags,
+                   cuda(dsel.reshape(nt, TR.TILE_QUERIES)), cuda(zeros)),
+                  dict(seg=N, lc=lc), zeros, [0], d_real)}
+    per = {}
+    for name, (x, kw, start, real_starts, n_real) in launches_of.items():
+        got = RT.reverse_tiles_packed(*x, **kw, start_host=start)
+        want = RT.reverse_tiles_packed_ref(*x, **kw)
+        torch.cuda.synchronize()
+        err = mask_diff(got, want)
+        if err:
+            fail(f"reverse kernel disagrees with its plain version on the "
+                 f"retained {name} launch")
+        del got, want
+        k_ms = event_ms(lambda: RT.reverse_tiles_packed(
+            *x, **kw, start_host=start), 20)
+        p_ms = event_ms(lambda: RT.reverse_tiles_packed_ref(*x, **kw), 2)
+        nbytes, ops = reverse_bound(real_starts, kw["seg"], lc, n_real)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+        per[name] = dict(kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes,
+                         ops=ops, bound_ms=max(t_b, t_o) * 1e3,
+                         bound_by="bytes" if t_b >= t_o else "operations",
+                         tiles=int(x[5].shape[0]), seg=kw["seg"],
+                         queries=n_real)
+        print(f"[retained] {card} | {name} launch: {x[5].shape[0]} tiles x "
+              f"{TR.TILE_QUERIES} slots ({n_real} real queries) x seg "
+              f"{kw['seg']}, lc {lc}: kernel {k_ms:.4f} ms, its bound "
+              f"{per[name]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} G integer ops, bound by "
+              f"{per[name]['bound_by']}), plain {p_ms:.2f} ms; bit-equal",
+              flush=True)
+    # the reference's dense phase as its coded product (the MXU route the
+    # port does not take), fp32 on upcast bf16 operands, timed alone
+    bits = idx._ops_bits
+    G = TR.build_row_operands(rw, bits).to(torch.float32)
+    dsel_t = cuda(a["d_sel"]).long()
+    F_t, _ = TK.build_operands(qw.index_select(0, dsel_t),
+                               qe.index_select(0, dsel_t), bits)
+    Fq = F_t.to(torch.float32).t().contiguous()
+    lib_ms = event_ms(lambda: torch.matmul(Fq, G), 10)
+    shape = f"{tuple(Fq.shape)} @ {tuple(G.shape)}"
+    del G, Fq
+    torch.cuda.empty_cache()
+    print(f"[retained] {card} | the reference's coded dense product "
+          f"{shape} as one fp32 torch.matmul (a yardstick the port never "
+          f"calls): {lib_ms:.4f} ms", flush=True)
+    return dict(launches=launches, per=per, library_ms=lib_ms,
+                filters_per_s=n_f / dev_s, rows_per_s=replayed / dev_s,
+                host_filters_per_s=RET_HOST / host_s,
+                host_fallbacks=fallbacks)
+
+
+def replay_config():
+    """The replay phase's broker: the GPU view and its retained index with
+    a table capacity that holds the storm's topics without a growth
+    rebuild, and online queues deep enough for a SUBSCRIBE's replay burst
+    (the default of 1,000 messages would drop replays that the client has
+    not read yet). Everything else — the replay collector's window, batch,
+    host threshold, queued-replay expiry and dispatch deadline — is the
+    broker's default; no $SYS publisher and no loop-lag sampler (the load
+    holds the loop on purpose)."""
+    from vernemq_tpu_torch.broker.config import Config
+
+    return Config(allow_anonymous=True, default_reg_view="tpu",
+                  systree_enabled=False, sysmon_enabled=False,
+                  tpu_retained_initial_capacity=1 << (RET_N - 1).bit_length(),
+                  max_online_messages=1 << 20)
+
+
+def replay_clients(port: int, subs, expect, conn) -> None:
+    """The MQTT subscribers of the replay phase, in a process of their own:
+    connect every client (``subs``: its filters), say ``"ready"`` and wait
+    for a word back, then send every client's one SUBSCRIBE at once and
+    take replays until each has its ``expect[j]``, then whatever more
+    arrives within half a second. Sends back, per client, the (topic,
+    payload, retain) of every message, the seconds from its SUBSCRIBE to
+    its last due replay, and the wall from the first SUBSCRIBE to the last
+    replay."""
+    import asyncio
+
+    from vernemq_tpu_torch.client import MQTTClient
+
+    async def run():
+        clients = []
+        for j in range(len(subs)):
+            c = MQTTClient("127.0.0.1", port, client_id=f"replay{j}",
+                           keepalive=0, proto_ver=5 if j % 2 == 0 else 4)
+            await c.connect(timeout=60)
+            clients.append(c)
+        conn.send("ready")
+        await asyncio.get_running_loop().run_in_executor(None, conn.recv)
+        got = [[] for _ in clients]
+        took = [None] * len(clients)
+
+        async def one(j, c):
+            t = time.monotonic()
+            await c.subscribe(["/".join(f) for f in subs[j]], qos=0,
+                              timeout=120)
+            while len(got[j]) < expect[j]:
+                m = await c.messages.get()
+                if m is None:
+                    return
+                got[j].append((m.topic, bytes(m.payload), bool(m.retain)))
+            took[j] = time.monotonic() - t
+
+        t0 = time.monotonic()
+        tasks = [asyncio.ensure_future(one(j, c))
+                 for j, c in enumerate(clients)]
+        _, late = await asyncio.wait(tasks, timeout=RET_WAIT_S)
+        for r in late:
+            r.cancel()
+        wall = time.monotonic() - t0
+        await asyncio.sleep(0.5)  # any replay past the due ones
+        for j, c in enumerate(clients):
+            while not c.messages.empty():
+                m = c.messages.get_nowait()
+                if m is not None:
+                    got[j].append((m.topic, bytes(m.payload),
+                                   bool(m.retain)))
+        for c in clients:
+            await c.disconnect()
+        return got, took, wall
+
+    conn.send(asyncio.run(run()))
+    conn.close()
+
+
+def phase_replay(card: str) -> int:
+    """Retained replay through the port's broker on the card: RET_N
+    retained messages go into the broker's ``RetainStore`` (its dirty hook
+    writes through to the GPU retained index, built in the background and
+    waited for), then RET_SUBSCRIBERS MQTT clients in a second process
+    SUBSCRIBE with storm-mix filters at once; each client's replays, as a
+    multiset of (topic, payload, retain), must equal the store's matches
+    for its filters, the replay collector's device path must have served
+    filters, and no replay may have been degraded, rebuild-served,
+    host-resolved per filter, stalled or expired. Returns the reverse
+    kernel's launches during the replays."""
+    import asyncio
+    import collections
+    import multiprocessing
+
+    import numpy as np
+
+    from vernemq_tpu_torch.broker.reg import RetainedMsg
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
+
+    async def run():
+        b, server = await start_broker(replay_config(), port=0,
+                                       device=DEVICE)
+        try:
+            return await drive(b, server.port)
+        finally:
+            await b.stop()
+            await server.stop()
+
+    async def drive(b, port):
+        idx = await b.retained_engine().index_async("")  # empty: deltas
+        rng = random.Random(SEED + 9)                     # write through
+        pools = retained_pools()
+        t0 = time.perf_counter()
+        load_retained(rng, pools, lambda t, v: b.retain.insert(
+            "", t, RetainedMsg(v, {}, 0, None)))
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        settle_retained(idx)
+        print(f"[replay] {card} | {RET_N} retained PUBLISH stores through "
+              f"the broker's RetainStore ({len(b.retain)} topics) in "
+              f"{t_load:.1f}s; GPU retained index built in the background "
+              f"in {time.perf_counter() - t0:.2f}s (warm dispatch "
+              f"{idx.warm_ms:.1f} ms)", flush=True)
+        subs = [storm_filters(rng, pools, RET_FILTERS)
+                for _ in range(RET_SUBSCRIBERS)]
+        want = []
+        for filters in subs:
+            c = collections.Counter()
+            for f in filters:
+                for topic, msg in b.retain.match_filter("", list(f)):
+                    c[("/".join(topic), bytes(msg.payload), True)] += 1
+            want.append(c)
+        expect = [sum(c.values()) for c in want]
+        col = b.retained_collector()
+        ctx = multiprocessing.get_context("spawn")
+        conn, child = ctx.Pipe()
+        proc = ctx.Process(target=replay_clients,
+                           args=(port, subs, expect, child), daemon=True)
+        proc.start()
+        child.close()
+        loop = asyncio.get_running_loop()
+
+        async def recv():
+            if not await loop.run_in_executor(None, conn.poll,
+                                              RET_WAIT_S + 120):
+                fail("replay: the clients did not answer in time")
+            return await loop.run_in_executor(None, conn.recv)
+
+        try:
+            await recv()  # every client connected
+            RT.launches = 0
+            conn.send("go")
+            got, took, wall = await recv()
+            launches = RT.launches
+        finally:
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        for j, (g, w) in enumerate(zip(got, want)):
+            have = collections.Counter(g)
+            if have != w:
+                fail(f"replay: client {j} got {sum(have.values())} replays "
+                     f"({len(have - w)} unexpected), the store matches "
+                     f"{sum(w.values())} ({len(w - have)} missing)")
+        st = col.stats()
+        bad = {k: v for k, v in st.items() if v and k.endswith((
+            "degraded_filters", "rebuild_filters", "fallback_filters",
+            "stalled_filters", "expired_filters"))}
+        if bad or st["retained_replay_device_filters"] <= 0:
+            fail(f"replay: device filters "
+                 f"{st['retained_replay_device_filters']}, host-served "
+                 f"{bad}")
+        if launches <= 0:
+            fail("replay: the reverse kernel was never launched")
+        drops = b.metrics.value("queue_message_drop")
+        if drops:
+            fail(f"replay: {drops} queue drops")
+        n = sum(expect)
+        took = np.array([x for x in took if x is not None]) * 1e3
+        print(f"[replay] {card} | {RET_SUBSCRIBERS} MQTT subscribers "
+              f"(v5 and v3.1.1) x one SUBSCRIBE of {RET_FILTERS} storm "
+              f"filters at once: {n} retained replays in {wall:.2f}s "
+              f"({n / wall:.0f} replays/s), SUBSCRIBE->last replay p50 "
+              f"{np.percentile(took, 50):.1f} ms max {took.max():.1f} ms; "
+              f"every client's replays equal the store's matches; "
+              f"{st['retained_replay_device_batches']} device flushes for "
+              f"{st['retained_replay_device_filters']} filters, "
+              f"small-flush host-threshold filters "
+              f"{st['retained_replay_host_filters']}, degraded / rebuild / "
+              f"fallback / stalled / expired 0 (expiry "
+              f"{b._collector_expiry_ms():.0f} ms, deadline "
+              f"{b._dispatch_deadline_ms():.0f} ms); reverse launches "
+              f"{launches}; no queue drop", flush=True)
+        return launches
+
+    return asyncio.run(run())
+
+
 def main() -> int:
     import torch
 
@@ -1191,6 +1750,8 @@ def main() -> int:
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
     from vernemq_tpu_torch.ops import _build
     from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import reverse_kernel as TR
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
     from vernemq_tpu_torch.ops import tile_match as TM
 
     t_start = time.perf_counter()
@@ -1201,14 +1762,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = _build.build(["tile_match"])
-    print(f"[build] tile_match {'built' if built else 'up to date'} in "
-          f"{time.perf_counter() - t0:.1f}s "
-          f"({_build.lib_path('tile_match')})", flush=True)
+    libs = ["tile_match", "reverse_match"]
+    built = _build.build(libs)  # one nvcc per source, all at once
+    print(f"[build] {', '.join(libs)}: built {built or 'none (up to date)'} "
+          f"in {time.perf_counter() - t0:.1f}s "
+          f"({', '.join(str(_build.lib_path(n)) for n in libs)})",
+          flush=True)
     # registers and spills only from a compile of this run: an older log
     # need not describe the library that is loaded
     ptxas = ptxas_report(_build.log_path("tile_match").read_text()) \
-        if built else {}
+        if "tile_match" in built else {}
     phase_cold(card)
 
     # ------------------------------------------------------- kernel phase
@@ -1237,6 +1800,29 @@ def main() -> int:
             fail(f"no match of a publish longer than L at {name}")
         kernel_err = max(kernel_err, err)
         del x, got, want
+    torch.cuda.empty_cache()
+    reverse_err = 0
+    for i, (name, N, L, bits, lc, T, seg) in enumerate(REVERSE_SHAPES):
+        x, start_host = synthetic_reverse(torch, TR, N, L, bits, lc, T, seg,
+                                          SEED + 20 + i)
+        got = RT.reverse_tiles_packed(*x, seg=seg, lc=lc,
+                                      start_host=start_host)
+        want = RT.reverse_tiles_packed_ref(*x, seg=seg, lc=lc)
+        torch.cuda.synchronize()
+        err = mask_diff(got, want)
+        ones = int(TK._popcount(want).sum())
+        print(f"[kernel] reverse {name}: N={N} L={L} T={T}x32 seg={seg} "
+              f"set bits {ones} max_abs_err {err}", flush=True)
+        if err or not ones:
+            fail(f"reverse kernel disagrees with its plain version at {name}"
+                 if err else f"no matches at reverse {name}: comparison is "
+                 f"vacuous")
+        reverse_err = max(reverse_err, err)
+        del x, got, want
+    if "reverse_match" in built:
+        print("[build] ptxas reverse_match: " + "; ".join(
+            ln.strip() for ln in _build.log_path("reverse_match").read_text()
+            .splitlines() if "registers" in ln), flush=True)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- path phase
@@ -1418,6 +2004,8 @@ def main() -> int:
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
     broker_launches = phase_broker(card, path_S)
+    ret = phase_retained(card)
+    replay_launches = phase_replay(card)
 
     kernels = [{
         "name": "tile_match",
@@ -1441,8 +2029,31 @@ def main() -> int:
         "per_probe": {p["name"]: {k: p[k] for k in (
             "kernel_ms", "bound_ms", "plain_ms", "bmm_ms")} for p in probes},
         "ptxas": {str(kp): ptxas.get(kp) for kp in sorted(launched_kp)}
-        if built else None,
+        if "tile_match" in built else None,
         "per_batch": f"probe A + probe B launches of one {BATCH}-publish batch",
+    }, {
+        "name": "reverse_match",
+        "route": "cuda",
+        "source": "vernemq_tpu_torch/csrc/reverse_match.cu",
+        "replaces": "vernemq_tpu/ops/reverse_kernel.py:229",
+        "launches": ret["launches"],
+        "replay_launches": replay_launches,
+        "max_abs_err": reverse_err,
+        "ms": sum(p["kernel_ms"] for p in ret["per"].values()),
+        "plain_ms": sum(p["plain_ms"] for p in ret["per"].values()),
+        "bound_ms": sum(p["bound_ms"] for p in ret["per"].values()),
+        "bound_by": max(ret["per"].values(),
+                        key=lambda p: p["bound_ms"])["bound_by"],
+        "library_ms": ret["library_ms"],
+        "bit_equal": reverse_err == 0,
+        "per_launch": ret["per"],
+        "filters_per_s": ret["filters_per_s"],
+        "replayed_rows_per_s": ret["rows_per_s"],
+        "host_walk_filters_per_s": ret["host_filters_per_s"],
+        "host_fallback_filters": ret["host_fallbacks"],
+        "per_batch": f"probe + dense launches of one {BATCH}-filter "
+                     f"retained batch; library_ms: the reference's coded "
+                     f"dense product as one fp32 torch.matmul",
     }]
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
     print(json.dumps({"kernels": kernels}))

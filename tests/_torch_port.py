@@ -101,3 +101,37 @@ def bucket_topics(rng: random.Random, n: int):
     return [(("$SYS" if rng.random() < 0.05 else f"r{rng.randrange(16)}"),
              f"d{rng.randrange(40)}", f"m{rng.randrange(16)}")
             for _ in range(n)]
+
+
+def reverse_inputs(seed: int, N: int, L: int, B: int, bits: int = 16,
+                   lc=None):
+    """Operands of the retained reverse match: a table of ``N`` retained
+    topics (1..lc levels, ~10% ``$``-topics, ~10% inactive, pad words past
+    each row's length) and ``B`` query filters, half of them copied from
+    rows and then widened with ``+``, cut to a ``#`` prefix or given an
+    unknown word, so many pairs match. Returns ``(row_words, row_len,
+    row_dollar, row_active), (q_words, q_eff, q_hh, q_fw)`` as numpy."""
+    rng = np.random.default_rng(seed)
+    lc = lc or L
+    vocab = np.array([3, 4, 5, 6, 7, 255, 256, 65535]
+                     + ([65536, (1 << 24) - 1] if bits == 24 else []),
+                     np.int32)
+    words = rng.choice(vocab, (N, L)).astype(np.int32)
+    row_len = rng.integers(1, lc + 1, N).astype(np.int32)
+    words[np.arange(L)[None, :] >= row_len[:, None]] = 0  # PAD_ID
+    dollar = rng.random(N) < 0.1
+    active = rng.random(N) < 0.9
+    src = rng.integers(0, N, B)
+    qw = words[src].copy()
+    qe = row_len[src].copy()
+    qh = rng.random(B) < 0.25
+    qe[qh] = rng.integers(0, qe[qh] + 1)
+    fresh = rng.random(B) < 0.5  # the other half: random filters
+    qw[fresh] = rng.choice(vocab, (int(fresh.sum()), L))
+    qe[fresh] = rng.integers(1, lc + 2, int(fresh.sum()))
+    qw[rng.random((B, L)) < 0.2] = 1  # PLUS_ID
+    qw[rng.random((B, L)) < 0.03] = UNKNOWN_ID
+    qw[np.arange(L)[None, :] >= qe[:, None]] = 0
+    qf = (qw[:, 0] == 1) | ((qe == 0) & qh)
+    return (words, row_len, dollar, active), (qw, qe.astype(np.int32), qh,
+                                               qf)

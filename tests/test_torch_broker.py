@@ -197,6 +197,91 @@ async def test_port_broker_delivers_as_reference(case):
     assert sum(sum(c.values()) for c in got.values()) > 0
 
 
+async def _case_retained(port):
+    """Retained replay on SUBSCRIBE (port of test_retained_index.py::
+    test_broker_replay_semantics_device_path): retain_handling 2 (never) and
+    1 (new subscriptions only), no replay to a shared subscription, a root
+    wildcard skips $-topics while a concrete $SYS filter replays, and a
+    multi-filter SUBSCRIBE whose filters ride one replay flush."""
+    p = await _client(port, "rp", v5=True)
+    for topic, payload in (("rh/t", b"kept"), ("rh/u/v", b"deep"),
+                           ("$SYS/stat", b"sys"), ("other/x", b"o")):
+        await p.publish(topic, payload, qos=1, retain=True)
+    c = await _client(port, "rs", v5=True)
+    await c.subscribe("rh/t", opts=SubOpts(qos=0, retain_handling=2))
+    await c.subscribe("rh/+", opts=SubOpts(qos=0, retain_handling=1))
+    await c.subscribe("rh/+", opts=SubOpts(qos=0, retain_handling=1))
+    await c.subscribe("$share/grp/rh/t", qos=0)
+    await c.subscribe("#", qos=0)
+    await c.subscribe("$SYS/stat", qos=1)
+    d = await _client(port, "rd")
+    await d.subscribe(["rh/#", "+/x", "+/+/v", "other/+", "$SYS/+"], qos=1)
+    return {"p": p, "c": c, "d": d}
+
+
+async def _retained_ready(b):
+    """The broker's retained index for mountpoint "", built: a first build
+    still in the background would send the first replays to the host
+    walk."""
+    idx = await b.retained_engine().index_async("")
+    while True:
+        with idx.lock:
+            try:
+                idx.sync()
+                return
+            except Exception as e:  # either package's RebuildInProgress
+                if type(e).__name__ != "RebuildInProgress":
+                    raise
+                th = idx._rebuild_thread
+        if th is not None:
+            th.join()
+
+
+@pytest.mark.asyncio
+async def test_retained_replays_ride_the_device_collector_on_both_brokers():
+    """The retained case on both brokers' GPU/TPU views with every replay
+    flush on the device (host threshold 0): equal deliveries, and on both
+    the replay collector's device path served the filters, with no
+    degraded, rebuild, stalled or expired replay. Each client waits for
+    the replays it is due (the reference compiles its first replay shapes
+    meanwhile), then for any more within the quiet period."""
+    cfg = dict(BASE, default_reg_view="tpu", tpu_retained_host_threshold=0,
+               tpu_retained_window_us=100)
+    due = {"c": 5, "d": 6}
+    results, stats = [], []
+    for start, Cfg, kw in ((ref_start_broker, RefConfig, {}),
+                           (start_broker, Config, {"device": "cpu"})):
+        b, s = await start(Cfg(**cfg), port=0, **kw)
+        try:
+            await _retained_ready(b)
+            clients = await _case_retained(s.port)
+            got = {}
+            for name, c in clients.items():
+                msgs = []
+                for _ in range(due.get(name, 0)):
+                    m = await asyncio.wait_for(c.messages.get(), 60)
+                    msgs.append((m.topic, bytes(m.payload), m.qos,
+                                 bool(m.retain)))
+                got[name] = collections.Counter(msgs + await _drain(c))
+            for c in clients.values():
+                await c.disconnect()
+            results.append(got)
+            stats.append(b._retained_collector.stats())
+        finally:
+            await b.stop()
+            await s.stop()
+    assert results[0] == results[1]
+    assert {k: sum(v.values()) for k, v in results[1].items()} == \
+        {"p": 0, **due}
+    for st in stats:
+        assert st["retained_replay_device_filters"] > 0, st
+        assert not any(st[f"retained_replay_{k}_filters"] for k in (
+            "degraded", "rebuild", "stalled", "expired", "host")), st
+    keys = ("retained_replay_device_filters",
+            "retained_replay_fallback_filters")
+    assert [stats[0][k] for k in keys] == [stats[1][k] for k in keys]
+
+
 @pytest.mark.asyncio
 async def test_broker_e2e_with_gpu_reg_view():
     """Port of test_tpu_match.py::test_broker_e2e_with_tpu_reg_view: real

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card,
-and the matcher's device paths that only a card can show: match_many equal
-to K match_batch dispatches with no host sync between its launches, a
-kernel library that fails to build raising from the matcher, and a kernel
-that faults on the card failing the collector's futures.
+and the device paths that only a card can show: match_many equal to K
+match_batch dispatches with no host sync between its launches, a kernel
+library that fails to build raising from the matcher, a kernel that faults
+on the card failing the collector's futures, the retained reverse match on
+the card equal to its plain path, and a refused reverse kernel failing the
+replay futures.
 
 Marked ``cuda``: without a card every test skips (a kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs
@@ -23,11 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import EDGE_IDS, UNKNOWN_ID, bucket_corpus, bucket_topics
+from _torch_port import (EDGE_IDS, UNKNOWN_ID, bucket_corpus, bucket_topics,
+                         reverse_inputs)
 from vernemq_tpu_torch.models import matcher as GM
 from vernemq_tpu_torch.models.trie import SubscriptionTrie
 from vernemq_tpu_torch.ops import _build
 from vernemq_tpu_torch.ops import match_kernel as TK
+from vernemq_tpu_torch.ops import reverse_kernel as TR
+from vernemq_tpu_torch.ops import reverse_tiles as RT
 from vernemq_tpu_torch.ops import tile_match as TM
 
 
@@ -401,3 +406,153 @@ def test_broker_serves_mqtt_through_the_tile_kernel():
     want, got, launches, host, bucketed = asyncio.run(main())
     assert bucketed and want and got == want
     assert launches > 0 and not any(host.values()), (launches, host)
+
+
+def _cuda(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+# (label, N, L, id bits, lc, tiles, seg): probe windows of 512 and 16,384
+# rows, 24-bit ids, and a dense window of the whole table with lc < L
+REVERSE_SHAPES = [
+    ("probe seg=512 lc=3", 1 << 14, 8, 16, 3, 40, 512),
+    ("probe seg=16384 24-bit", 1 << 16, 8, 24, 8, 6, 16384),
+    ("dense lc<L", 1 << 16, 16, 16, 5, 2, 1 << 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,N,L,bits,lc,T,seg", REVERSE_SHAPES,
+                         ids=[r[0] for r in REVERSE_SHAPES])
+def test_reverse_kernel_matches_plain_version(label, N, L, bits, lc, T, seg):
+    """The reverse-compare kernel equals its plain version bit for bit
+    ($-topics, inactive rows, unknown words, pad levels included), launches
+    once and waits for nothing on the host."""
+    _card()
+    B = 256
+    (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(T + seg, N, L, B,
+                                                        bits=bits, lc=lc)
+    rng = np.random.default_rng(T)
+    sel = rng.integers(0, B, (T, 32)).astype(np.int32)
+    start = rng.integers(0, N - seg + 1, T).astype(np.int32)
+    x = (_cuda(rw), _cuda(TR.pack_row_meta(rl, rd, ra)), _cuda(qw),
+         _cuda(qe), TR.query_flags(_cuda(qh), _cuda(qf)), _cuda(sel),
+         _cuda(start))
+    RT.reverse_tiles_packed(*x, seg=seg, lc=lc, start_host=start)  # build
+    before = RT.launches
+    torch.cuda.set_sync_debug_mode("error")  # a device→host copy raises
+    try:
+        got = RT.reverse_tiles_packed(*x, seg=seg, lc=lc, start_host=start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = RT.reverse_tiles_packed_ref(*x, seg=seg, lc=lc)
+    torch.cuda.synchronize()
+    assert RT.launches == before + 1
+    assert torch.equal(got, want)
+    assert int(TK._popcount(want).sum()) > 100  # not vacuous
+
+
+@pytest.mark.cuda
+def test_reverse_kernel_rejects_what_it_cannot_take():
+    _card()
+    (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(1, 4096, 8, 64)
+    x = [_cuda(rw), _cuda(TR.pack_row_meta(rl, rd, ra)), _cuda(qw),
+         _cuda(qe), TR.query_flags(_cuda(qh), _cuda(qf)),
+         _cuda(np.zeros((1, 32), np.int32)), _cuda(np.zeros(1, np.int32))]
+    ok = dict(seg=512, lc=4, start_host=np.zeros(1, np.int32))
+    with pytest.raises(TM.KernelInputError, match="leave the table"):
+        RT.reverse_tiles_packed(*x, **{**ok, "start_host": [4000]})
+    with pytest.raises(TM.KernelInputError, match="seg"):
+        RT.reverse_tiles_packed(*x, **{**ok, "seg": 320})
+    bad = list(x)
+    bad[5] = _cuda(np.zeros((1, 16), np.int32))  # TP not a multiple of 32
+    with pytest.raises(TM.KernelInputError):
+        RT.reverse_tiles_packed(*bad, **ok)
+    bad = list(x)
+    bad[0] = x[0].long()
+    with pytest.raises(TM.KernelInputError, match="int32"):
+        RT.reverse_tiles_packed(*bad, **ok)
+
+
+@pytest.mark.cuda
+def test_reverse_match_on_card_equals_the_plain_path():
+    """The whole dispatch (probe tiles, dense tiles, extraction) on the
+    card equals the same call on the CPU, where the wrapper takes the
+    kernel's plain version."""
+    _card()
+    N, L, B, T, seg = 8192, 8, 160, 4, 1024
+    (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(21, N, L, B, lc=4)
+    rng = np.random.default_rng(21)
+    order = rng.permutation(B)
+    t_sel = order[:T * 32].reshape(T, 32).astype(np.int32)
+    q_tile = np.full(B, -1, np.int32)
+    q_pos = np.zeros(B, np.int32)
+    q_tile[t_sel.ravel()] = np.repeat(np.arange(T), 32)
+    q_pos[t_sel.ravel()] = np.tile(np.arange(32), T)
+    t_start = rng.integers(0, N - seg + 1, T).astype(np.int32)
+    d_sel = order[T * 32:].astype(np.int32)  # 32 dense slots
+    d_valid = np.arange(len(d_sel)) % 5 != 2
+    meta = TR.pack_row_meta(rl, rd, ra)
+    arrs = (rw, meta, qw, qe, qh, qf, t_sel)
+    tail = (q_tile, q_pos, d_sel, d_valid)
+    cpu = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    want = TR.reverse_match(*map(cpu, arrs), t_start, *map(cpu, tail),
+                            k=64, seg=seg, lc=4)
+    before = RT.launches
+    got = TR.reverse_match(*map(_cuda, arrs), t_start, *map(_cuda, tail),
+                           k=64, seg=seg, lc=4)
+    assert RT.launches == before + 2  # the probe and the dense phase
+    got = [g.cpu().numpy() for g in got]
+    want = [w.numpy() for w in want]
+    for (gi, gv, gc), (wi, wv, wc) in ((got[:3], want[:3]),
+                                       (got[3:], want[3:])):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gi[gv], wi[wv])
+        assert wv.sum() > 100
+
+
+@pytest.mark.cuda
+def test_kernel_refusal_fails_the_replay_futures():
+    """A reverse kernel that refuses its inputs (a retained topic deeper
+    than the kernel's 32 compared levels) fails every future of the replay
+    flush with KernelError: none is answered by the host walk and the
+    breaker hears nothing. Before that the first build warmed the path and
+    the card served exact replays."""
+    import asyncio
+
+    from vernemq_tpu_torch.broker.retain import RetainStore
+    from vernemq_tpu_torch.retained import (RetainedBatchCollector,
+                                            RetainedEngine)
+
+    _card()
+    store = RetainStore()
+    eng = RetainedEngine(store, max_levels=40, device="cuda")
+    store._on_dirty = eng.on_retain
+    for i in range(64):
+        store.insert("", ("k", str(i)), i)
+    idx = eng.index("")
+    idx.async_rebuild = False
+    col = RetainedBatchCollector(eng, store, window_us=500, max_batch=64,
+                                 host_threshold=0)
+
+    async def main():
+        healthy = await asyncio.gather(
+            *[col.submit("", ("k", str(i))) for i in range(8)])
+        store.insert("", tuple(f"l{j}" for j in range(33)), "deep")
+        bad = await asyncio.gather(
+            *[col.submit("", ("k", str(i))) for i in range(8)],
+            return_exceptions=True)
+        return healthy, bad
+
+    before = RT.launches
+    healthy, bad = asyncio.run(main())
+    assert idx.warm_ms is not None and RT.launches > before
+    assert [[v for _, v in rows] for rows in healthy] == \
+        [[i] for i in range(8)]
+    assert all(isinstance(b, TM.KernelError) for b in bad), bad
+    st = col.stats()
+    assert st["retained_replay_device_filters"] == 8
+    assert not any(st[f"retained_replay_{k}_filters"] for k in (
+        "host", "degraded", "rebuild", "fallback", "stalled", "expired"))
+    assert idx.device_failures == 0 and idx.breaker.state_name == "closed"

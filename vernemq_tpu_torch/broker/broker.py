@@ -78,7 +78,7 @@ class Broker:
         self.watchdog = StallWatchdog(
             tick_s=self.config.get("watchdog_tick_ms", 100) / 1e3)
         self.retain = RetainStore(on_dirty=self._retain_dirty)
-        # device-resident retained index (vernemq_tpu/retained/): created
+        # GPU-resident retained index (vernemq_tpu_torch/retained/): created
         # lazily on the first replay once the tpu reg view is live; the
         # retain dirty hook write-throughs deltas into it
         self._retained_engine: Optional[Any] = None
@@ -1287,12 +1287,64 @@ class Broker:
         return budgets * float(self.config.get(
             "overload_dispatch_budget_ms", 50.0))
 
+    def retained_engine(self):
+        """Lazy per-mountpoint GPU retained index (the reverse-match
+        engine, vernemq_tpu_torch/retained/) on the broker's device.
+        Shares the tpu_breaker_* knob family with the publish matcher's
+        breaker."""
+        if self._retained_engine is None:
+            from ..retained.index import RetainedEngine
+
+            cfg = self.config
+            self._retained_engine = RetainedEngine(
+                self.retain,
+                initial_capacity=cfg.get("tpu_retained_initial_capacity",
+                                         2048),
+                max_fanout=cfg.get("tpu_retained_max_fanout", 256),
+                breaker_enabled=cfg.get("tpu_breaker_enabled", True),
+                breaker_failure_threshold=cfg.get(
+                    "tpu_breaker_failure_threshold", 3),
+                breaker_backoff_initial=cfg.get(
+                    "tpu_breaker_backoff_initial_ms", 200) / 1e3,
+                breaker_backoff_max=cfg.get(
+                    "tpu_breaker_backoff_max_ms", 10_000) / 1e3,
+                watchdog=(self.watchdog
+                          if cfg.get("watchdog_enabled", True) else None),
+                rebuild_deadline_s=cfg.get(
+                    "watchdog_rebuild_deadline_s", 120.0),
+                device=self.device,
+            )
+        return self._retained_engine
+
     def retained_collector(self):
-        """Always None: the device retained index is not ported yet
-        (ROADMAP Queue 1 item 6), so every retained replay takes the
-        exact host walk — what the reference does with
-        ``tpu_retained_enabled`` off."""
-        return None
+        """Retained-replay batch collector, or None when the device
+        retained path is off (config) or the batched view is not active —
+        the subscribe path then serves the exact host walk directly."""
+        cfg = self.config
+        if (cfg.default_reg_view != "tpu"
+                or not cfg.get("tpu_retained_enabled", True)):
+            return None
+        if not self.registry.batched_view_active():
+            return None
+        if self._retained_collector is None:
+            from ..retained.collector import RetainedBatchCollector
+
+            self._retained_collector = RetainedBatchCollector(
+                self.retained_engine(), self.retain,
+                window_us=cfg.get("tpu_retained_window_us", 500),
+                max_batch=cfg.get("tpu_retained_max_batch", 1024),
+                host_threshold=cfg.get("tpu_retained_host_threshold", 4),
+                latency_budget_ms=cfg.get(
+                    "overload_dispatch_budget_ms", 50.0),
+                watchdog=self.watchdog,
+                dispatch_deadline_ms=self._dispatch_deadline_ms(),
+                item_expiry_ms=self._collector_expiry_ms(),
+            )
+            if self.overload is not None:
+                # L2 response: replay storms defer behind live publishes
+                self._retained_collector.defer_gate = \
+                    self.overload.defer_replay
+        return self._retained_collector
 
     def _resolve_base_dirs(self) -> None:
         """Honor the setup.data_dir / setup.log_dir release knobs
@@ -1478,9 +1530,12 @@ class Broker:
             self.registry.reg_view(view_name)
         if (self.config.default_reg_view == "tpu"
                 and self.config.get("tpu_retained_enabled", True)):
-            log.info("retained replays take the exact host walk: the "
-                     "device retained index is not ported (ROADMAP Queue 1 "
-                     "item 6)")
+            # the retained index's kernel library is built at boot, like the
+            # GPU view's, and not by the first SUBSCRIBE on the event loop
+            from ..models.matcher import load_kernels
+            from ..retained.index import KERNEL_LIBS
+
+            load_kernels(self.device, KERNEL_LIBS)
         # adaptive overload governor BEFORE sysmon so the lag sampler can
         # feed it from its very first sample (robustness/overload.py)
         from ..robustness.overload import OverloadGovernor

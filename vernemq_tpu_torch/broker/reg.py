@@ -32,6 +32,7 @@ import time
 from typing import TYPE_CHECKING, Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from ..models.trie import SubscriptionTrie
+from ..ops.tile_match import KernelError
 from ..protocol import fastpath
 from ..protocol.topic import is_shared, unshare
 from ..protocol.types import PROTO_5, SubOpts
@@ -558,8 +559,10 @@ class Registry:
         With the device retained index active the filter rides the
         replay batch collector (concurrent SUBSCRIBEs coalesce into one
         reverse-match dispatch) and enqueues when the batch resolves;
-        otherwise — collector off, accelerator down, or the device path
-        degraded — the exact host walk serves synchronously."""
+        otherwise — collector off, or the device path degraded — the exact
+        host walk serves synchronously. A kernel fault
+        (``tile_match.KernelError``) is logged as one and replays nothing:
+        it is never quietly answered by the host walk."""
         if self.queues.get(sid) is None:
             return
         col = self.broker.retained_collector()
@@ -568,6 +571,11 @@ class Registry:
 
             def _done(f: "asyncio.Future") -> None:
                 exc = f.exception()
+                if isinstance(exc, KernelError):
+                    log.error("retained replay of %s for %s failed on a "
+                              "kernel fault (not served): %s",
+                              "/".join(filter_words), sid, exc)
+                    return
                 if exc is not None:
                     # unexpected collector error: the replay must still
                     # happen — exact host walk, loudly

@@ -72,15 +72,15 @@ FAIR_MULT = 2    # window width vs per-tile fair share of the zone
 KERNEL_LIBS = ("tile_match",)
 
 
-def load_kernels(device: torch.device) -> None:
-    """Build and load every kernel library the device path launches, before
-    anything is served. A build or load error raises here, to whoever
+def load_kernels(device: torch.device, names=KERNEL_LIBS) -> None:
+    """Build and load the kernel libraries ``names`` (by default every one
+    the match path launches), before anything is served. A build or load error raises here, to whoever
     creates the matcher or its view: it never reaches the breaker and is
     never answered from the trie. (The reference instead turns its Pallas
     kernel off for good when Mosaic cannot lower it and serves through
     XLA, ``_pallas_broken``; the port has no second device path.)"""
     if device.type == "cuda":
-        for name in KERNEL_LIBS:
+        for name in names:
             _build.load(name)
 
 
@@ -130,10 +130,12 @@ def window_params(S: int, glob_pad: int, bucket_max: int, Bpad: int,
 
 def prepare_windows(pb: np.ndarray, n: int, reg_start: np.ndarray,
                     reg_end: np.ndarray, S: int, T: int, seg_max: int,
-                    row_lo: int = 0, row_hi: Optional[int] = None):
+                    row_lo: int = 0, row_hi: Optional[int] = None,
+                    tp: Optional[int] = None):
     """Host prep for the windowed kernels: sort the n real publishes by
-    their region's address, pack them into at most T tiles of TILE_PUBS
-    slots, window each tile at its first region's start. Publishes that
+    their region's address, pack them into at most T tiles of ``tp``
+    (default TILE_PUBS) slots, window each tile at its first region's
+    start. Publishes that
     cannot be tiled (window budget exhausted, or a region outside
     ``[row_lo, row_hi)``) come back as ``leftovers`` for exact host
     matching.
@@ -141,7 +143,7 @@ def prepare_windows(pb: np.ndarray, n: int, reg_start: np.ndarray,
     Returns ``(t_sel [T, TP] int32, t_start [T] int32 (row_lo-relative),
     tile_of [n], pos_of [n], leftovers)``; pad slots select publish 0.
     """
-    TP = TILE_PUBS
+    TP = tp or TILE_PUBS
     hi_cap = S if row_hi is None else row_hi
     if seg_max > hi_cap - row_lo:
         raise ValueError("window wider than the row slice")
