@@ -17,9 +17,12 @@ kernels are built for sm_90a). It
    edges, at K = 96 with every id 2^24 - 1 or 65535 (the largest partial
    sums its exactness argument allows), and with publishes longer than L
    and ``$`` publishes against wildcard-first rows; and the reverse-compare
-   kernel against its plain version at probe windows of 512 and 16,384
-   rows (16- and 24-bit ids) and the dense window of a 2^20-row table,
-   with ``$``-topics, inactive rows and lc < L;
+   kernel against its plain version, packed words and chunk counts, at
+   probe windows of 512 and 16,384 rows (16- and 24-bit ids), the dense
+   window of a 2^20-row table with lc < L, tiles of 64 and 256 query slots,
+   lc = 1 and lc = 16 at L = 16, and a table whose size is no multiple of
+   the 256-row chunk with windows starting off the chunk grid, with
+   ``$``-topics, inactive rows and empty slots;
 3. drives the port's main path — ``GpuRegView.fold_batch`` over a
    1,000,000-subscription table (the bench.py headline corpus: 60% exact,
    20% ``w0/+/w2``, 10% ``+/w1/w2``, 10% ``w0/w1/#``; L = 8, max_fanout 256,
@@ -82,9 +85,14 @@ kernels are built for sm_90a). It
    deletes and 1,000 new topics scattered in place and one more batch
    checked the same way; filters/s and
    replayed rows/s beside the host walk's, host-fallback filters, the
-   reverse kernel's launches per batch, and its probe and dense launches
-   timed (CUDA events) beside their bound, their plain version and the
-   reference's coded dense product as one fp32 ``torch.matmul``;
+   compare and extraction kernels' launches per batch, and the probe and
+   dense launches of both timed (CUDA events back to back, and replayed
+   from a CUDA graph, which leaves out the wrappers' host work) beside
+   their bound (the compare at the card's INT32 lane rate, and at the fp32
+   rate earlier runs used), the first design's times, their plain
+   versions and the reference's coded dense product as one fp32
+   ``torch.matmul``; the device path split into the launches, the
+   two-level extraction and the rest;
 13. retained replay through the port's broker: the same 1,000,000 stores
    into the broker's ``RetainStore`` (write-through to the GPU index,
    built and waited for), then 16 MQTT subscribers in a second process
@@ -154,12 +162,17 @@ RET_HOST = 500
 RET_SUBSCRIBERS = 16
 RET_FILTERS = 16
 RET_WAIT_S = 300
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate; the
-# CUDA cores' float32 rate stands for the reverse kernel's integer compares
-# (the data sheet's table has no int32 rate)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate. The
+# reverse kernel's integer compares run on the INT32 lanes, 64 per SM per
+# clock (the Hopper architecture white paper): int32_ops_per_s() takes that
+# rate from the card (SMs and the max SM clock). FP32_OPS_PER_S, the CUDA
+# cores' float32 rate (an FMA counted as two), is the rate the first
+# reverse kernel's bounds used; it is printed beside the INT32 bound so the
+# row's history compares.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-CUDA_CORE_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
 DEVICE = "cuda"
 # the tile kernel's first version (fp32 FMAs on the CUDA cores), probe A + B
 # per batch, measured by this script's first version on one H100 80GB HBM3 at
@@ -180,14 +193,30 @@ KERNEL_SHAPES = [
     ("plen>L $ wild", 16, 8, 1 << 20, 8, 256, 65_536, True,
      dict(long_pubs=0.3)),
 ]
-# the reverse kernel against its plain version: (label, N, L, id bits, lc,
-# tiles of 32 queries, seg) — probe windows of 512 and 16,384 rows (16- and
-# 24-bit ids) and the dense phase's window of a whole 2^20-row table, with
-# lc < L, $-topics and inactive rows
+# the reverse kernel's first design (32 queries x 256 rows a block, a
+# ballot per query and row word), probe and dense launch of one storm batch,
+# measured by an earlier version of this script on one H100 80GB HBM3 at
+# 700 W; printed beside this run's times, never as this run's
+REVERSE_EARLIER_MS = {"probe": 0.1386, "dense": 0.4195}
+# the reverse kernel against its plain version, words and chunk counts:
+# (label, N, L, id bits, lc, tiles, TP query slots, seg, ragged) — probe
+# windows of 512 and 16,384 rows (16- and 24-bit ids), the dense window of a
+# whole 2^20-row table with lc < L, tiles of 64 and 256 slots, lc = 1 and
+# lc = 16 at L = 16, and a table of N rows that is no multiple of the
+# 256-row chunk with windows starting off the chunk grid (at 777 and at
+# N - seg); $-topics, inactive rows and ~10% empty slots everywhere
+#: lc templates that spill (ptxas, sm_90a) -> the nearest one that does not
+SPILL_NEIGHBOUR = {8: 7, 16: 12}
 REVERSE_SHAPES = [
-    ("probe seg=512 lc=3", 1 << 20, 8, 16, 3, 128, 512),
-    ("probe seg=16384 24-bit lc=8", 1 << 20, 8, 24, 8, 128, 16_384),
-    ("dense 2^20 rows lc=3<L", 1 << 20, 8, 16, 3, 8, 1 << 20),
+    ("probe seg=512 lc=3", 1 << 20, 8, 16, 3, 128, 32, 512, False),
+    ("probe seg=16384 24-bit lc=8", 1 << 20, 8, 24, 8, 128, 32, 16_384,
+     False),
+    ("dense 2^20 rows lc=3<L", 1 << 20, 8, 16, 3, 8, 32, 1 << 20, False),
+    ("probe TP=64 lc=1 L=16", 1 << 20, 16, 16, 1, 128, 64, 16_384, False),
+    ("dense TP=256 lc=16 L=16", 1 << 20, 16, 16, 16, 1, 256, 1 << 20,
+     False),
+    ("ragged N=2^20-100 starts off the chunk grid", (1 << 20) - 100, 8, 16,
+     3, 16, 96, 4096, True),
 ]
 
 
@@ -262,6 +291,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def int32_ops_per_s(torch) -> float:
+    """The card's INT32 lane rate: 64 lanes per SM per clock at the max SM
+    clock ``nvidia-smi`` reports."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
 def event_ms(fn, iters: int) -> float:
     """Mean device time of ``fn()`` over ``iters`` runs (CUDA events)."""
     import torch
@@ -276,6 +319,27 @@ def event_ms(fn, iters: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` with the host out of the way: ``iters``
+    calls captured in one CUDA graph, the graph replayed and timed by CUDA
+    events. Beside :func:`event_ms` it shows how much of a short launch's
+    time is the wrapper's host work between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and first-launch set-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = event_ms(graph.replay, 5) / iters
+    del graph
+    return ms
 
 
 def mask_diff(x, y) -> int:
@@ -329,14 +393,14 @@ def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
             pdt, cuda(start)), start
 
 
-def ptxas_report(text: str):
-    """{KP: (registers, spill-store bytes, spill-load bytes)} of every
-    tile_match_kernel<KP> in an ``nvcc -Xptxas -v`` log."""
+def ptxas_report(text: str, kernel: str = "tile_match_kernel"):
+    """{template argument: (registers, spill-store bytes, spill-load bytes)}
+    of every ``kernel<N>`` in an ``nvcc -Xptxas -v`` log."""
     import re
 
     out, kp, spill = {}, None, (0, 0)
     for ln in text.splitlines():
-        m = re.search(r"tile_match_kernelILi(\d+)E", ln)
+        m = re.search(kernel + r"ILi(\d+)E", ln)
         if m and "Compiling entry function" in ln:
             kp, spill = int(m.group(1)), (0, 0)
             continue
@@ -1236,13 +1300,15 @@ def phase_broker(card: str, path_S: int) -> int:
 # ------------------------------------------------------ retained replay
 
 def synthetic_reverse(torch, TR, N: int, L: int, bits: int, lc: int, T: int,
-                      seg: int, seed: int, B: int = 1024):
+                      TP: int, seg: int, seed: int, ragged: bool = False,
+                      B: int = 1024):
     """Random operands of the reverse-compare kernel on the card and the
     host copy of the window starts: N retained rows of 1..lc levels (~10%
     $-topics, ~10% inactive, pad words past each row's length) over a small
     vocabulary with byte-plane edge ids, and B filters, half copied from
     rows, widened with ``+``, cut to ``#`` prefixes or given unknown words;
-    T tiles of 32 random query slots at random window starts."""
+    T tiles of TP random query slots (~10% empty) at random window starts,
+    with ``ragged`` the first two at 777 and at N - seg."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1265,11 +1331,42 @@ def synthetic_reverse(torch, TR, N: int, L: int, bits: int, lc: int, T: int,
     qw[rng.random((B, L)) < 0.03] = -2  # UNKNOWN_ID
     qw[np.arange(L)[None, :] >= qe[:, None]] = TR.PAD_ID
     qf = (qw[:, 0] == TR.PLUS_ID) | ((qe == 0) & qh)
-    sel = rng.integers(0, B, (T, TR.TILE_QUERIES)).astype(np.int32)
+    sel = rng.integers(0, B, (T, TP)).astype(np.int32)
+    sel[rng.random((T, TP)) < 0.1] = -1  # empty slots
     start = rng.integers(0, N - seg + 1, T).astype(np.int32)
+    if ragged:
+        start[:2] = [777, N - seg]
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
     return (cuda(words), cuda(meta), cuda(qw), cuda(qe.astype(np.int32)),
             TR.query_flags(cuda(qh), cuda(qf)), cuda(sel), cuda(start)), start
+
+
+def extract_diff(got, want) -> int:
+    """The largest absolute difference between two extractions over the
+    counts, the validity flags and the indices that either holds valid
+    (0 = equal)."""
+    gi, gv, gc = got
+    wi, wv, wc = want
+    either = (gv | wv).long()
+    errs = [(gc.long() - wc.long()).abs(), (gv.long() - wv.long()).abs(),
+            (gi.long() - wi.long()).abs() * either]
+    return max((int(e.max()) for e in errs if e.numel()), default=0)
+
+
+def extract_bytes(packed, counts, k: int, rows, ok) -> int:
+    """Bytes the extraction must move for this run's data: the live rows'
+    chunk counts, the words of every chunk that holds one of a row's first
+    k matches, the row selectors and liveness read once; idx, valid and
+    the count written once."""
+    import torch
+
+    c = counts.index_select(0, rows.long()) * ok[:, None].to(torch.int32)
+    excl = c.cumsum(dim=1) - c
+    chunks = int(((c > 0) & (excl < k)).sum())
+    R, nb = c.shape
+    wpb = packed.shape[1] // nb  # words per chunk
+    return (int(ok.sum()) * nb * 4 + chunks * wpb * 4 + R * 5
+            + R * k * 5 + R * 4)
 
 
 def reverse_bound(starts, seg: int, lc: int, n_queries: int):
@@ -1277,10 +1374,11 @@ def reverse_bound(starts, seg: int, lc: int, n_queries: int):
     ``n_queries`` real queries against windows of ``seg`` rows at
     ``starts``: every distinct window row's lc words and meta read once,
     each query's lc words, eff and flags read once, its packed mask row
-    written once; lc + 3 integer operations per (query, row) pair (lc
-    level compares, the length rule, the $ rule, liveness)."""
+    and chunk counts written once; lc + 3 integer operations per (query,
+    row) pair (lc level compares, the length rule, the $ rule,
+    liveness)."""
     nbytes = (window_rows(starts, seg) * (4 * lc + 4)
-              + n_queries * (4 * lc + 8 + seg // 8))
+              + n_queries * (4 * lc + 8 + seg // 8 + seg // 64))
     return nbytes, float(n_queries) * seg * (lc + 3)
 
 
@@ -1305,6 +1403,101 @@ def storm_filters(rng: random.Random, pools, n: int):
         else:
             out.append(("+", rng.choice(l1), rng.choice(l2)))
     return out
+
+
+def skewed_storm(rng: random.Random, pools, n: int, hot: float = 0.9):
+    """The storm mix with its concrete filters skewed to one region: each
+    ``r/+/m`` or ``r/d/#`` filter names region ``r0`` with probability
+    ``hot`` (a subscribe storm after one site's clients reconnect)."""
+    return [(pools[0][0], *f[1:]) if f[0] != "+" and rng.random() < hot
+            else f for f in storm_filters(rng, pools, n)]
+
+
+def skewed_probe(idx, store, pools, card: str, int32_rate: float) -> dict:
+    """One skewed-storm batch (:func:`skewed_storm`) through
+    ``match_filters``, held to the store; then its probe launch at the
+    single tile width ``_prep`` gives every tile (the busiest region's)
+    against the same tiles cut to their own widths (the last live slot,
+    rounded up to a warp), one launch per width, both bit-equal to the
+    plain version. Shows what the one width costs where the regions'
+    loads differ most."""
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.ops import reverse_kernel as TR
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
+
+    filters = skewed_storm(random.Random(SEED + 12), pools, BATCH)
+    for f, rows in zip(filters, idx.match_filters(filters)):
+        want = store.match_filter("", list(f))
+        if sorted(want if rows is None else rows) != sorted(want):
+            fail(f"retained skewed storm: filter {f} disagrees with the "
+                 f"store")
+    with idx.lock:
+        idx.sync()
+        layout = idx._layout_locked()
+        enc = idx._encode_locked([tuple(f) for f in filters])
+        rw, meta = idx._dev
+    a, _, _, _ = idx._prep(layout, *enc, len(filters))
+    cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+    q = (rw, meta, cuda(a["qw"]), cuda(a["qe"]),
+         TR.query_flags(cuda(a["qh"]), cuda(a["qf"])))
+    seg, lc = a["seg"], a["lc"]
+    t_sel, t_start = a["t_sel"], a["t_start"]
+    T, TP = t_sel.shape
+    live = t_sel >= 0
+    width = -(-(TP - np.argmax(live[:, ::-1], axis=1)) // 32) * 32
+    groups = {int(w): np.nonzero(width == w)[0] for w in np.unique(width)}
+    one = (cuda(t_sel), cuda(t_start))
+    cut = {w: (cuda(t_sel[ix, :w]), cuda(t_start[ix]), t_start[ix], ix)
+           for w, ix in groups.items()}
+    single = RT.reverse_tiles_packed(*q, *one, seg=seg, lc=lc,
+                                     start_host=t_start)
+    want = RT.reverse_tiles_packed_ref(*q, *one, seg=seg, lc=lc)
+    bad = any(mask_diff(g, w) for g, w in zip(single, want))
+    for w, (sel, st, st_h, ix) in cut.items():
+        got = RT.reverse_tiles_packed(*q, sel, st, seg=seg, lc=lc,
+                                      start_host=st_h)
+        rows = (torch.from_numpy(ix).to(DEVICE)[:, None] * TP
+                + torch.arange(w, device=DEVICE)[None, :]).reshape(-1)
+        bad |= any(mask_diff(g, o.index_select(0, rows))
+                   for g, o in zip(got, single))
+    torch.cuda.synchronize()
+    if bad:
+        fail("retained skewed storm: the probe launch disagrees with its "
+             "plain version or with its per-width launches")
+    del single, want
+    one_ms = event_ms(lambda: RT.reverse_tiles_packed(
+        *q, *one, seg=seg, lc=lc, start_host=t_start), 20)
+
+    def per_width():
+        for sel, st, st_h, _ in cut.values():
+            RT.reverse_tiles_packed(*q, sel, st, seg=seg, lc=lc,
+                                    start_host=st_h)
+    cut_ms = event_ms(per_width, 20)
+    one_g = graph_ms(lambda: RT.reverse_tiles_packed(
+        *q, *one, seg=seg, lc=lc, start_host=t_start), 20)
+    cut_g = graph_ms(per_width, 20)
+    n_real = int(live.sum())
+    nbytes, ops = reverse_bound(t_start[live.any(axis=1)], seg, lc, n_real)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / int32_rate) * 1e3
+    hot = int(np.bincount(enc[4][:len(filters)][enc[4][:len(filters)] > 0])
+              .max())
+    print(f"[retained] {card} | skewed storm (90% of the concrete filters "
+          f"in one region, its {hot} queries): probe launch at one width, "
+          f"{T} tiles x {TP} slots ({n_real} real queries) x seg {seg}: "
+          f"{one_ms:.4f} ms ({one_g:.4f} ms replayed from a CUDA graph); "
+          f"the same tiles cut to their own widths ("
+          + ", ".join(f"{len(ix)} x {w}" for w, ix in groups.items())
+          + f"), {len(groups)} launches: {cut_ms:.4f} ms ({cut_g:.4f} ms "
+          f"from a graph); bound "
+          f"{bound:.4f} ms; every filter equal to the store, both bit-equal",
+          flush=True)
+    return dict(one_width_ms=one_ms, per_width_ms=cut_ms,
+                one_width_graph_ms=one_g, per_width_graph_ms=cut_g,
+                bound_ms=bound,
+                tiles=T, slots=TP, queries=n_real, hot_region_queries=hot,
+                widths={str(w): len(ix) for w, ix in groups.items()})
 
 
 def load_retained(rng: random.Random, pools, insert) -> None:
@@ -1387,7 +1580,7 @@ def phase_retained(card: str) -> dict:
     batches = [storm_filters(rng, pools, BATCH) for _ in range(RET_BATCHES)]
     fb0 = idx.host_fallback_queries
     walls, replayed = [], 0
-    RT.launches = 0
+    RT.launches = RT.extract_launches = 0
     for b, filters in enumerate(batches):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1422,10 +1615,11 @@ def phase_retained(card: str) -> dict:
     print(f"[retained] {card} | {RET_DELTA} retain deletes + {RET_DELTA} new "
           f"topics scattered in place (no rebuild); a batch after them "
           f"equal to the store", flush=True)
-    launches = RT.launches
+    launches, ex_launches = RT.launches, RT.extract_launches
     fallbacks = idx.host_fallback_queries - fb0
-    if launches <= 0:
-        fail("retained: the reverse kernel was never launched")
+    if launches <= 0 or ex_launches <= 0:
+        fail(f"retained: a reverse kernel was never launched (compare "
+             f"{launches}, extraction {ex_launches})")
     if idx.device_failures or idx.degraded_sheds:
         fail(f"retained: device failures {idx.device_failures}, degraded "
              f"sheds {idx.degraded_sheds}")
@@ -1438,8 +1632,9 @@ def phase_retained(card: str) -> dict:
           f"included); the host walk {RET_HOST / host_s:.0f} filters/s, "
           f"{host_rows / host_s:.0f} rows/s; every filter equal to "
           f"RetainStore.match_filter ({replayed} rows); host-fallback "
-          f"filters {fallbacks}; reverse launches {launches} "
-          f"({launches / (RET_BATCHES + 1):.1f} per batch over these "
+          f"filters {fallbacks}; compare / extraction kernel launches "
+          f"{launches} / {ex_launches} ({launches / (RET_BATCHES + 1):.1f} "
+          f"/ {ex_launches / (RET_BATCHES + 1):.1f} per batch over these "
           f"batches and the one after the deltas)", flush=True)
 
     # where one batch's time goes, then its two launches at the shapes the
@@ -1479,47 +1674,96 @@ def phase_retained(card: str) -> dict:
     qw, qe = cuda(a["qw"]), cuda(a["qe"])
     flags = TR.query_flags(cuda(a["qh"]), cuda(a["qf"]))
     lc, seg, N = a["lc"], a["seg"], rw.shape[0]
-    d_real = int(a["d_valid"].sum())
-    nt = -(-len(a["d_sel"]) // TR.TILE_QUERIES)
-    dsel = np.zeros(nt * TR.TILE_QUERIES, np.int32)
-    dsel[:len(a["d_sel"])] = a["d_sel"]
-    zeros = np.zeros(nt, np.int32)
+    d_valid = cuda(a["d_valid"])
+    dsel = TR.dense_selectors(cuda(a["d_sel"]), d_valid)
+    zeros = np.zeros(dsel.shape[0], np.int32)
     tiled = a["q_tile"][a["q_tile"] >= 0]
-    # (inputs, sizes, host starts, windows of real queries, real queries)
+    int32_rate = int32_ops_per_s(torch)
+    # (inputs, sizes, host starts, windows of real queries, real queries,
+    # the extraction's rows and their liveness)
+    q_tile = cuda(a["q_tile"])
+    TP = a["t_sel"].shape[1]
     launches_of = {
         "probe": ((rw, meta, qw, qe, flags, cuda(a["t_sel"]),
                    cuda(a["t_start"])), dict(seg=seg, lc=lc),
-                  a["t_start"], a["t_start"][np.unique(tiled)], len(tiled)),
-        "dense": ((rw, meta, qw, qe, flags,
-                   cuda(dsel.reshape(nt, TR.TILE_QUERIES)), cuda(zeros)),
-                  dict(seg=N, lc=lc), zeros, [0], d_real)}
+                  a["t_start"], a["t_start"][np.unique(tiled)], len(tiled),
+                  q_tile.clamp(min=0) * TP + cuda(a["q_pos"]), q_tile >= 0),
+        "dense": ((rw, meta, qw, qe, flags, dsel, cuda(zeros)),
+                  dict(seg=N, lc=lc), zeros, [0], int(a["d_valid"].sum()),
+                  torch.arange(len(a["d_sel"]), dtype=torch.int32,
+                               device=DEVICE), d_valid)}
     per = {}
-    for name, (x, kw, start, real_starts, n_real) in launches_of.items():
+    for name, (x, kw, start, real_starts, n_real, rows, ok) in \
+            launches_of.items():
         got = RT.reverse_tiles_packed(*x, **kw, start_host=start)
         want = RT.reverse_tiles_packed_ref(*x, **kw)
         torch.cuda.synchronize()
-        err = mask_diff(got, want)
-        if err:
+        if any(mask_diff(g, w) for g, w in zip(got, want)):
             fail(f"reverse kernel disagrees with its plain version on the "
                  f"retained {name} launch")
-        del got, want
+        del want
         k_ms = event_ms(lambda: RT.reverse_tiles_packed(
             *x, **kw, start_host=start), 20)
+        kg_ms = graph_ms(lambda: RT.reverse_tiles_packed(
+            *x, **kw, start_host=start), 20)
         p_ms = event_ms(lambda: RT.reverse_tiles_packed_ref(*x, **kw), 2)
+        ex = RT.extract_chunks(*got, a["k"], rows=rows, ok=ok)
+        ex_want = RT.extract_chunks_ref(*got, a["k"], rows=rows, ok=ok)
+        ex_err = extract_diff(ex, ex_want)
+        if ex_err:
+            fail(f"extraction kernel disagrees with its plain version on the "
+                 f"retained {name} launch (max abs err {ex_err})")
+        e_ms = event_ms(lambda: RT.extract_chunks(*got, a["k"], rows=rows,
+                                                  ok=ok), 20)
+        eg_ms = graph_ms(lambda: RT.extract_chunks(*got, a["k"], rows=rows,
+                                                   ok=ok), 20)
+        ep_ms = event_ms(lambda: RT.extract_chunks_ref(
+            *got, a["k"], rows=rows, ok=ok), 3)
+        e_bytes = extract_bytes(*got, a["k"], rows, ok)
+        del got, ex, ex_want
         nbytes, ops = reverse_bound(real_starts, kw["seg"], lc, n_real)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
-        per[name] = dict(kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes,
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / int32_rate
+        fp32_ms = max(t_b, ops / FP32_OPS_PER_S) * 1e3
+        per[name] = dict(kernel_ms=k_ms, kernel_graph_ms=kg_ms,
+                         plain_ms=p_ms, extract_ms=e_ms,
+                         extract_graph_ms=eg_ms,
+                         extract_plain_ms=ep_ms, extract_bytes=e_bytes,
+                         extract_bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3,
+                         extract_err=ex_err, bytes=nbytes,
                          ops=ops, bound_ms=max(t_b, t_o) * 1e3,
                          bound_by="bytes" if t_b >= t_o else "operations",
-                         tiles=int(x[5].shape[0]), seg=kw["seg"],
+                         bound_ms_at_fp32_rate=fp32_ms,
+                         tiles=int(x[5].shape[0]),
+                         slots=int(x[5].shape[1]), seg=kw["seg"],
                          queries=n_real)
         print(f"[retained] {card} | {name} launch: {x[5].shape[0]} tiles x "
-              f"{TR.TILE_QUERIES} slots ({n_real} real queries) x seg "
-              f"{kw['seg']}, lc {lc}: kernel {k_ms:.4f} ms, its bound "
-              f"{per[name]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.2f} G integer ops, bound by "
-              f"{per[name]['bound_by']}), plain {p_ms:.2f} ms; bit-equal",
-              flush=True)
+              f"{x[5].shape[1]} slots ({n_real} real queries) x seg "
+              f"{kw['seg']}, lc {lc}: kernel {k_ms:.4f} ms ({kg_ms:.4f} "
+              f"ms replayed from a CUDA graph; the first "
+              f"design: {REVERSE_EARLIER_MS[name]} ms, an earlier run's "
+              f"number), its bound {per[name]['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G integer ops at "
+              f"{int32_rate / 1e12:.2f} T INT32 ops/s, bound by "
+              f"{per[name]['bound_by']}; {fp32_ms:.4f} ms at the "
+              f"{FP32_OPS_PER_S / 1e12:.0f} T/s fp32 rate used before), "
+              f"{100 * per[name]['bound_ms'] / k_ms:.1f}% of the bound; "
+              f"plain {p_ms:.2f} ms; words and counts bit-equal", flush=True)
+        print(f"[retained] {card} | {name} extraction: kernel {e_ms:.4f} ms "
+              f"({eg_ms:.4f} ms replayed from a CUDA graph), "
+              f"its bound {per[name]['extract_bound_ms']:.4f} ms "
+              f"({e_bytes / 1e6:.2f} MB by bytes), plain two-level "
+              f"{ep_ms:.4f} ms; equal to the plain version", flush=True)
+    launch_ms = sum(p["kernel_ms"] for p in per.values())
+    extract_ms = sum(p["extract_ms"] for p in per.values())
+    print(f"[retained] {card} | the device path {path_ms:.4f} ms by CUDA "
+          f"events: launches {launch_ms:.4f} ms (probe "
+          f"{per['probe']['kernel_ms']:.4f} + dense "
+          f"{per['dense']['kernel_ms']:.4f}), extraction {extract_ms:.4f} ms "
+          f"(probe {per['probe']['extract_ms']:.4f} + dense "
+          f"{per['dense']['extract_ms']:.4f}), the rest "
+          f"{path_ms - launch_ms - extract_ms:.4f} ms (selectors, the "
+          f"starts' upload, gaps between launches)", flush=True)
+    skew = skewed_probe(idx, store, pools, card, int32_rate)
     # the reference's dense phase as its coded product (the MXU route the
     # port does not take), fp32 on upcast bf16 operands, timed alone
     bits = idx._ops_bits
@@ -1535,7 +1779,12 @@ def phase_retained(card: str) -> dict:
     print(f"[retained] {card} | the reference's coded dense product "
           f"{shape} as one fp32 torch.matmul (a yardstick the port never "
           f"calls): {lib_ms:.4f} ms", flush=True)
-    return dict(launches=launches, per=per, library_ms=lib_ms,
+    return dict(launches=launches, extract_launches=ex_launches, per=per,
+                library_ms=lib_ms,
+                path_ms=path_ms, extract_ms=extract_ms,
+                extract_err=max(p["extract_err"] for p in per.values()),
+                skewed_probe=skew,
+                int32_ops_per_s=int32_rate,
                 filters_per_s=n_f / dev_s, rows_per_s=replayed / dev_s,
                 host_filters_per_s=RET_HOST / host_s,
                 host_fallbacks=fallbacks)
@@ -1626,7 +1875,7 @@ def phase_replay(card: str) -> int:
     for its filters, the replay collector's device path must have served
     filters, and no replay may have been degraded, rebuild-served,
     host-resolved per filter, stalled or expired. Returns the reverse
-    kernel's launches during the replays."""
+    compare and extraction kernels' launches during the replays."""
     import asyncio
     import collections
     import multiprocessing
@@ -1688,10 +1937,10 @@ def phase_replay(card: str) -> int:
 
         try:
             await recv()  # every client connected
-            RT.launches = 0
+            RT.launches = RT.extract_launches = 0
             conn.send("go")
             got, took, wall = await recv()
-            launches = RT.launches
+            launches = (RT.launches, RT.extract_launches)
         finally:
             proc.join(30)
             if proc.is_alive():
@@ -1711,8 +1960,9 @@ def phase_replay(card: str) -> int:
             fail(f"replay: device filters "
                  f"{st['retained_replay_device_filters']}, host-served "
                  f"{bad}")
-        if launches <= 0:
-            fail("replay: the reverse kernel was never launched")
+        if min(launches) <= 0:
+            fail(f"replay: a reverse kernel was never launched (compare, "
+                 f"extraction: {launches})")
         drops = b.metrics.value("queue_message_drop")
         if drops:
             fail(f"replay: {drops} queue drops")
@@ -1730,11 +1980,87 @@ def phase_replay(card: str) -> int:
               f"{st['retained_replay_host_filters']}, degraded / rebuild / "
               f"fallback / stalled / expired 0 (expiry "
               f"{b._collector_expiry_ms():.0f} ms, deadline "
-              f"{b._dispatch_deadline_ms():.0f} ms); reverse launches "
-              f"{launches}; no queue drop", flush=True)
+              f"{b._dispatch_deadline_ms():.0f} ms); compare / extraction "
+              f"kernel launches {launches[0]} / {launches[1]}; no queue "
+              f"drop", flush=True)
         return launches
 
     return asyncio.run(run())
+
+
+def phase_reverse_kernel(compiled: bool):
+    """The reverse-compare kernel against its plain version at every
+    REVERSE_SHAPES entry, packed words and chunk counts bit for bit; with
+    ``compiled`` (this run built the library) its ptxas report. Each shape
+    is timed beside its bound, a spilling template also at its neighbour
+    that does not spill (SPILL_NEIGHBOUR). Returns ``(largest difference,
+    {lc template: (registers, spill stores, spill loads, shared memory
+    bytes per block at TP 32, at TP 256)} or None)``."""
+    import torch
+
+    from vernemq_tpu_torch.ops import _build
+    from vernemq_tpu_torch.ops import reverse_kernel as TR
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
+
+    reverse_err = 0
+    int32_rate = int32_ops_per_s(torch)
+    for i, (name, N, L, bits, lc, T, TP, seg, ragged) in \
+            enumerate(REVERSE_SHAPES):
+        x, start_host = synthetic_reverse(torch, TR, N, L, bits, lc, T, TP,
+                                          seg, SEED + 20 + i, ragged)
+        n_live = int((x[5] >= 0).sum())
+        timed = []
+        # a template that spills (SPILL_NEIGHBOUR) also runs at its
+        # neighbour that does not: per compare, does the spill cost time?
+        for lc_i in (lc, SPILL_NEIGHBOUR.get(lc)):
+            if lc_i is None:
+                continue
+            got = RT.reverse_tiles_packed(*x, seg=seg, lc=lc_i,
+                                          start_host=start_host)
+            want = RT.reverse_tiles_packed_ref(*x, seg=seg, lc=lc_i)
+            torch.cuda.synchronize()
+            err = max(mask_diff(got[0], want[0]), mask_diff(got[1], want[1]))
+            ones = int(want[1].sum())
+            del got, want
+            ms = event_ms(lambda: RT.reverse_tiles_packed(
+                *x, seg=seg, lc=lc_i, start_host=start_host), 5)
+            nbytes, ops = reverse_bound(start_host, seg, lc_i, n_live)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / int32_rate) * 1e3
+            timed.append(f"lc {lc_i}: {ms:.4f} ms, bound {bound:.4f} ms "
+                         f"({100 * bound / ms:.1f}%), "
+                         f"{ms * 1e9 / ops:.3f} ps per operation")
+            print(f"[kernel] reverse {name}: N={N} L={L} lc={lc_i} "
+                  f"T={T}x{TP} seg={seg} starts {start_host[:2].tolist()}"
+                  f"... set bits {ones} words and counts max_abs_err {err}",
+                  flush=True)
+            if err or not ones:
+                fail(f"reverse kernel disagrees with its plain version at "
+                     f"{name} lc {lc_i}" if err else f"no matches at reverse "
+                     f"{name}: comparison is vacuous")
+            reverse_err = max(reverse_err, err)
+        print(f"[kernel] reverse {name} timed ({n_live} live slots, CUDA "
+              f"events, bound at {int32_rate / 1e12:.2f} T INT32 ops/s): "
+              + "; ".join(timed), flush=True)
+        del x
+        torch.cuda.empty_cache()
+    reverse_ptxas = None
+    if compiled:
+        reverse_ptxas = ptxas_report(
+            _build.log_path("reverse_match").read_text(),
+            "reverse_match_kernel")
+        print("[build] ptxas reverse_match (lc template: registers, spill "
+              "stores, spill loads): " + ", ".join(
+                  f"{lc}: {v}" for lc, v in sorted(reverse_ptxas.items())),
+              flush=True)
+        smem = _build.load("reverse_match").reverse_match_smem_bytes
+        reverse_ptxas = {lc: (*v, smem(lc, 32), smem(lc, 256))
+                         for lc, v in reverse_ptxas.items()}
+        print("[build] reverse_match dynamic shared memory per block (lc "
+              "template: bytes at TP 32, at TP 256): " + ", ".join(
+                  f"{lc}: {v[3]}, {v[4]}"
+                  for lc, v in sorted(reverse_ptxas.items())), flush=True)
+    torch.cuda.empty_cache()
+    return reverse_err, reverse_ptxas
 
 
 def main() -> int:
@@ -1750,8 +2076,6 @@ def main() -> int:
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
     from vernemq_tpu_torch.ops import _build
     from vernemq_tpu_torch.ops import match_kernel as TK
-    from vernemq_tpu_torch.ops import reverse_kernel as TR
-    from vernemq_tpu_torch.ops import reverse_tiles as RT
     from vernemq_tpu_torch.ops import tile_match as TM
 
     t_start = time.perf_counter()
@@ -1801,29 +2125,8 @@ def main() -> int:
         kernel_err = max(kernel_err, err)
         del x, got, want
     torch.cuda.empty_cache()
-    reverse_err = 0
-    for i, (name, N, L, bits, lc, T, seg) in enumerate(REVERSE_SHAPES):
-        x, start_host = synthetic_reverse(torch, TR, N, L, bits, lc, T, seg,
-                                          SEED + 20 + i)
-        got = RT.reverse_tiles_packed(*x, seg=seg, lc=lc,
-                                      start_host=start_host)
-        want = RT.reverse_tiles_packed_ref(*x, seg=seg, lc=lc)
-        torch.cuda.synchronize()
-        err = mask_diff(got, want)
-        ones = int(TK._popcount(want).sum())
-        print(f"[kernel] reverse {name}: N={N} L={L} T={T}x32 seg={seg} "
-              f"set bits {ones} max_abs_err {err}", flush=True)
-        if err or not ones:
-            fail(f"reverse kernel disagrees with its plain version at {name}"
-                 if err else f"no matches at reverse {name}: comparison is "
-                 f"vacuous")
-        reverse_err = max(reverse_err, err)
-        del x, got, want
-    if "reverse_match" in built:
-        print("[build] ptxas reverse_match: " + "; ".join(
-            ln.strip() for ln in _build.log_path("reverse_match").read_text()
-            .splitlines() if "registers" in ln), flush=True)
-    torch.cuda.empty_cache()
+    reverse_err, reverse_ptxas = phase_reverse_kernel(
+        "reverse_match" in built)
 
     # ---------------------------------------------------------- path phase
     t0 = time.perf_counter()
@@ -2037,7 +2340,7 @@ def main() -> int:
         "source": "vernemq_tpu_torch/csrc/reverse_match.cu",
         "replaces": "vernemq_tpu/ops/reverse_kernel.py:229",
         "launches": ret["launches"],
-        "replay_launches": replay_launches,
+        "replay_launches": replay_launches[0],
         "max_abs_err": reverse_err,
         "ms": sum(p["kernel_ms"] for p in ret["per"].values()),
         "plain_ms": sum(p["plain_ms"] for p in ret["per"].values()),
@@ -2045,8 +2348,21 @@ def main() -> int:
         "bound_by": max(ret["per"].values(),
                         key=lambda p: p["bound_ms"])["bound_by"],
         "library_ms": ret["library_ms"],
+        "design": "lane = query: up to 256 queries per tile against 1024-row "
+                  "spans staged once, ~9 instructions per pair at lc 3, "
+                  "per-256-row match counts beside the words",
+        "graph_ms": sum(p["kernel_graph_ms"] for p in ret["per"].values()),
+        "extraction_ms": ret["extract_ms"],
+        "device_path_ms": ret["path_ms"],
+        "bound_rate": f"INT32 lanes {ret['int32_ops_per_s']:.4g} ops/s "
+                      f"(64 per SM per clock at the max SM clock)",
+        "bound_ms_at_fp32_rate": sum(p["bound_ms_at_fp32_rate"]
+                                     for p in ret["per"].values()),
+        "ptxas": {str(lc): v for lc, v in sorted(reverse_ptxas.items())}
+        if reverse_ptxas is not None else None,
         "bit_equal": reverse_err == 0,
         "per_launch": ret["per"],
+        "skewed_probe": ret["skewed_probe"],
         "filters_per_s": ret["filters_per_s"],
         "replayed_rows_per_s": ret["rows_per_s"],
         "host_walk_filters_per_s": ret["host_filters_per_s"],
@@ -2054,6 +2370,33 @@ def main() -> int:
         "per_batch": f"probe + dense launches of one {BATCH}-filter "
                      f"retained batch; library_ms: the reference's coded "
                      f"dense product as one fp32 torch.matmul",
+    }, {
+        "name": "reverse_extract",
+        "route": "cuda",
+        "source": "vernemq_tpu_torch/csrc/reverse_match.cu",
+        "replaces": "vernemq_tpu/ops/match_kernel.py:225 (extract_indices_"
+                    "packed, as vernemq_tpu/ops/reverse_kernel.py:230 and "
+                    ":249 call it)",
+        "launches": ret["extract_launches"],
+        "replay_launches": replay_launches[1],
+        "max_abs_err": ret["extract_err"],
+        "ms": ret["extract_ms"],
+        "plain_ms": sum(p["extract_plain_ms"] for p in ret["per"].values()),
+        "bound_ms": sum(p["extract_bound_ms"] for p in ret["per"].values()),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "design": "one warp per row, lane = chunk: 4 x 32 chunk counts "
+                  "in flight, a shuffle prefix, and each lane whose chunk "
+                  "holds one of the first k matches writes its bits",
+        "graph_ms": sum(p["extract_graph_ms"] for p in ret["per"].values()),
+        "per_launch": {n: {k: p[k] for k in ("extract_ms", "extract_graph_ms",
+                                             "extract_plain_ms",
+                                             "extract_bound_ms",
+                                             "extract_bytes",
+                                             "extract_err")}
+                       for n, p in ret["per"].items()},
+        "per_batch": f"probe + dense extraction of one {BATCH}-filter "
+                     f"retained batch",
     }]
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
     print(json.dumps({"kernels": kernels}))

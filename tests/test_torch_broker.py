@@ -68,6 +68,41 @@ async def _drain(c, quiet=0.3):
         out.append((m.topic, bytes(m.payload), m.qos, bool(m.retain)))
 
 
+#: the end-of-script marker topics: a $-topic, so no wildcard filter of a
+#: case matches it (MQTT-4.7.2-1)
+MARKER = "$end"
+
+
+async def _settle(flat, limit=60.0):
+    """End a case's script alike on every broker: each client subscribes
+    to the marker topics, then each publishes one QoS 1 marker. A broker
+    delivers one publisher's messages in order, so a client that holds every
+    marker holds every delivery of the script, however slowly the last
+    flush ran; it then drains as before. Returns each client's deliveries,
+    markers left out."""
+    for _, c in flat:
+        await c.subscribe(MARKER + "/#", qos=1)
+    for i, (_, c) in enumerate(flat):
+        # a payload: after a QoS 1 publish with an empty one, the reference
+        # broker's stop() waits on that connection forever
+        await c.publish(f"{MARKER}/{i}", b"end", qos=1)
+
+    async def one(c):
+        out, seen = [], set()
+        while len(seen) < len(flat):
+            m = await asyncio.wait_for(c.messages.get(), limit)
+            assert m is not None, "connection closed before every marker"
+            if m.topic.startswith(MARKER + "/"):
+                seen.add(m.topic)
+            else:
+                out.append((m.topic, bytes(m.payload), m.qos,
+                            bool(m.retain)))
+        return out + [x for x in await _drain(c)
+                      if not x[0].startswith(MARKER + "/")]
+
+    return await asyncio.gather(*(one(c) for _, c in flat))
+
+
 async def _case_wildcards(port):
     a = await _client(port, "a")
     await a.subscribe(["w/+/x", "w/#"], qos=1)
@@ -146,13 +181,14 @@ CASES = {"wildcards": _case_wildcards, "shared": _case_shared,
 
 
 async def _run(case, port):
-    """Run a case's script; returns {client or group: Counter of
-    deliveries}. A shared group's deliveries are counted together: which
-    member gets a message is the policy's choice."""
+    """Run a case's script and settle it (:func:`_settle`); returns {client
+    or group: Counter of deliveries}. A shared group's deliveries are
+    counted together: which member gets a message is the policy's
+    choice."""
     clients = await CASES[case](port)
     flat = [(k, c) for k, v in clients.items()
             for c in (v if isinstance(v, tuple) else (v,))]
-    got = await asyncio.gather(*(_drain(c) for _, c in flat))
+    got = await _settle(flat)
     out = collections.defaultdict(collections.Counter)
     for (k, _), msgs in zip(flat, got):
         out[k].update(msgs)
@@ -195,6 +231,66 @@ async def test_port_broker_delivers_as_reference(case):
         await ps.stop()
     assert got == want
     assert sum(sum(c.values()) for c in got.values()) > 0
+
+
+@pytest.mark.asyncio
+async def test_slow_last_flush_is_waited_for_not_cut(monkeypatch):
+    """The v5 case ends on a QoS 0 publish. With the port's flush of it
+    delayed 0.6 s (a stand-in for a loaded machine), the client receives it
+    late but receives it: the settled script waits for it, and the
+    deliveries equal the reference's. A fixed quiet period of 0.3 s alone
+    would have ended before it arrived."""
+    from vernemq_tpu_torch.models.matcher import GpuMatcher
+    from vernemq_tpu_torch.robustness import faults as PF
+
+    delayed = []  # the topics of each matcher call the rule fired in
+
+    def record(name):
+        impl = getattr(GpuMatcher, name)
+
+        def wrapped(self, batches, *a, **kw):
+            before = rule.fired
+            try:
+                return impl(self, batches, *a, **kw)
+            finally:
+                if rule.fired != before:
+                    flat = batches if name == "_match_batch_impl" else \
+                        [t for b in batches for t in b]
+                    delayed.append({"/".join(t) for t in flat})
+        monkeypatch.setattr(GpuMatcher, name, wrapped)
+
+    rb, rs = await ref_start_broker(
+        RefConfig(**BASE, default_reg_view="trie"), port=0)
+    try:
+        want = await _run("v5", rs.port)
+    finally:
+        await rb.stop()
+        await rs.stop()
+    pb, ps = await start_broker(Config(**BASE, default_reg_view="tpu"),
+                                port=0, device="cpu")
+    # the script's eighth device dispatch is the final rap/u publish's:
+    # six QoS 1 nl/t publishes and the retained rap/t before it, one each
+    rule = PF.FaultRule("device.dispatch", kind="latency", after=7,
+                        count=1, latency_ms=600)
+    for name in ("_match_batch_impl", "_match_many_impl"):
+        record(name)
+    PF.install(PF.FaultPlan([rule], seed=1))
+    try:
+        t0 = time.monotonic()
+        got = await _run("v5", ps.port)
+        took = time.monotonic() - t0
+        m, hs = _host_served(pb)
+        assert m.match_publishes > 0 and not any(hs.values()), hs
+    finally:
+        PF.clear()
+        await pb.stop()
+        await ps.stop()
+    assert rule.fired == 1 and took > 0.6
+    # the delayed flush is the final publish's, whatever the collector
+    # merged into it
+    assert delayed and all("rap/u" in topics for topics in delayed), delayed
+    assert got == want
+    assert got["r"][("rap/u", b"live", 0, False)] == 1
 
 
 async def _case_retained(port):

@@ -3,8 +3,9 @@ and the device paths that only a card can show: match_many equal to K
 match_batch dispatches with no host sync between its launches, a kernel
 library that fails to build raising from the matcher, a kernel that faults
 on the card failing the collector's futures, the retained reverse match on
-the card equal to its plain path, and a refused reverse kernel failing the
-replay futures.
+the card equal to its plain path (both of its kernels: the compare and the
+two-level extraction), a refused reverse kernel failing the replay futures,
+and the retained index's warm first build.
 
 Marked ``cuda``: without a card every test skips (a kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs
@@ -412,32 +413,53 @@ def _cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
 
-# (label, N, L, id bits, lc, tiles, seg): probe windows of 512 and 16,384
-# rows, 24-bit ids, and a dense window of the whole table with lc < L
+# (label, N, L, id bits, lc, tiles, TP, seg, ragged): probe windows of 512
+# and 16,384 rows, 24-bit ids, a dense window of the whole table with
+# lc < L, tiles of 64 and 256 slots, lc = 1 and 16 at L = 16, a table of
+# no whole number of 256-row chunks with windows off the chunk grid, rows
+# of L = 10 words (no 16-byte loads) under the lc 12 template, and lc = 20
+# under the lc 24 template
 REVERSE_SHAPES = [
-    ("probe seg=512 lc=3", 1 << 14, 8, 16, 3, 40, 512),
-    ("probe seg=16384 24-bit", 1 << 16, 8, 24, 8, 6, 16384),
-    ("dense lc<L", 1 << 16, 16, 16, 5, 2, 1 << 16),
+    ("probe seg=512 lc=3", 1 << 14, 8, 16, 3, 40, 32, 512, False),
+    ("probe seg=16384 24-bit", 1 << 16, 8, 24, 8, 6, 32, 16384, False),
+    ("dense lc<L", 1 << 16, 16, 16, 5, 2, 32, 1 << 16, False),
+    ("TP=64 lc=1 L=16", 1 << 15, 16, 16, 1, 12, 64, 4096, False),
+    ("TP=256 lc=16 L=16", 1 << 15, 16, 16, 16, 1, 256, 1 << 15, False),
+    ("ragged", (1 << 15) - 100, 8, 16, 3, 6, 96, 4096, True),
+    ("L=10 lc=9", 1 << 14, 10, 16, 9, 8, 64, 2048, False),
+    ("lc=20 L=24 TP=256", 1 << 14, 24, 24, 20, 2, 256, 4096, False),
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("label,N,L,bits,lc,T,seg", REVERSE_SHAPES,
-                         ids=[r[0] for r in REVERSE_SHAPES])
-def test_reverse_kernel_matches_plain_version(label, N, L, bits, lc, T, seg):
-    """The reverse-compare kernel equals its plain version bit for bit
-    ($-topics, inactive rows, unknown words, pad levels included), launches
-    once and waits for nothing on the host."""
-    _card()
-    B = 256
-    (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(T + seg, N, L, B,
+def _reverse_operands(seed, N, L, bits, lc, T, TP, seg, ragged=False,
+                      B=256):
+    """Kernel operands on the card (~10% empty slots) and the host
+    starts; with ``ragged`` the first two windows start at 777 and at
+    N - seg."""
+    (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(seed, N, L, B,
                                                         bits=bits, lc=lc)
     rng = np.random.default_rng(T)
-    sel = rng.integers(0, B, (T, 32)).astype(np.int32)
+    sel = rng.integers(0, B, (T, TP)).astype(np.int32)
+    sel[rng.random((T, TP)) < 0.1] = -1
     start = rng.integers(0, N - seg + 1, T).astype(np.int32)
-    x = (_cuda(rw), _cuda(TR.pack_row_meta(rl, rd, ra)), _cuda(qw),
-         _cuda(qe), TR.query_flags(_cuda(qh), _cuda(qf)), _cuda(sel),
-         _cuda(start))
+    if ragged:
+        start[:2] = [777, N - seg]
+    return (_cuda(rw), _cuda(TR.pack_row_meta(rl, rd, ra)), _cuda(qw),
+            _cuda(qe), TR.query_flags(_cuda(qh), _cuda(qf)), _cuda(sel),
+            _cuda(start)), start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,N,L,bits,lc,T,TP,seg,ragged", REVERSE_SHAPES,
+                         ids=[r[0] for r in REVERSE_SHAPES])
+def test_reverse_kernel_matches_plain_version(label, N, L, bits, lc, T, TP,
+                                              seg, ragged):
+    """The reverse-compare kernel equals its plain version bit for bit,
+    packed words and chunk counts ($-topics, inactive rows, unknown words,
+    pad levels and empty slots included), launches once and waits for
+    nothing on the host."""
+    _card()
+    x, start = _reverse_operands(T + seg, N, L, bits, lc, T, TP, seg, ragged)
     RT.reverse_tiles_packed(*x, seg=seg, lc=lc, start_host=start)  # build
     before = RT.launches
     torch.cuda.set_sync_debug_mode("error")  # a device→host copy raises
@@ -448,8 +470,9 @@ def test_reverse_kernel_matches_plain_version(label, N, L, bits, lc, T, seg):
     want = RT.reverse_tiles_packed_ref(*x, seg=seg, lc=lc)
     torch.cuda.synchronize()
     assert RT.launches == before + 1
-    assert torch.equal(got, want)
-    assert int(TK._popcount(want).sum()) > 100  # not vacuous
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 100  # not vacuous
+    assert not want[0][(x[5] < 0).reshape(-1)].any()  # empty slots
 
 
 @pytest.mark.cuda
@@ -463,34 +486,102 @@ def test_reverse_kernel_rejects_what_it_cannot_take():
     with pytest.raises(TM.KernelInputError, match="leave the table"):
         RT.reverse_tiles_packed(*x, **{**ok, "start_host": [4000]})
     with pytest.raises(TM.KernelInputError, match="seg"):
-        RT.reverse_tiles_packed(*x, **{**ok, "seg": 320})
-    bad = list(x)
-    bad[5] = _cuda(np.zeros((1, 16), np.int32))  # TP not a multiple of 32
-    with pytest.raises(TM.KernelInputError):
-        RT.reverse_tiles_packed(*bad, **ok)
+        RT.reverse_tiles_packed(*x, **{**ok, "seg": 320})  # not 256-whole
+    for tp in (16, 48, 288):  # not a multiple of 32, or above 256
+        bad = list(x)
+        bad[5] = _cuda(np.zeros((1, tp), np.int32))
+        with pytest.raises(TM.KernelInputError, match="TP"):
+            RT.reverse_tiles_packed(*bad, **ok)
     bad = list(x)
     bad[0] = x[0].long()
     with pytest.raises(TM.KernelInputError, match="int32"):
         RT.reverse_tiles_packed(*bad, **ok)
 
 
+def _extract_operands(seed, R0=96, nchunks=40):
+    """A packed mask of R0 rows of nchunks 256-row chunks: rows at several
+    densities (some far past any k), empty rows, a row whose only match is
+    its last bit, a row of only its last chunk; its chunk counts."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((R0, nchunks * 256)) < rng.choice(
+        [0.0005, 0.01, 0.2, 0.7], (R0, 1))
+    m[0] = False
+    m[1] = False
+    m[1, -1] = True
+    m[2] = False
+    m[2, -256:] = True
+    bits = (m.reshape(R0, -1, 32).astype(np.uint64)
+            << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    packed = _cuda(bits.astype(np.uint32).view(np.int32))
+    return packed, RT.chunk_counts(packed), m
+
+
 @pytest.mark.cuda
-def test_reverse_match_on_card_equals_the_plain_path():
-    """The whole dispatch (probe tiles, dense tiles, extraction) on the
-    card equals the same call on the CPU, where the wrapper takes the
-    kernel's plain version."""
+@pytest.mark.parametrize("k", [16, 256])
+def test_extraction_kernel_matches_plain_version(k):
+    """The extraction kernel equals its plain version (count, validity, the
+    ids where valid; 0 past the count) on selected, repeated and dead rows,
+    launches once and waits for nothing on the host."""
+    _card()
+    packed, counts, m = _extract_operands(k)
+    rng = np.random.default_rng(k)
+    rows = _cuda(np.concatenate([[0, 1, 2, 1], rng.integers(
+        0, len(m), 300)]).astype(np.int32))
+    ok = _cuda(rng.random(rows.shape[0]) < 0.9)
+    RT.extract_chunks(packed, counts, k, rows=rows, ok=ok)  # build
+    before = RT.extract_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gi, gv, gc = RT.extract_chunks(packed, counts, k, rows=rows, ok=ok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wi, wv, wc = RT.extract_chunks_ref(packed, counts, k, rows=rows, ok=ok)
+    torch.cuda.synchronize()
+    assert RT.extract_launches == before + 1
+    assert torch.equal(gc, wc) and torch.equal(gv, wv)
+    assert torch.equal(gi[gv], wi[wv]) and not gi[~gv].any()
+    r, o = rows.cpu().numpy(), ok.cpu().numpy()
+    for i in (1, 2, 3, 7):
+        want = np.nonzero(m[r[i]])[0][:k] if o[i] else []
+        np.testing.assert_array_equal(gi[i][gv[i]].cpu().numpy(), want)
+    assert (gc > k).any() and gv.sum() > 1000
+
+
+@pytest.mark.cuda
+def test_extraction_kernel_rejects_what_it_cannot_take():
+    _card()
+    packed, counts, _ = _extract_operands(1, R0=8, nchunks=4)
+    rows = _cuda(np.arange(8, dtype=np.int32))
+    ok = _cuda(np.ones(8, bool))
+    with pytest.raises(TM.KernelInputError, match="int32"):
+        RT.extract_chunks(packed, counts, 8, rows=rows.long(), ok=ok)
+    with pytest.raises(TM.KernelInputError, match="bool"):
+        RT.extract_chunks(packed, counts, 8, rows=rows, ok=ok.int())
+    with pytest.raises(TM.KernelInputError, match="chunks of the packed"):
+        RT.extract_chunks(packed, counts[:, :3], 8, rows=rows, ok=ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("TP", [32, 64])
+def test_reverse_match_on_card_equals_the_plain_path(TP):
+    """The whole dispatch (probe tiles, dense tiles, the two-level
+    extraction over the kernel's counts) on the card equals the same call
+    on the CPU, where the wrapper takes the kernel's plain version; with
+    64-slot tiles a quarter of the slots are empty."""
     _card()
     N, L, B, T, seg = 8192, 8, 160, 4, 1024
     (rw, rl, rd, ra), (qw, qe, qh, qf) = reverse_inputs(21, N, L, B, lc=4)
     rng = np.random.default_rng(21)
     order = rng.permutation(B)
-    t_sel = order[:T * 32].reshape(T, 32).astype(np.int32)
+    per = 32 if TP == 32 else 24
+    t_sel = np.full((T, TP), -1, np.int32)
+    t_sel[:, :per] = order[:T * per].reshape(T, per)
     q_tile = np.full(B, -1, np.int32)
     q_pos = np.zeros(B, np.int32)
-    q_tile[t_sel.ravel()] = np.repeat(np.arange(T), 32)
-    q_pos[t_sel.ravel()] = np.tile(np.arange(32), T)
+    q_tile[t_sel[:, :per].ravel()] = np.repeat(np.arange(T), per)
+    q_pos[t_sel[:, :per].ravel()] = np.tile(np.arange(per), T)
     t_start = rng.integers(0, N - seg + 1, T).astype(np.int32)
-    d_sel = order[T * 32:].astype(np.int32)  # 32 dense slots
+    d_sel = order[T * per:].astype(np.int32)  # 32 or 64 dense slots
     d_valid = np.arange(len(d_sel)) % 5 != 2
     meta = TR.pack_row_meta(rl, rd, ra)
     arrs = (rw, meta, qw, qe, qh, qf, t_sel)
@@ -498,10 +589,11 @@ def test_reverse_match_on_card_equals_the_plain_path():
     cpu = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     want = TR.reverse_match(*map(cpu, arrs), t_start, *map(cpu, tail),
                             k=64, seg=seg, lc=4)
-    before = RT.launches
+    before, ex_before = RT.launches, RT.extract_launches
     got = TR.reverse_match(*map(_cuda, arrs), t_start, *map(_cuda, tail),
                            k=64, seg=seg, lc=4)
     assert RT.launches == before + 2  # the probe and the dense phase
+    assert RT.extract_launches == ex_before + 2
     got = [g.cpu().numpy() for g in got]
     want = [w.numpy() for w in want]
     for (gi, gv, gc), (wi, wv, wc) in ((got[:3], want[:3]),
@@ -556,3 +648,45 @@ def test_kernel_refusal_fails_the_replay_futures():
     assert not any(st[f"retained_replay_{k}_filters"] for k in (
         "host", "degraded", "rebuild", "fallback", "stalled", "expired"))
     assert idx.device_failures == 0 and idx.breaker.state_name == "closed"
+
+
+@pytest.mark.cuda
+def test_retained_first_build_warms_without_changing_it():
+    """The retained index's first build runs one reverse dispatch on the
+    card (all its slots empty): the table on the card still equals the
+    host table, the warm-up counted no dispatch and no query, and the
+    first real batch equals the store, dense phase included."""
+    from vernemq_tpu_torch.broker.retain import RetainStore
+    from vernemq_tpu_torch.retained import RetainedIndex
+
+    _card()
+    holder = {}
+    store = RetainStore(on_dirty=lambda mp, t, v: holder["idx"].on_retain(
+        t, v))
+    idx = holder["idx"] = RetainedIndex(store, max_levels=8, device="cuda")
+    idx.async_rebuild = False
+    idx.dense_policy = "device"
+    rng = random.Random(3)
+    for i in range(3000):
+        store.insert("", (f"r{rng.randrange(16)}", f"d{rng.randrange(40)}",
+                          f"m{i % 50}"), i)
+    before = RT.launches
+    with idx.lock:
+        idx.sync()
+    assert idx.warm_ms is not None and idx.warm_ms > 0
+    assert RT.launches == before + 2  # the warm dispatch's two launches
+    state = idx._snapshot_locked(copy=True)
+    rw, meta = idx._dev
+    np.testing.assert_array_equal(rw.cpu().numpy(), state["words"])
+    np.testing.assert_array_equal(
+        meta.cpu().numpy(), TR.pack_row_meta(state["row_len"],
+                                             state["row_dollar"],
+                                             state["active"]))
+    assert idx.match_dispatches == 0 and idx.match_queries == 0
+    filters = [("r3", "+", "m7"), ("r5", "d1", "#"), ("+", "d2", "+"),
+               ("#",), ("r9", "#")] * 4
+    for f, rows in zip(filters, idx.match_filters(filters)):
+        want = store.match_filter("", list(f))
+        got = want if rows is None else rows
+        assert sorted(got) == sorted(want), f
+    assert idx.host_fallback_queries <= 4  # only "#" may pass k

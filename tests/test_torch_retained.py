@@ -52,6 +52,7 @@ _dense_compare_ref = jax.jit(JR._dense_compare,
 _dense_coded_ref = jax.jit(JR._dense_coded,
                            static_argnames=("id_bits", "k", "nc"))
 _pack_ref = jax.jit(JK._pack_mask)
+_extract_ref = jax.jit(JK.extract_indices_packed, static_argnums=(1, 2))
 
 
 @pytest.fixture(autouse=True)
@@ -129,11 +130,13 @@ def test_tile_masks_and_the_kernels_plain_version(seg, lc):
     meta = TR.pack_row_meta(rl, rd, ra)
     flags = TR.query_flags(t(qh), t(qf))
     before = RT.launches
-    packed = RT.reverse_tiles_packed(t(rw), t(meta), t(qw), t(qe), flags,
-                                     t(t_sel), t(t_start), seg=seg, lc=lc,
-                                     start_host=t_start)
+    packed, counts = RT.reverse_tiles_packed(
+        t(rw), t(meta), t(qw), t(qe), flags, t(t_sel), t(t_start), seg=seg,
+        lc=lc, start_host=t_start)
     assert RT.launches == before  # the CPU takes the plain version
     np.testing.assert_array_equal(n(packed), n(_pack_ref(want)))
+    np.testing.assert_array_equal(
+        n(counts), want.reshape(len(want), -1, RT.CHUNK).sum(2))
 
 
 def test_kernel_wrapper_checks_windows_on_the_host():
@@ -195,6 +198,166 @@ def test_reverse_match_parity(dense_mode, seg, lc):
         np.testing.assert_array_equal(gv, wv, err_msg=phase)
         np.testing.assert_array_equal(gi[gv], wi[wv], err_msg=phase)
         assert wv.sum() > 20 and (wc > 16).any(), phase
+
+
+def test_plain_version_counts_and_empty_slots():
+    """The plain version's chunk counts are the popcounts of its own packed
+    words per 256-row chunk, and a negative selector is an empty slot: its
+    row is 0 in words and counts, the other rows are the clamped gather."""
+    (rw, rl, rd, ra), (qw, qe, qh, qf) = rev_inputs(17, lc=4)
+    t_sel, t_start, *_ = tiles(17, 1024)
+    t_sel = t_sel.copy()
+    t_sel[1, ::3] = -1
+    x = (t(rw), t(TR.pack_row_meta(rl, rd, ra)), t(qw), t(qe),
+         TR.query_flags(t(qh), t(qf)))
+    packed, counts = RT.reverse_tiles_packed_ref(
+        *x, t(t_sel), t(t_start), seg=1024, lc=4)
+    bits = np.unpackbits(n(packed).view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(
+        n(counts), bits.reshape(len(packed), -1, RT.CHUNK).sum(2))
+    empty = (t_sel < 0).reshape(-1)
+    assert not n(packed)[empty].any() and not n(counts)[empty].any()
+    full, _ = RT.reverse_tiles_packed_ref(
+        *x, t(np.maximum(t_sel, 0)), t(t_start), seg=1024, lc=4)
+    np.testing.assert_array_equal(n(packed)[~empty], n(full)[~empty])
+    assert n(counts).sum() > 100
+    with pytest.raises(KernelError, match="multiple of 256"):
+        RT.reverse_tiles_packed(*x, t(t_sel), t(t_start), seg=640, lc=4,
+                                start_host=t_start)
+
+
+def _extract_cases():
+    """Packed masks ``[12, 4096 rows]``: random rows at three densities,
+    rows with more than k matches, empty rows, and matches in the last
+    bit of the last chunk."""
+    rng = np.random.default_rng(5)
+    m = np.zeros((12, 4096), bool)
+    m[0:3] = rng.random((3, 4096)) < 0.002
+    m[3:6] = rng.random((3, 4096)) < 0.05   # past k
+    m[6:8] = rng.random((2, 4096)) < 0.5    # far past k
+    m[9, -1] = True                          # only the very last bit
+    m[10, [0, 31, 32, 255, 256, 4095]] = True
+    m[11, -40:] = True                       # the last chunk only
+    return m                                 # row 8: empty
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_two_level_extraction_equals_both_references(k):
+    """The two-level extraction over the chunk counts (the extraction
+    kernel's plain version, and its wrapper on the CPU) equals the port's
+    full-width
+    extract_indices_packed and the JAX reference's (block 2048) on the same
+    packed input: counts, validity, and the ids where valid; a row selector
+    and a liveness mask select and empty rows as the dispatch uses them."""
+    m = _extract_cases()
+    packed = np.asarray(_pack_ref(m))
+    pt = t(packed)
+    counts = RT.chunk_counts(pt)
+    np.testing.assert_array_equal(n(counts),
+                                  m.reshape(12, -1, RT.CHUNK).sum(2))
+    every = dict(rows=torch.arange(12, dtype=torch.int32),
+                 ok=torch.ones(12, dtype=torch.bool))
+    got = [n(x) for x in RT.extract_chunks_ref(pt, counts, k, **every)]
+    port = [n(x) for x in TR.MK.extract_indices_packed(pt, k)]
+    ref = [n(x) for x in _extract_ref(packed, k, 2048)]
+    for want in (port, ref):
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0][got[1]], want[0][want[1]])
+    for r in range(12):
+        np.testing.assert_array_equal(got[0][r][got[1][r]],
+                                      np.nonzero(m[r])[0][:k])
+    assert (got[2] > k).any() and got[2][8] == 0 and got[1][9, 0]
+    rows = torch.tensor([11, 3, 9, 3, 0], dtype=torch.int32)
+    ok = torch.tensor([True, True, False, True, True])
+    before = RT.extract_launches
+    idx, valid, cnt = [n(x) for x in RT.extract_chunks(pt, counts, k,
+                                                        rows=rows, ok=ok)]
+    assert RT.extract_launches == before  # the CPU takes the plain version
+    for i, (r, live) in enumerate(zip(rows.tolist(), ok.tolist())):
+        if not live:
+            assert cnt[i] == 0 and not valid[i].any()
+            continue
+        assert cnt[i] == got[2][r]
+        np.testing.assert_array_equal(valid[i], got[1][r])
+        np.testing.assert_array_equal(idx[i][valid[i]],
+                                      got[0][r][got[1][r]])
+
+
+def test_prep_launches_only_the_tiles_in_use():
+    """_prep launches the tiles in use only, at a width that holds the
+    busiest region, its unused slots empty, over windows of the widest
+    live region in whole chunks; the dispatch gives the same six arrays as
+    the same queries on the reference geometry (tiles of 32 slots, the tile
+    count padded to the reference's ladder, power-of-two windows of at
+    least 512 rows)."""
+    p = Pair(cap=2048, k=256, extract_k=256)
+    rng = random.Random(21)
+    for i in range(1500):
+        p.insert((f"r{rng.randrange(8)}", f"d{rng.randrange(30)}",
+                  f"m{rng.randrange(12)}"), i)
+    idx = p.gpu
+    with idx.lock:
+        idx.sync()
+        layout = idx._layout_locked()
+        filters = ([(f"r{rng.randrange(8)}", "+", f"m{rng.randrange(12)}")
+                    for _ in range(150)]
+                   + [("+", f"d{rng.randrange(30)}", "+")
+                      for _ in range(20)])
+        enc = idx._encode_locked(filters)
+    a, *_ = idx._prep(layout, *enc, len(filters))
+    T, TP = a["t_sel"].shape
+    tiled = a["q_tile"] >= 0
+    per_region = np.bincount(enc[4][enc[4] > 0])
+    assert TP == -(-per_region.max() // 32) * 32 and TP > 32
+    assert T == a["q_tile"].max() + 1  # no pad tiles
+    assert (a["t_sel"] >= 0).sum() == tiled.sum()  # the rest empty
+    assert len(a["d_sel"]) == 32  # the dense slots: one warp, not a pow2
+    assert a["seg"] == -(-layout["bucket_max"] // 256) * 256
+
+    # the reference's geometry for the same filters: tiles of 32, the
+    # tile count padded as its compile ladder does, pad slots query 0
+    seg = min(GM._pow2ceil(max(512, layout["bucket_max"])), layout["cap"])
+    assert seg > a["seg"]
+    cidx = np.nonzero(enc[4][:len(filters)] > 0)[0].astype(np.int32)
+    budget = min(len(cidx), layout["nb"]) + -(-len(cidx) // 32) + 2
+    sel, start, tile_of, pos_of, left = GM.prepare_windows(
+        enc[4][cidx], len(cidx), layout["reg_start"], layout["reg_end"],
+        layout["cap"], budget, seg, tp=32)
+    assert not left
+    used = int(tile_of.max()) + 1
+    Tpad = max(8, -(-used // 8) * 8)
+    sel = np.concatenate([cidx[sel], np.zeros((max(0, Tpad - len(sel)), 32),
+                                              np.int32)])[:Tpad]
+    start = np.concatenate([start, np.zeros(max(0, Tpad - len(start)),
+                                            np.int32)])[:Tpad]
+    q_tile = np.full_like(a["q_tile"], -1)
+    q_pos = np.zeros_like(a["q_pos"])
+    q_tile[cidx], q_pos[cidx] = tile_of, pos_of
+    BW = 256
+    d_sel = np.zeros(BW, np.int32)
+    d_valid = np.zeros(BW, bool)
+    d_sel[:len(a["d_sel"])], d_valid[:len(a["d_sel"])] = (a["d_sel"],
+                                                          a["d_valid"])
+    rw, meta = idx._dev
+    q = [t(a[x]) for x in ("qw", "qe", "qh", "qf")]
+    new = TR.reverse_match(rw, meta, *q, t(a["t_sel"]), a["t_start"],
+                           t(a["q_tile"]), t(a["q_pos"]), t(a["d_sel"]),
+                           t(a["d_valid"]), k=a["k"], seg=a["seg"],
+                           lc=a["lc"])
+    old = TR.reverse_match(rw, meta, *q, t(sel), start, t(q_tile),
+                           t(q_pos), t(d_sel), t(d_valid), k=a["k"],
+                           seg=seg, lc=a["lc"])
+    (ni, nv, nc, ndi, ndv, ndc), (oi, ov, oc, odi, odv, odc) = [
+        [n(x) for x in r] for r in (new, old)]
+    np.testing.assert_array_equal(nc, oc)
+    np.testing.assert_array_equal(nv, ov)
+    np.testing.assert_array_equal(ni[nv], oi[ov])
+    bw = len(a["d_sel"])
+    np.testing.assert_array_equal(ndc, odc[:bw])
+    np.testing.assert_array_equal(ndv, odv[:bw])
+    np.testing.assert_array_equal(ndi[ndv], odi[:bw][odv[:bw]])
+    assert nv.sum() > 500 and ndv.sum() > 100
 
 
 @pytest.mark.parametrize("copy", [False, True])

@@ -13,47 +13,94 @@
 //   for l < lc: words[q][l] == row[r][l] || words[q][l] == PLUS || l >= eff[q]
 //
 // and out[t * TP + p][j / 32] holds that verdict in bit j % 32 (int32 words:
-// the layout of match_kernel._pack_mask). One kernel serves both phases: the
-// probe's 32-query tiles against their bucket windows, and the dense phase's
-// tiles of 32 wildcard-first queries against a window of the whole table.
+// the layout of match_kernel._pack_mask). A slot whose selector is negative
+// is empty: its row is 0. Beside the words, counts[t * TP + p][j / 256]
+// holds the number of set bits in each 256-row chunk (the block counts of a
+// two-level extraction). One kernel serves both phases: the probe's tiles
+// against their bucket windows, and the dense phase's tile of up to 256
+// wildcard-first queries against a window of the whole table.
 //
-// What bounds it. Integer compares on the CUDA cores: (lc + 3) per (query,
-// row) pair at the least, against the rows' lc words and meta (4·lc + 4
-// bytes per distinct row) and the packed mask (one bit per pair). At the
-// retained storm of 1M topics (lc = 3) the probe does ~7e7 pairs and the
-// dense phase ~2.7e8: a few tens of microseconds either way, the dense
-// phase bound by operations. As built, each pair costs a handful of
-// instructions plus a ballot; no boolean intermediate reaches device memory.
+// What bounds it. Integer operations on the CUDA cores: the rule needs
+// lc + 3 compares per (query, row) pair, against 4·lc + 4 bytes per distinct
+// row and one bit per pair written. At the retained storm of 1M topics
+// (lc = 3) the dense phase is ~2.2e8 pairs and the probe ~4e7: the INT32
+// lanes (64 per SM per clock) bound both, the bytes take a fifth to a third
+// of that time. So the design counts instructions per pair.
 //
-// Design (simple first, made fast in later work).
-// - Blocks: grid (seg / 256 row chunks, T tiles, TP / 32 query groups);
-//   256 threads. A block stages its 32 queries (selector, eff, flags, lc
-//   words and a care mask: bit l set iff level l must be equal) and its 256
-//   window rows (lc words, level-major, and meta) in shared memory with
-//   coalesced loads.
-// - Compare: warp w owns rows 32w..32w+31 of the chunk, one per lane, its
-//   lc words in registers; it walks the 32 queries (read from shared memory
-//   as broadcasts), and __ballot_sync packs the 32 verdicts of a query into
-//   its word. Lane i keeps query i's word.
-// - Store: the 32 x 8 words go through shared memory and leave as 8
-//   consecutive words (one 32-byte sector) per query row.
+// Design.
+// - Lane = query. A block is one tile of TP <= 256 slots, one thread per
+//   slot, over a span of up to 1024 window rows (grid: spans x tiles). Each
+//   thread keeps its query in registers: its lc words, a care mask per level
+//   (all ones iff level < eff and the word is not '+'), and a length window.
+//   A warp whose 32 slots are all empty skips the compare.
+// - Rows stream once per block: 256-row chunks staged in shared memory with
+//   coalesced 16-byte loads (the row's levels, 4 per load). Staging turns
+//   the meta word into two length words, P = len | flag << 20, with the flag
+//   "inactive" for ordinary queries and "inactive or $" for wildcard-first
+//   ones; a lane reads the one its query needs (two addresses per warp: no
+//   bank conflict). Words are read as warp-wide broadcasts.
+// - A pair is one test: acc = ((P - lo) & lm) | OR_l ((row_l ^ q_l) & care_l)
+//   is 0 iff the pair matches. lo = eff; lm = 0xFFFF0000 with '#' (P - lo
+//   has a high bit iff len < eff or a flag is set), all ones without (P ==
+//   eff). Levels are unrolled to exactly lc (templates for lc 1..8, then 12,
+//   16, 24, 32 with the levels past lc masked off). At lc = 3 the sm_90a
+//   code per pair is three 3-input LOPs for the levels, two more that merge
+//   and test (the last one sets the predicate), an IMAD for the subtract, a
+//   SEL and half a LOP to put the bit into the lane's word, and a quarter of
+//   a 16-byte shared load for the length words: ~9 instructions.
+// - Each lane ORs its verdicts into its own word (32 rows), counts the word
+//   into its chunk count, and parks both in shared memory; the span leaves
+//   as 128-byte rows of words per slot and 16-byte rows of counts.
 // - Bounds: the wrapper checks start + seg <= N on the host starts; rows
-//   past N still read as inactive here and selectors are clamped into the
-//   query block, so a bad argument cannot read outside its arrays.
+//   past N still read as inactive here and selectors >= B are clamped into
+//   the query block, so a bad argument cannot read outside its arrays.
+//
+// Second kernel: the two-level extraction over those counts
+// (reverse_extract_kernel; plain version reverse_tiles.extract_chunks_ref).
+// It replaces the reference's extract_indices_packed (vernemq_tpu/ops/
+// match_kernel.py:225, as reverse_kernel.py:230 and :249 call it). In plain
+// PyTorch the two levels take 11-14 ms per storm batch on one H100, over 50
+// times the compare launches: a gather of k chunks of words per row and a
+// few dozen small launches.
+// What bounds it: bytes, a few MB (the rows' counts, the words of the
+// chunks that hold each row's first k matches, the [R, k] outputs), and
+// the latency of the loads that depend on the counts. One warp per output
+// row, lane = chunk: the warp loads 4 x 32 chunk counts at once, takes
+// their exclusive prefix sums by shuffles, then each lane that owns a chunk
+// holding one of the first k matches loads its 8 words (two 16-byte loads,
+// all groups' loads in flight together) and writes their set bits'
+// positions from its chunk's offset on. Past the first k matches only a
+// sum of the remaining counts is left. Positions past the count are
+// written 0 and not valid.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 256;            // window rows per block
-constexpr int kWarps = kRows / 32;    // one 32-row word per warp
-constexpr int kQueries = 32;          // queries per block
-constexpr int kPlus = 1;              // PLUS_ID
-constexpr int kMaxLc = 32;            // care masks are 32-bit
+constexpr int kChunk = 256;                  // rows per staged chunk / count
+constexpr int kSpan = 1024;                  // rows per block
+constexpr int kSpanWords = kSpan / 32;
+constexpr int kSpanChunks = kSpan / kChunk;
+constexpr int kOutStride = kSpanWords + 1;   // padded: no bank conflicts
+constexpr int kMaxTile = 256;
+constexpr int kPlus = 1;                     // PLUS_ID
+constexpr int kMaxLc = 32;
+constexpr unsigned kFlag = 1u << 20;         // above any 16-bit length
 
-template <int LCMAX>
-__global__ void __launch_bounds__(kRows)
+__host__ __device__ constexpr int vecs(int lc) { return (lc + 3) / 4; }
+
+__host__ __device__ constexpr size_t smem_bytes(int lc, int tp) {
+    return (size_t)kChunk * vecs(lc) * 16 + 2u * kChunk * 4
+           + (size_t)tp * kOutStride * 4 + (size_t)tp * kSpanChunks * 4;
+}
+
+__device__ __forceinline__ unsigned lane_term(int row, int q, unsigned care) {
+    return ((unsigned)row ^ (unsigned)q) & care;
+}
+
+template <int LC>
+__global__ void __launch_bounds__(kMaxTile)
 reverse_match_kernel(const int* __restrict__ row_words,
                      const int* __restrict__ meta,
                      const int* __restrict__ q_words,
@@ -62,130 +109,318 @@ reverse_match_kernel(const int* __restrict__ row_words,
                      const int* __restrict__ sel,
                      const int* __restrict__ start,
                      int* __restrict__ out,
-                     int TP, int L, int N, int B, int seg, int lc) {
-    __shared__ int s_rows[LCMAX][kRows];
-    __shared__ int s_meta[kRows];
-    __shared__ int s_qw[LCMAX][kQueries];
-    __shared__ int s_sel[kQueries];
-    __shared__ int s_eff[kQueries];
-    __shared__ int s_flags[kQueries];
-    __shared__ unsigned s_care[kQueries];
-    __shared__ int s_out[kQueries][kWarps];
+                     int* __restrict__ counts,
+                     int TP, int L, int N, int B, int seg, int lc, int vec) {
+    constexpr int V = vecs(LC);
+    extern __shared__ int4 smem[];
+    int4* s_rows = smem;                                       // [kChunk][V]
+    unsigned* s_p = reinterpret_cast<unsigned*>(s_rows + kChunk * V);
+    unsigned* s_out = s_p + 2 * kChunk;                        // [TP][33]
+    int* s_cnt = reinterpret_cast<int*>(s_out + TP * kOutStride);  // [TP][4]
 
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int chunk = blockIdx.x;
     const int t = blockIdx.y;
-    const int q0 = blockIdx.z * kQueries;
-    const long long row0 = (long long)start[t] + (long long)chunk * kRows;
+    const int span0 = blockIdx.x * kSpan;              // window offset
+    const int nchunk = min(kSpan, seg - span0) / kChunk;
+    const long long row0 = (long long)start[t] + span0;
 
-    // queries: selector, eff, flags
-    if (tid < kQueries) {
-        int s = sel[(size_t)t * TP + q0 + tid];
-        s = s < 0 ? 0 : (s >= B ? B - 1 : s);
-        s_sel[tid] = s;
-        s_eff[tid] = q_eff[s];
-        s_flags[tid] = q_flags[s];
-    }
-    // rows: lc words (level-major in shared memory) and meta
-    for (int e = tid; e < kRows * lc; e += kRows) {
-        const int r = e / lc, l = e - r * lc;
-        const long long row = row0 + r;
-        s_rows[l][r] = (row >= 0 && row < N)
-            ? row_words[(size_t)row * L + l] : 0;
-    }
-    {
-        const long long row = row0 + tid;
-        s_meta[tid] = (row >= 0 && row < N) ? meta[row] : 0;
-    }
-    __syncthreads();
-    for (int e = tid; e < kQueries * lc; e += kRows) {
-        const int i = e / lc, l = e - i * lc;
-        s_qw[l][i] = q_words[(size_t)s_sel[i] * L + l];
-    }
-    __syncthreads();
-    if (tid < kQueries) {
-        const int eff = s_eff[tid];
-        unsigned care = 0;
-        for (int l = 0; l < lc; ++l)
-            care |= (unsigned)(l < eff && s_qw[l][tid] != kPlus) << l;
-        s_care[tid] = care;
-    }
-    __syncthreads();
-
-    // this lane's row
-    const int r = warp * 32 + lane;
-    const int m = s_meta[r];
-    const int rlen = m & 0xFFFF;
-    const bool rdollar = (m >> 16) & 1;
-    const bool ractive = (m >> 17) & 1;
-    int rw[LCMAX];
+    // this thread's query: words, care masks and the length window
+    int s = sel[(size_t)t * TP + tid];
+    const bool live = s >= 0;
+    s = s < 0 ? 0 : (s >= B ? B - 1 : s);
+    const int eff = q_eff[s];
+    const int f = q_flags[s];
+    int qw[LC];
+    unsigned qm[LC];
 #pragma unroll
-    for (int l = 0; l < LCMAX; ++l) rw[l] = l < lc ? s_rows[l][r] : 0;
-
-    int mine = 0;
-    for (int i = 0; i < kQueries; ++i) {
-        const int eff = s_eff[i];
-        const int f = s_flags[i];
-        const unsigned care = s_care[i];
-        bool ok = ractive && ((f & 1) ? rlen >= eff : rlen == eff)
-                  && !(rdollar && (f & 2));
-        unsigned miss = 0;
-#pragma unroll
-        for (int l = 0; l < LCMAX; ++l)
-            miss |= (unsigned)(s_qw[l][i] != rw[l]) << l;
-        ok = ok && (miss & care) == 0;
-        const unsigned word = __ballot_sync(0xffffffffu, ok);
-        if (lane == i) mine = (int)word;
+    for (int l = 0; l < LC; ++l) {
+        const int w = l < lc ? q_words[(size_t)s * L + l] : 0;
+        qw[l] = w;
+        qm[l] = (l < lc && l < eff && w != kPlus) ? ~0u : 0u;
     }
-    s_out[lane][warp] = mine;
+    unsigned lo, lm;
+    if (!live || eff > 0xFFFF || (eff < 0 && !(f & 1))) {
+        lo = 0x7FFFFFFFu;                 // matches nothing: P < 2^22
+        lm = ~0u;
+    } else if (f & 1) {                   // '#': len in [eff, 0xFFFF]
+        lo = eff < 0 ? 0u : (unsigned)eff;
+        lm = 0xFFFF0000u;
+    } else {                              // len == eff
+        lo = (unsigned)eff;
+        lm = ~0u;
+    }
+    const unsigned* s_pq = s_p + ((f & 2) ? kChunk : 0);
+    const bool warp_live = __any_sync(0xffffffffu, live);
+    const bool block_live = __syncthreads_or(live);
+
+    for (int c = 0; c < nchunk; ++c) {
+        if (!block_live) {
+            if (c == 0) {
+                for (int i = tid; i < TP * kOutStride; i += TP) s_out[i] = 0u;
+                for (int i = tid; i < TP * kSpanChunks; i += TP) s_cnt[i] = 0;
+            }
+            continue;
+        }
+        __syncthreads();   // the previous chunk's compare is done with s_rows
+        const long long r0 = row0 + (long long)c * kChunk;
+        for (int i = tid; i < kChunk * V; i += TP) {
+            const int r = i / V, v = i - r * V;
+            const long long row = r0 + r;
+            int4 x = make_int4(0, 0, 0, 0);
+            if (row >= 0 && row < N && 4 * v < lc) {   // lc <= L
+                const int* src = row_words + (size_t)row * L + 4 * v;
+                if (vec && 4 * v + 3 < L) {
+                    x = __ldg(reinterpret_cast<const int4*>(src));
+                } else {
+                    const int n = L - 4 * v;
+                    x.x = __ldg(src);
+                    if (n > 1) x.y = __ldg(src + 1);
+                    if (n > 2) x.z = __ldg(src + 2);
+                    if (n > 3) x.w = __ldg(src + 3);
+                }
+            }
+            s_rows[i] = x;
+        }
+        for (int i = tid; i < kChunk; i += TP) {
+            const long long row = r0 + i;
+            const unsigned m = (row >= 0 && row < N) ? (unsigned)__ldg(meta + row)
+                                                     : 0u;
+            const unsigned len = m & 0xFFFFu;
+            const unsigned inactive = ((m >> 17) & 1u) ^ 1u;
+            const unsigned dollar = (m >> 16) & 1u;
+            s_p[i] = len | (inactive ? kFlag : 0u);
+            s_p[kChunk + i] = len | ((inactive | dollar) ? kFlag : 0u);
+        }
+        __syncthreads();
+
+        int cnt = 0;
+        if (warp_live) {
+#pragma unroll 1
+            for (int w = 0; w < kChunk / 32; ++w) {
+                unsigned word = 0;
+#pragma unroll
+                for (int b = 0; b < 32; ++b) {
+                    const int j = w * 32 + b;
+                    const int4* rv = s_rows + j * V;
+                    unsigned acc = (s_pq[j] - lo) & lm;
+#pragma unroll
+                    for (int v = 0; v < V; ++v) {
+                        const int4 x = rv[v];
+                        if (4 * v + 0 < LC) acc |= lane_term(x.x, qw[4 * v + 0], qm[4 * v + 0]);
+                        if (4 * v + 1 < LC) acc |= lane_term(x.y, qw[4 * v + 1], qm[4 * v + 1]);
+                        if (4 * v + 2 < LC) acc |= lane_term(x.z, qw[4 * v + 2], qm[4 * v + 2]);
+                        if (4 * v + 3 < LC) acc |= lane_term(x.w, qw[4 * v + 3], qm[4 * v + 3]);
+                    }
+                    word |= (acc == 0u ? 1u : 0u) << b;
+                }
+                s_out[tid * kOutStride + c * (kChunk / 32) + w] = word;
+                cnt += __popc(word);
+            }
+        } else {
+#pragma unroll
+            for (int w = 0; w < kChunk / 32; ++w)
+                s_out[tid * kOutStride + c * (kChunk / 32) + w] = 0u;
+        }
+        s_cnt[tid * kSpanChunks + c] = cnt;
+    }
     __syncthreads();
 
-    // 8 consecutive words (one sector) per query row
-    const int i = tid / kWarps, w = tid % kWarps;
+    // the span's words (one row of up to 32 words per slot) and counts
     const int W = seg / 32;
-    out[((size_t)t * TP + q0 + i) * W + (size_t)chunk * kWarps + w] =
-        s_out[i][w];
+    const int nb = seg / kChunk;
+    const int nw = nchunk * (kChunk / 32);
+    const size_t slot0 = (size_t)t * TP;
+    for (int i = tid; i < TP * nw; i += TP) {
+        const int p = i / nw, w = i - p * nw;
+        out[(slot0 + p) * W + span0 / 32 + w] = (int)s_out[p * kOutStride + w];
+    }
+    for (int i = tid; i < TP * nchunk; i += TP) {
+        const int p = i / nchunk, c = i - p * nchunk;
+        counts[(slot0 + p) * nb + span0 / kChunk + c] =
+            s_cnt[p * kSpanChunks + c];
+    }
 }
 
-template <int LCMAX>
+template <int LC>
 int launch(const void* row_words, const void* meta, const void* q_words,
            const void* q_eff, const void* q_flags, const void* sel,
-           const void* start, void* out, int T, int TP, int L, int N, int B,
-           int seg, int lc, cudaStream_t stream) {
-    dim3 grid(seg / kRows, T, TP / kQueries);
-    reverse_match_kernel<LCMAX><<<grid, kRows, 0, stream>>>(
+           const void* start, void* out, void* counts, int T, int TP, int L,
+           int N, int B, int seg, int lc, cudaStream_t stream) {
+    const size_t smem = smem_bytes(LC, TP);
+    static bool opted_in = false;  // once per template: raise the 48 KB cap
+    if (!opted_in) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            reverse_match_kernel<LC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem_bytes(LC, kMaxTile));
+        if (e != cudaSuccess) return (int)e;
+        opted_in = true;
+    }
+    const int vec = (L % 4 == 0)
+        && (reinterpret_cast<uintptr_t>(row_words) % 16 == 0);
+    dim3 grid((seg + kSpan - 1) / kSpan, T);
+    reverse_match_kernel<LC><<<grid, TP, smem, stream>>>(
         static_cast<const int*>(row_words), static_cast<const int*>(meta),
         static_cast<const int*>(q_words), static_cast<const int*>(q_eff),
         static_cast<const int*>(q_flags), static_cast<const int*>(sel),
-        static_cast<const int*>(start), static_cast<int*>(out), TP, L, N, B,
-        seg, lc);
+        static_cast<const int*>(start), static_cast<int*>(out),
+        static_cast<int*>(counts), TP, L, N, B, seg, lc, vec);
     return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+    }
+    return x;
+}
+
+constexpr int kWordsPerChunk = kChunk / 32;   // 8: two 16-byte loads
+constexpr int kGroups = 4;                     // 32-chunk groups in flight
+
+__global__ void __launch_bounds__(256)
+reverse_extract_kernel(const int* __restrict__ packed,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ rows,
+                       const unsigned char* __restrict__ ok,
+                       int* __restrict__ idx,
+                       unsigned char* __restrict__ valid,
+                       int* __restrict__ cnt,
+                       int R, int R0, int W, int nb, int k) {
+    const int r = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+    const int lane = threadIdx.x & 31;
+    if (r >= R) return;   // whole warps: R rows of 32 lanes
+    int src = rows[r];
+    src = src < 0 ? 0 : (src >= R0 ? R0 - 1 : src);
+    const int* crow = counts + (size_t)src * nb;
+    const int* prow = packed + (size_t)src * W;
+    int* irow = idx + (size_t)r * k;
+    int total = 0;   // matches in the chunks before b0
+    int b0 = 0;
+    if (ok[r]) {
+        // kGroups groups of 32 chunks at a time: their counts and the
+        // words of every chunk that holds one of the first k matches are
+        // loaded before any is used, so one load latency serves them all
+        for (; b0 < nb && total < k; b0 += 32 * kGroups) {
+            int c[kGroups], ex[kGroups];
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+                const int b = b0 + 32 * g + lane;
+                c[g] = b < nb ? __ldg(crow + b) : 0;
+            }
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+                const int incl = warp_inclusive_sum(c[g], lane);
+                ex[g] = total + incl - c[g];
+                total += __shfl_sync(0xffffffffu, incl, 31);
+            }
+            int4 wv[kGroups][2];
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+                wv[g][0] = wv[g][1] = make_int4(0, 0, 0, 0);
+                if (c[g] > 0 && ex[g] < k) {
+                    const int4* src4 = reinterpret_cast<const int4*>(
+                        prow + (size_t)(b0 + 32 * g + lane) * kWordsPerChunk);
+                    wv[g][0] = __ldg(src4);
+                    wv[g][1] = __ldg(src4 + 1);
+                }
+            }
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+                if (!(c[g] > 0 && ex[g] < k)) continue;
+                const int w[kWordsPerChunk] = {
+                    wv[g][0].x, wv[g][0].y, wv[g][0].z, wv[g][0].w,
+                    wv[g][1].x, wv[g][1].y, wv[g][1].z, wv[g][1].w};
+                int p = ex[g];
+                const int base = (b0 + 32 * g + lane) * kChunk;
+#pragma unroll
+                for (int i = 0; i < kWordsPerChunk; ++i) {
+                    unsigned word = (unsigned)w[i];
+                    while (word && p < k) {
+                        irow[p++] = base + i * 32 + __ffs(word) - 1;
+                        word &= word - 1;
+                    }
+                }
+            }
+        }
+        // past the first k matches only the count is left: a sum
+        int rest = 0;
+        for (int b = b0 + lane; b < nb; b += 32) rest += __ldg(crow + b);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            rest += __shfl_xor_sync(0xffffffffu, rest, o);
+        total += rest;
+    }
+    if (lane == 0) cnt[r] = total;
+    unsigned char* vrow = valid + (size_t)r * k;
+    for (int j = lane; j < k; j += 32) {
+        vrow[j] = j < total;
+        if (j >= total) irow[j] = 0;
+    }
 }
 
 }  // namespace
 
+extern "C" int reverse_extract_launch(const void* packed, const void* counts,
+                                      const void* rows, const void* ok,
+                                      void* idx, void* valid, void* cnt,
+                                      int R, int R0, int W, int nb, int k,
+                                      void* stream) {
+    if (R <= 0 || R0 <= 0 || nb <= 0 || W != nb * kWordsPerChunk || k <= 0
+        || reinterpret_cast<uintptr_t>(packed) % 16)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    const long long blocks = ((long long)R * 32 + threads - 1) / threads;
+    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    reverse_extract_kernel<<<(unsigned)blocks, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(packed), static_cast<const int*>(counts),
+        static_cast<const int*>(rows),
+        static_cast<const unsigned char*>(ok), static_cast<int*>(idx),
+        static_cast<unsigned char*>(valid), static_cast<int*>(cnt), R, R0, W,
+        nb, k);
+    return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one compare block: the lc template's staged
+// rows, their length words, and the words and counts of TP slots.
+extern "C" int reverse_match_smem_bytes(int lc, int tp) {
+    const int t = lc <= 8 ? lc : lc <= 12 ? 12 : lc <= 16 ? 16
+        : lc <= 24 ? 24 : 32;
+    return (int)smem_bytes(t, tp);
+}
+
 extern "C" int reverse_match_launch(const void* row_words, const void* meta,
                                     const void* q_words, const void* q_eff,
                                     const void* q_flags, const void* sel,
-                                    const void* start, void* out, int T,
-                                    int TP, int L, int N, int B, int seg,
-                                    int lc, void* stream) {
-    if (T <= 0 || T > 65535 || TP <= 0 || TP % kQueries
-        || TP / kQueries > 65535 || B <= 0 || seg <= 0 || seg % kRows
-        || lc < 1 || lc > L || lc > kMaxLc)
+                                    const void* start, void* out,
+                                    void* counts, int T, int TP, int L,
+                                    int N, int B, int seg, int lc,
+                                    void* stream) {
+    if (T <= 0 || T > 65535 || TP <= 0 || TP % 32 || TP > kMaxTile
+        || B <= 0 || seg <= 0 || seg % kChunk || lc < 1 || lc > L
+        || lc > kMaxLc)
         return (int)cudaErrorInvalidValue;
     auto s = static_cast<cudaStream_t>(stream);
-    if (lc <= 4)
-        return launch<4>(row_words, meta, q_words, q_eff, q_flags, sel,
-                         start, out, T, TP, L, N, B, seg, lc, s);
-    if (lc <= 8)
-        return launch<8>(row_words, meta, q_words, q_eff, q_flags, sel,
-                         start, out, T, TP, L, N, B, seg, lc, s);
-    if (lc <= 16)
-        return launch<16>(row_words, meta, q_words, q_eff, q_flags, sel,
-                          start, out, T, TP, L, N, B, seg, lc, s);
-    return launch<32>(row_words, meta, q_words, q_eff, q_flags, sel, start,
-                      out, T, TP, L, N, B, seg, lc, s);
+#define REVERSE_LAUNCH(LCT)                                                   \
+    return launch<LCT>(row_words, meta, q_words, q_eff, q_flags, sel, start, \
+                       out, counts, T, TP, L, N, B, seg, lc, s)
+    switch (lc) {
+        case 1: REVERSE_LAUNCH(1);
+        case 2: REVERSE_LAUNCH(2);
+        case 3: REVERSE_LAUNCH(3);
+        case 4: REVERSE_LAUNCH(4);
+        case 5: REVERSE_LAUNCH(5);
+        case 6: REVERSE_LAUNCH(6);
+        case 7: REVERSE_LAUNCH(7);
+        case 8: REVERSE_LAUNCH(8);
+        default: break;
+    }
+    if (lc <= 12) REVERSE_LAUNCH(12);
+    if (lc <= 16) REVERSE_LAUNCH(16);
+    if (lc <= 24) REVERSE_LAUNCH(24);
+    REVERSE_LAUNCH(32);
+#undef REVERSE_LAUNCH
 }

@@ -14,21 +14,24 @@ a topic row iff
   ``$``-topic;
 - the row is live.
 
-:func:`reverse_match` runs the reference's two phases — probe tiles of 32
+:func:`reverse_match` runs the reference's two phases — probe tiles of
 concrete-level-0 queries against ``seg``-row windows of their bucket
 regions, and the wildcard-first queries against every row — through ONE
 hand kernel, ``ops/reverse_tiles.py`` (``csrc/reverse_match.cu``), which
 writes the packed mask directly, so no ``[queries, rows]`` intermediate
-reaches device memory (the reference relies on XLA's fusion for that). The
-dense phase is the same compare over windows of the whole table: the
-reference's coded-matmul variant (:func:`_dense_coded`, which keeps a coded
-row operand ``G_t`` resident) is kept here as a plain function only, for
-the parity tests and as a timing yardstick; the port keeps no ``G_t`` on
-the device. The reference's own tests hold the two dense variants
-bit-identical.
+reaches device memory (the reference relies on XLA's fusion for that), and
+beside it the set bits of every ``CHUNK``-row chunk. The dense phase is the
+same compare over one window of the whole table, its queries in tiles of up
+to ``MAX_TILE``. The reference's coded-matmul variant (:func:`_dense_coded`,
+which keeps a coded row operand ``G_t`` resident) is kept here as a plain
+function only, for the parity tests and as a timing yardstick; the port
+keeps no ``G_t`` on the device. The reference's own tests hold the two
+dense variants bit-identical.
 
-Extraction reuses the forward path's packed-mask machinery
-(``match_kernel._pack_mask`` / ``extract_indices_packed``).
+Extraction is two-level over the kernel's chunk counts, as the reference's
+``extract_indices_packed`` works over its block counts, and is the second
+hand kernel of the same source (``reverse_tiles.extract_chunks``): no pass
+over the full-width packed mask.
 """
 
 from __future__ import annotations
@@ -44,16 +47,14 @@ PAD_ID = MK.PAD_ID
 PLUS_ID = MK.PLUS_ID
 HASH_ID = MK.HASH_ID
 
-#: queries per probe tile (retained windows are narrow; slot padding is the
-#: dominant waste at storm batch sizes). The dense phase runs in tiles of
-#: the same width.
+#: query slots come in warps of 32: a tile's width TP is a multiple, up to
+#: MAX_TILE (the kernel's one thread per slot)
 TILE_QUERIES = 32
+MAX_TILE = 256
+#: rows per chunk count (the first level of the extraction): the index
+#: sizes probe windows and the table capacity (% 2048) in whole chunks
+CHUNK = 256
 
-#: the reference's packed-extraction blocks (windows are pow2 >= 512, the
-#: table capacity % 2048); the port's extraction needs no block, but the
-#: index sizes its windows by PROBE_BLOCK as the reference does
-PROBE_BLOCK = 512
-DENSE_BLOCK = 2048
 #: row chunk of the plain dense functions: bounds their [BW, nc] mask
 DENSE_CHUNK = 1 << 17
 
@@ -188,58 +189,68 @@ def _dense_compare(row_words, row_len, row_dollar, row_active, dq_words,
     return _dense_chunks(mask, row_words.shape[0], nc, k)
 
 
+def dense_selectors(d_sel: torch.Tensor, d_valid: torch.Tensor):
+    """The dense phase's kernel selectors ``[nt, TP]``: the live ``d_sel``
+    slots in the fewest tiles of at most ``MAX_TILE`` slots (each a multiple
+    of ``TILE_QUERIES`` wide), every other slot empty (-1)."""
+    BW = d_sel.shape[0]
+    nt = -(-BW // MAX_TILE)
+    TP = -(-(-(-BW // nt)) // TILE_QUERIES) * TILE_QUERIES
+    sel = torch.full((nt * TP,), -1, dtype=torch.int32, device=d_sel.device)
+    sel[:BW] = torch.where(d_valid, d_sel, -1)
+    return sel.reshape(nt, TP)
+
+
 def reverse_match(row_words, meta, q_words, q_eff, q_hh, q_fw, t_sel,
                   t_start, q_tile, q_pos, d_sel, d_valid, *, k: int,
                   seg: int, lc: int = 0) -> Tuple[torch.Tensor, ...]:
     """One reverse-match dispatch: the probe tiles and the dense phase, both
-    through the compare kernel (``reverse_tiles.reverse_tiles_packed``).
+    through the compare kernel (``reverse_tiles.reverse_tiles_packed``),
+    each extracted in two levels over the kernel's chunk counts
+    (``reverse_tiles.extract_chunks``).
 
-    ``t_start`` holds the probe windows' start rows on the HOST (numpy or
-    a CPU tensor): the kernel wrapper checks their bounds there and the
-    starts are uploaded without a wait. Every other argument is a tensor on
-    the table's device. Returns ``(idx [B,k], valid [B,k], cnt [B],
-    didx [BW,k], dvalid [BW,k], dcnt [BW])`` — the reference's contract:
-    probe results in query order with absolute row ids, zeroed where
-    ``q_tile < 0``; dense results in ``d_sel`` slot order, zeroed where
-    ``!d_valid``; ``cnt``/``dcnt`` may exceed ``k`` (host-fallback)."""
-    from .reverse_tiles import reverse_tiles_packed
+    ``t_sel [T, TP]`` selects each probe tile's queries (negative: an empty
+    slot). ``t_start`` holds the probe windows' start rows on the HOST
+    (numpy or a CPU tensor): the kernel wrapper checks their bounds there
+    and the starts are uploaded without a wait. Every other argument is a
+    tensor on the table's device. Returns ``(idx [B,k], valid [B,k], cnt
+    [B], didx [BW,k], dvalid [BW,k], dcnt [BW])`` — the reference's
+    contract: probe results in query order with absolute row ids, zeroed
+    where ``q_tile < 0``; dense results in ``d_sel`` slot order, zeroed
+    where ``!d_valid``; ``cnt``/``dcnt`` may exceed ``k``
+    (host-fallback)."""
+    from .reverse_tiles import extract_chunks, reverse_tiles_packed
 
     dev = row_words.device
     lc = lc or row_words.shape[1]
     q_flags = query_flags(q_hh, q_fw)
     start_host = np.asarray(t_start, np.int32).reshape(-1)
     t_start_dev = torch.from_numpy(start_host).to(dev, non_blocking=True)
-    packed = reverse_tiles_packed(row_words, meta, q_words, q_eff, q_flags,
-                                  t_sel, t_start_dev, seg=seg, lc=lc,
-                                  start_host=start_host)
+    packed, counts = reverse_tiles_packed(
+        row_words, meta, q_words, q_eff, q_flags, t_sel, t_start_dev,
+        seg=seg, lc=lc, start_host=start_host)
     TP = t_sel.shape[1]
     tiled = q_tile >= 0
     tile = q_tile.clamp(min=0)
-    # packing is per row: gathering packed rows equals packing gathered rows
-    mq = packed.index_select(0, (tile * TP + q_pos).long()) \
-        * tiled[:, None].to(torch.int32)
-    idx, valid, cnt = MK.extract_indices_packed(mq, k)
+    # packing and counting are per row: extract the queries' own rows
+    idx, valid, cnt = extract_chunks(packed, counts, k,
+                                     rows=tile * TP + q_pos, ok=tiled)
     starts = torch.where(tiled, t_start_dev.index_select(0, tile.long()), 0)
     idx = idx + starts[:, None].to(torch.int32)
-    valid = valid & tiled[:, None]
-    cnt = torch.where(tiled, cnt, 0)
 
-    # dense phase: d_sel in tiles of TILE_QUERIES, each a window of the
-    # whole table from row 0
-    BW = d_sel.shape[0]
-    nt = -(-BW // TILE_QUERIES)
-    dsel = torch.zeros(nt * TILE_QUERIES, dtype=torch.int32, device=dev)
-    dsel[:BW] = d_sel
-    zeros = np.zeros(nt, np.int32)
-    dpacked = reverse_tiles_packed(
-        row_words, meta, q_words, q_eff, q_flags,
-        dsel.reshape(nt, TILE_QUERIES), torch.zeros(nt, dtype=torch.int32,
-                                                    device=dev),
-        seg=row_words.shape[0], lc=lc, start_host=zeros)[:BW]
-    didx, dvalid, dcnt = MK.extract_indices_packed(
-        dpacked * d_valid[:, None].to(torch.int32), k)
-    dcnt = torch.where(d_valid, dcnt, 0)
-    return idx, valid, cnt, didx, dvalid & d_valid[:, None], dcnt
+    # dense phase: the live d_sel slots in tiles of up to MAX_TILE, each a
+    # window of the whole table from row 0
+    dsel = dense_selectors(d_sel, d_valid)
+    nt = dsel.shape[0]
+    dpacked, dcounts = reverse_tiles_packed(
+        row_words, meta, q_words, q_eff, q_flags, dsel,
+        torch.zeros(nt, dtype=torch.int32, device=dev),
+        seg=row_words.shape[0], lc=lc, start_host=np.zeros(nt, np.int32))
+    didx, dvalid, dcnt = extract_chunks(
+        dpacked, dcounts, k,
+        rows=torch.arange(d_sel.shape[0], dtype=torch.int32, device=dev),
+        ok=d_valid)
+    return idx, valid, cnt, didx, dvalid, dcnt
 
 
 def retained_apply_delta(row_words, meta, slots, d_words, d_meta):

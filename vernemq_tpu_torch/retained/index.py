@@ -50,7 +50,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.matcher import (
-    DeviceDegraded, RebuildInProgress, _is_cuda_fault, _pow2ceil,
+    DeviceDegraded, RebuildInProgress, _is_cuda_fault,
     load_kernels, prepare_windows,
 )
 from ..ops import reverse_kernel as RK
@@ -71,16 +71,12 @@ Match = Tuple[Tuple[str, ...], Any]
 KERNEL_LIBS = ("reverse_match",)
 
 
-def _tile_ladder(n: int) -> int:
-    """Pad the probe tile count to a bounded ladder (multiples of 8 /
-    32 / 128 by size). Tile count is a compile-signature static: pow2
-    rounding wastes up to 2x mask compute on the padded tiles, a finer
-    ladder keeps waste <=~15% with a few more (workload-stable) rungs."""
-    if n <= 64:
-        return max(8, -(-n // 8) * 8)
-    if n <= 256:
-        return -(-n // 32) * 32
-    return -(-n // 128) * 128
+def _probe_tile(per_region_max: int) -> int:
+    """Probe tile width: every query of the busiest region in one tile (a
+    multiple of the kernel's warp of slots, at most its ``MAX_TILE``); the
+    kernel skips a warp of empty slots, so a wider tile costs no compare."""
+    return min(RK.MAX_TILE, -(-max(1, per_region_max) // RK.TILE_QUERIES)
+               * RK.TILE_QUERIES)
 
 
 class RetainedIndex:
@@ -695,12 +691,14 @@ class RetainedIndex:
             # serves them on-device
             host.update(dense)
             dense = []
-        TP = RK.TILE_QUERIES
-        seg = min(_pow2ceil(max(RK.PROBE_BLOCK, layout["bucket_max"])), cap)
+        # a probe window spans the widest live region, in whole chunks
+        seg = min(-(-max(1, layout["bucket_max"]) // RK.CHUNK) * RK.CHUNK,
+                  cap)
         q_tile = np.full(Bpad, -1, dtype=np.int32)
         q_pos = np.zeros(Bpad, dtype=np.int32)
         if conc:
             cidx = np.asarray(conc, dtype=np.int32)
+            TP = _probe_tile(int(np.bincount(region[cidx]).max()))
             budget = min(len(conc), NB) + -(-len(conc) // TP) + 2
             (t_sel, t_start, tile_of, pos_of,
              leftovers) = prepare_windows(
@@ -709,25 +707,21 @@ class RetainedIndex:
             for j in leftovers:
                 host.add(int(cidx[j]))
                 tile_of[j] = -1
-            # tile selectors index the CONCRETE sub-batch; remap to full
-            # batch indices (pad slots point at cidx[0] — harmless, the
-            # merge gathers only real q_tile/q_pos coordinates)
-            t_sel = cidx[t_sel]
+            # launch the tiles in use only; tile selectors index the
+            # CONCRETE sub-batch: remap to full batch indices, and mark
+            # the slots no query took empty (-1: the kernel skips them)
+            tiled = tile_of >= 0
+            used = int(tile_of.max()) + 1 if tiled.any() else 1
+            live = np.zeros((used, TP), dtype=bool)
+            live[tile_of[tiled], pos_of[tiled]] = True
+            t_sel = np.where(live, cidx[t_sel[:used]], -1).astype(np.int32)
+            t_start = t_start[:used]
             q_tile[cidx] = tile_of
             q_pos[cidx] = pos_of
-            used = int(tile_of.max()) + 1 if (tile_of >= 0).any() else 1
-            T = _tile_ladder(used)
-            if T <= t_sel.shape[0]:
-                t_sel, t_start = t_sel[:T], t_start[:T]
-            else:
-                t_sel = np.concatenate(
-                    [t_sel, np.zeros((T - t_sel.shape[0], TP), np.int32)])
-                t_start = np.concatenate(
-                    [t_start, np.zeros(T - t_start.shape[0], np.int32)])
         else:
-            t_sel = np.zeros((1, TP), dtype=np.int32)
+            t_sel = np.full((1, RK.TILE_QUERIES), -1, dtype=np.int32)
             t_start = np.zeros(1, dtype=np.int32)
-        BW = _pow2ceil(max(8, len(dense)))
+        BW = -(-max(1, len(dense)) // RK.TILE_QUERIES) * RK.TILE_QUERIES
         d_sel = np.zeros(BW, dtype=np.int32)
         d_valid = np.zeros(BW, dtype=bool)
         q_dense_pos = np.full(n, -1, dtype=np.int32)
