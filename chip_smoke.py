@@ -100,7 +100,30 @@ kernels are built for sm_90a). It
    as a multiset of (topic, payload, retain), equal the store's matches;
    the replay collector's device path served filters; every degraded,
    rebuild, fallback, stalled and expired replay counter 0 at the broker's
-   default expiry; the reverse kernel launched.
+   default expiry; the reverse kernel launched;
+14. worker mode (``[workers]``): the broker phase's load through 4
+   SO_REUSEPORT workers and one match service on the card — the same
+   corpus subscribed over MQTT by 10,000 persistent sessions through the
+   workers (ring ops to the service), the table settled, then the same
+   live clients in a second process through the shared port, at a
+   queued-publish expiry of 5 s (the broker's default is 200 ms): every
+   live subscriber's deliveries exact, nothing served off the card (the
+   service's trie-served publishes and failed folds, each worker's
+   trie-served publishes and missed folds, all 0), and of the group only
+   the service holds a GPU device node; publishes/s, PUBLISH->delivery and
+   PUBACK p50/p99 and the load time printed beside the broker phase's;
+15. the predicate phase (``[predicate]``, bench.py config 13): 512 ``$gt``,
+   128 ``$avg`` and 32 host-escape conjunction subscriptions, 24 batches
+   of 2048 publishes through ``FilterEngine.filter_batch`` with every
+   verdict pair of a batch (1,048,576) on the device (``max_pairs`` 2^20):
+   pairs/s beside the host evaluator's, the kernel held against its plain
+   version on the last dispatch's inputs (verdicts, count, min, max bit
+   for bit; sums allclose), per dispatch the host pair build, upload,
+   kernel (CUDA events and a CUDA graph) beside its bound and the plain
+   version, and download; ``filter_batch`` equal to
+   ``filter_batch_host`` on a fresh batch; the ``device.predicate`` outage
+   drill (the breaker opens, the host serves the same rows, a probe closes
+   it, dispatches resume).
 
 Its last line is ``{"ok": true, "device": {...}}``; any failed check exits
 non-zero before it. Without CUDA it exits non-zero at once.
@@ -149,6 +172,22 @@ BROKER_PUBLISHERS = 16
 BROKER_PUBS = BURST_WINDOWS * BATCH
 BROKER_QOS1 = 0.25
 BROKER_WAIT_S = 300
+# workers phase: the broker phase's corpus and live load through worker
+# mode — WORKERS_N SO_REUSEPORT workers and one match service on the card.
+# The corpus is subscribed over MQTT by persistent v3.1.1 sessions of
+# BROKER_PER_ID filters each (QoS 0, disconnected after SUBACK: the
+# worker-mode stand-in for the broker phase's session-less ids), spread
+# round-robin over the workers' direct ports, WORKERS_CONNECT of them at
+# a time, never more than WORKERS_OPS_AHEAD rows ahead of the service
+WORKERS_N = 4
+WORKERS_CONNECT = 32
+WORKERS_OPS_AHEAD = 100_000
+WORKERS_SETTLE_S = 300
+# the workers' queued-publish expiry, in the broker's budgets of 50 ms:
+# 100 (5 s, the dispatch deadline). At the default (4, 200 ms) 1.2% of
+# this load expired to the workers' tries on one H100 80GB HBM3: their
+# event loops, not the card, hold the queue (PERF.md §5)
+WORKERS_EXPIRY_BUDGETS = 100
 # retained phases, the reference's bench.py config 8 ("retained subscribe
 # storm", bench.py:888-1020): RET_N inserts of r{0..63}/d{0..255}/m{0..63}
 # topics (L = 8, capacity 2^20), RET_BATCHES batches of BATCH filters of its
@@ -162,6 +201,27 @@ RET_HOST = 500
 RET_SUBSCRIBERS = 16
 RET_FILTERS = 16
 RET_WAIT_S = 300
+# predicate phase, the reference's bench.py config 13 ("telemetry
+# downsampling storm", bench.py:2155-2260): schema value:number,
+# unit:enum(c|f) on sensors/+/temp over PRED_SENSORS sensors; PRED_GT
+# $gt(value,T) subscriptions, PRED_AGG $avg(value,50) windows and PRED_CONJ
+# host-escape conjunctions; PRED_BATCHES distinct batches of PRED_BATCH
+# publishes cycled over PRED_REPS dispatches, window_cap 2^14, host
+# threshold 1; the host evaluator timed on PRED_HOST_REPS of the same
+# batches. PRED_MAX_PAIRS: the bench builds its engine with the default
+# max_pairs 65,536, below a batch's 1,048,576 verdict pairs, so there every
+# batch goes to the host evaluator; here every pair rides the device.
+PRED_SENSORS = 64
+PRED_GT = 512
+PRED_AGG = 128
+PRED_CONJ = 32
+PRED_BATCH = 2048
+PRED_BATCHES = 6
+PRED_REPS = 24
+PRED_HOST_REPS = 2
+PRED_WINDOW_CAP = 1 << 14
+PRED_MAX_PAIRS = 1 << 20
+PRED_DRILL = 16  # publishes per batch of the outage drill
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate. The
 # reverse kernel's integer compares run on the INT32 lanes, 64 per SM per
 # clock (the Hopper architecture white paper): int32_ops_per_s() takes that
@@ -412,6 +472,28 @@ def ptxas_report(text: str, kernel: str = "tile_match_kernel"):
         if m and kp is not None:
             out[kp] = (int(m.group(1)), *spill)
             kp = None
+    return out
+
+
+def ptxas_kernels(text: str, names) -> dict:
+    """{kernel name: (registers, spill-store bytes, spill-load bytes)} of
+    the untemplated kernels ``names`` in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, cur, spill = {}, None, (0, 0)
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((n for n in names if n in ln), None)
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), *spill)
+            cur = None
     return out
 
 
@@ -1075,14 +1157,86 @@ def broker_clients(port: int, live, pubs, expect, conn) -> None:
     conn.close()
 
 
-def phase_broker(card: str, path_S: int) -> int:
+def live_load(rng: random.Random, pools, label: str):
+    """The live client load of the broker phases: BROKER_LIVE subscribers
+    (v3.1.1 and v5 alternating) of 4 filters from the hot end of the pools,
+    BROKER_PUBS zipf publishes (a BROKER_QOS1 share at QoS 1) split over
+    BROKER_PUBLISHERS publishers, and each subscriber's stop count."""
+    from vernemq_tpu_torch.models.trie import SubscriptionTrie
+
+    l0, l1, l2 = pools
+    live = []
+    for j in range(BROKER_LIVE):
+        w = lambda pool: pool[rng.randrange(BROKER_HOT)]  # noqa: E731
+        live.append(([f"{w(l0)}/{w(l1)}/{w(l2)}",
+                      f"{w(l0)}/+/{w(l2)}", f"+/{w(l1)}/{w(l2)}",
+                      f"{w(l0)}/{w(l1)}/#"], j % 2 == 0))
+    topics = ["/".join(t) for t in zipf_topics(rng, pools, BROKER_PUBS)]
+    qos = [int(rng.random() < BROKER_QOS1) for _ in topics]
+    pubs = [[(i, topics[i], qos[i]) for i in
+             range(k, BROKER_PUBS, BROKER_PUBLISHERS)]
+            for k in range(BROKER_PUBLISHERS)]
+    local = SubscriptionTrie()  # the stop condition of the clients
+    for j, (filters, _) in enumerate(live):
+        for f in filters:
+            local.add(f.split("/"), j, None)
+    expect = [0] * BROKER_LIVE
+    for t in topics:
+        for _f, j, _v in local.match(t.split("/")):
+            expect[j] += 1
+    if not all(expect):
+        fail(f"{label}: a live subscriber would receive nothing: {expect}")
+    return live, topics, qos, pubs, expect
+
+
+def check_live(got, want, label: str) -> int:
+    """Each live subscriber's deliveries, as a multiset of (publisher,
+    seq), equal ``want`` (one per matching filter), in publish order per
+    publisher at each QoS; returns the order inversions across QoS levels,
+    which MQTT does not order."""
+    import collections
+
+    inversions = 0
+    for j in range(len(want)):
+        have = collections.Counter((p, q) for p, q, _, _ in got[j])
+        if have != want[j]:
+            fail(f"{label}: live{j} got {sum(have.values())} deliveries "
+                 f"({len(have - want[j])} unexpected), the trie gives "
+                 f"{sum(want[j].values())} ({len(want[j] - have)} missing)")
+        last, last_any = {}, {}
+        for p, q, qos_, _ in got[j]:
+            if q < last.get((p, qos_), -1):
+                fail(f"{label}: live{j} received publisher {p}'s seq {q} "
+                     f"at QoS {qos_} after {last[(p, qos_)]}")
+            last[(p, qos_)] = q
+            inversions += q < last_any.get(p, -1)
+            last_any[p] = max(q, last_any.get(p, -1))
+    return inversions
+
+
+def live_numbers(got, acks, wall: float) -> dict:
+    """Publishes/s over the traffic's wall and PUBLISH->delivery and
+    PUBACK percentiles (ms)."""
+    import numpy as np
+
+    lat = np.array([x for g in got for _, _, _, x in g])
+    return dict(pubs_per_s=BROKER_PUBS / wall, wall_s=wall,
+                deliveries=len(lat),
+                lat_p50=float(np.percentile(lat, 50)),
+                lat_p99=float(np.percentile(lat, 99)),
+                ack_p50=float(np.percentile(acks, 50)),
+                ack_p99=float(np.percentile(acks, 99)))
+
+
+def phase_broker(card: str, path_S: int) -> dict:
     """The port's broker end to end on the card: the headline corpus
     registered through ``Registry.subscribe`` under subscriber ids with no
     session (after the GPU view's matcher exists, so the table fills in
     subscription order), live MQTT subscribers and publishers over TCP in
     a second process, exact delivery parity against the registry's trie
     and per-publisher order; every host-served counter 0. Returns the
-    tile launches of the traffic."""
+    tile launches of the traffic, publishes/s, latencies and the load
+    time."""
     import asyncio
     import collections
     import multiprocessing
@@ -1137,30 +1291,8 @@ def phase_broker(card: str, path_S: int) -> int:
         if S >= 1.5 * path_S:
             fail(f"broker: table S {S} against the path phase's {path_S}: "
                  f"the load order doubled the table")
-        l0, l1, l2 = pools
         rng = random.Random(SEED + 4)
-        live = []
-        for j in range(BROKER_LIVE):
-            w = lambda pool: pool[rng.randrange(BROKER_HOT)]
-            live.append(([f"{w(l0)}/{w(l1)}/{w(l2)}",
-                          f"{w(l0)}/+/{w(l2)}", f"+/{w(l1)}/{w(l2)}",
-                          f"{w(l0)}/{w(l1)}/#"], j % 2 == 0))
-        topics = ["/".join(t) for t in zipf_topics(rng, pools, BROKER_PUBS)]
-        qos = [int(rng.random() < BROKER_QOS1) for _ in topics]
-        pubs = [[(i, topics[i], qos[i]) for i in
-                 range(k, BROKER_PUBS, BROKER_PUBLISHERS)]
-                for k in range(BROKER_PUBLISHERS)]
-        local = SubscriptionTrie()  # the stop condition of the clients
-        for j, (filters, _) in enumerate(live):
-            for f in filters:
-                local.add(f.split("/"), j, None)
-        expect = [0] * BROKER_LIVE
-        for t in topics:
-            for _f, j, _v in local.match(t.split("/")):
-                expect[j] += 1
-        if not all(expect):
-            fail(f"broker: a live subscriber would receive nothing: "
-                 f"{expect}")
+        live, topics, qos, pubs, expect = live_load(rng, pools, "broker")
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=broker_clients,
@@ -1205,22 +1337,7 @@ def phase_broker(card: str, path_S: int) -> int:
             if proc.is_alive():
                 proc.kill()
                 proc.join()
-        inversions = 0  # across QoS levels, which MQTT does not order
-        for j in range(BROKER_LIVE):
-            have = collections.Counter((p, q) for p, q, _, _ in got[j])
-            if have != want[j]:
-                fail(f"broker: live{j} got {sum(have.values())} deliveries "
-                     f"({len(have - want[j])} unexpected), the trie gives "
-                     f"{sum(want[j].values())} "
-                     f"({len(want[j] - have)} missing)")
-            last, last_any = {}, {}
-            for p, q, qos_, _ in got[j]:
-                if q < last.get((p, qos_), -1):
-                    fail(f"broker: live{j} received publisher {p}'s seq {q} "
-                         f"at QoS {qos_} after {last[(p, qos_)]}")
-                last[(p, qos_)] = q
-                inversions += q < last_any.get(p, -1)
-                last_any[p] = max(q, last_any.get(p, -1))
+        inversions = check_live(got, want, "broker")
         hs = host_served(col, m)
         if any(hs.values()):
             fail(f"broker: publishes served by the host: {hs}")
@@ -1242,25 +1359,27 @@ def phase_broker(card: str, path_S: int) -> int:
         wait_max = (hist.BUCKET_BOUNDS_MS[top]
                     if top < len(hist.BUCKET_BOUNDS_MS) else float("inf"))
         eng = b.filter_engine
+        res = live_numbers(got, acks, wall)
+        res.update(launches=launches, load_s=t_load)
         print(f"[broker] {card} | {BROKER_PUBS} publishes "
               f"({sum(qos)} at QoS 1) from {BROKER_PUBLISHERS} MQTT "
               f"publishers to {BROKER_LIVE} MQTT subscribers (v3.1.1 and "
-              f"v5) over TCP: {BROKER_PUBS / wall:.0f} publishes/s from the "
+              f"v5) over TCP: {res['pubs_per_s']:.0f} publishes/s from the "
               f"first send to the last delivery ({wall:.2f}s), {n_del} "
               f"deliveries", flush=True)
         print(f"[broker] {card} | PUBLISH->delivery p50 "
-              f"{np.percentile(lat, 50):.2f} ms p99 "
-              f"{np.percentile(lat, 99):.2f} ms; QoS 1 PUBACK p50 "
-              f"{np.percentile(acks, 50):.2f} ms p99 "
-              f"{np.percentile(acks, 99):.2f} ms", flush=True)
+              f"{res['lat_p50']:.2f} ms p99 {res['lat_p99']:.2f} ms; QoS 1 "
+              f"PUBACK p50 {res['ack_p50']:.2f} ms p99 "
+              f"{res['ack_p99']:.2f} ms", flush=True)
         print(f"[broker] {card} | {int(wait['count'])} collector flushes "
               f"({col.super_batches} super-batches carrying "
               f"{col.super_batch_pubs} publishes), {m.match_batches} device "
               f"batches for {m.match_publishes} publishes; host-served "
               f"counters {hs}; tile launches {launches}; native wire codec "
               f"{'loaded' if fastpath.load_native() is not None else 'not loaded (pure-Python codec)'}; "
-              f"predicate phase device dispatches {eng.dispatches} (host "
-              f"evaluator only); parity exact for every live subscriber, "
+              f"predicate phase device dispatches {eng.dispatches} (no "
+              f"predicated subscription in this load); parity exact for "
+              f"every live subscriber, "
               f"per-publisher order kept at each QoS ({inversions} "
               f"inversions across QoS levels), no offline queue, no drop",
               flush=True)
@@ -1292,9 +1411,356 @@ def phase_broker(card: str, path_S: int) -> int:
               f"the device was busy at most ~"
               f"{100 * flush_ms * m.match_batches / 1e3 / wall:.0f}% of "
               f"the traffic's wall (estimate)", flush=True)
-        return launches
+        return res
 
     return asyncio.run(run())
+
+
+# --------------------------------------------------------- worker mode
+
+
+def free_port_block(n: int) -> int:
+    """The first base below the ephemeral range with ``n`` consecutive
+    free loopback ports."""
+    import socket
+
+    for base in range(20000, 32000 - n, 97):
+        socks = []
+        try:
+            for i in range(n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    fail(f"no block of {n} free ports")
+
+
+def gpu_pids() -> set:
+    """The processes with a context on the card as ``nvidia-smi`` lists
+    them (in a container its pids may be of another pid namespace)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def cuda_context_pids(pids) -> set:
+    """Those of ``pids`` that hold a GPU device node (``/dev/nvidia<N>``)
+    open, which a process does once it has created a CUDA context."""
+    import re
+
+    on = set()
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                on.add(pid)
+                break
+    return on
+
+
+def offcard(stats) -> dict:
+    """The worker group's counters of work done off the card: the
+    service's trie-served publishes, failed folds and device batches, and
+    each worker's trie-served publishes and missed folds."""
+    svc = stats.service_info()
+    slots = stats.read_all()
+    return dict(svc_host=svc["host_pubs"], svc_errors=svc["fold_errors"],
+                batches=svc["device_batches"], folds=svc["folds"],
+                ops=svc["ops"],
+                workers_host=[w["host_pubs"] for w in slots],
+                workers_failed=[w["folds_failed"] for w in slots])
+
+
+def bulk_clients(port: int, stats_name: str, sessions, k: int,
+                 n: int) -> None:
+    """Subscribe ``sessions`` (lists of filters; session ``k + n*i`` is
+    ``bulk{k + n*i}``) as persistent v3.1.1 sessions at QoS 0 on ``port``,
+    WORKERS_CONNECT at a time, each disconnected after its SUBACK; keeps
+    this process's share of rows at most WORKERS_OPS_AHEAD / n ahead of
+    the match service (the stats block ``stats_name``)."""
+    import asyncio
+
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.parallel.shm_ring import WorkerStatsBlock
+
+    stats = WorkerStatsBlock.attach(stats_name)
+    sem = asyncio.Semaphore(WORKERS_CONNECT)
+    sent = [0]
+
+    async def one(i, filters):
+        async with sem:
+            while sent[0] * n - stats.service_info()["ops"] \
+                    > WORKERS_OPS_AHEAD:
+                await asyncio.sleep(0.05)
+            c = MQTTClient("127.0.0.1", port, client_id=f"bulk{k + n * i}",
+                           clean_start=False, keepalive=0)
+            await c.connect(timeout=120)
+            await c.subscribe(filters, qos=0, timeout=300)
+            sent[0] += len(set(filters))
+            await c.disconnect()
+
+    async def run():
+        await asyncio.gather(*(one(i, fs) for i, fs in enumerate(sessions)))
+
+    try:
+        asyncio.run(run())
+    finally:
+        stats.close()
+
+
+def worker_hist(stats, names) -> dict:
+    """The workers' stage histograms ``names`` merged across their stats
+    slots: {name: snapshot}."""
+    from vernemq_tpu_torch.observability import histogram as hist
+
+    out = {}
+    for i in range(stats.n_workers):
+        for name, snap in hist.unpack_flat(stats.read_hist(i)).items():
+            if name in names:
+                out[name] = hist.merge(out[name], snap) \
+                    if name in out else snap
+    return out
+
+
+def phase_workers(card: str, single: dict) -> dict:
+    """The broker phase's load through worker mode on the card: WORKERS_N
+    SO_REUSEPORT workers and one match service (the GPU view), the same
+    corpus subscribed over MQTT through the workers (ring ops to the
+    service), then the same live clients in a second process; exact
+    deliveries, nothing served off the card after the settle, and the
+    service the only process of the group with a CUDA context."""
+    import asyncio
+    import collections
+    import multiprocessing
+
+    from vernemq_tpu_torch.broker.workers import WorkerGroup
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.models.trie import SubscriptionTrie
+
+    corpus = collections.defaultdict(list)
+    pools = build_corpus(random.Random(SEED), N_SUBS,
+                         lambda f, i: corpus[i // BROKER_PER_ID].append(
+                             "/".join(f)))
+    corpus = [corpus[i] for i in sorted(corpus)]
+    rows = sum(len(set(fs)) for fs in corpus)
+    rng = random.Random(SEED + 4)
+    live, topics, qos, pubs, expect = live_load(rng, pools, "workers")
+    direct = free_port_block(WORKERS_N + 1)
+    port = direct + WORKERS_N
+    ports = [direct + i for i in range(WORKERS_N)]
+    g = WorkerGroup(
+        WORKERS_N, "127.0.0.1", port, direct_base=direct,
+        match_service=True, match_view="tpu", match_device=DEVICE,
+        match_tpu_opts=dict(initial_capacity=1 << (N_SUBS - 1).bit_length(),
+                            max_fanout=256, flat_avg=128),
+        allow_anonymous=True, systree_enabled=False, sysmon_enabled=False,
+        tpu_host_batch_threshold=0,
+        watchdog_collector_expiry_budgets=WORKERS_EXPIRY_BUDGETS)
+    t0 = time.perf_counter()
+    g.start()
+    stats = g.stats_block()
+
+    async def until(cond, what: str, limit: float = WORKERS_SETTLE_S):
+        deadline = time.monotonic() + limit
+        while not cond():
+            if time.monotonic() > deadline or not g.service_alive() \
+                    or g.alive_count() < WORKERS_N:
+                fail(f"workers: {what} within {limit:.0f}s "
+                     f"({offcard(stats)}, workers alive {g.alive_count()}, "
+                     f"service alive {g.service_alive()})")
+            await asyncio.sleep(0.1)
+
+    async def warm_round(clients) -> dict:
+        """One QoS 1 publish through every worker (no subscriber); the
+        counters after the heartbeats have carried it."""
+        for c in clients:
+            await c.publish("warm/up", b"w", qos=1, timeout=120)
+        await asyncio.sleep(0.6)
+        return offcard(stats)
+
+    async def settle(clients, label: str) -> dict:
+        """Warm rounds until two in a row reached the service's device
+        path with nothing served off the card."""
+        deadline = time.monotonic() + WORKERS_SETTLE_S
+        stable, before = 0, offcard(stats)
+        while stable < 2:
+            if time.monotonic() > deadline:
+                fail(f"workers: {label} never settled: {offcard(stats)}")
+            after = await warm_round(clients)
+            clean = (after["batches"] > before["batches"]
+                     and after["svc_host"] == before["svc_host"]
+                     and after["workers_host"] == before["workers_host"]
+                     and after["workers_failed"] == before["workers_failed"])
+            stable = stable + 1 if clean else 0
+            before = after
+        return before
+
+    async def load():
+        import socket
+
+        def up():
+            try:
+                for p in ports + [port]:
+                    socket.create_connection(("127.0.0.1", p), 0.5).close()
+                return stats.service_info()["heartbeat_age_s"] is not None
+            except OSError:
+                return False
+
+        await until(up, "the group did not come up")
+        t_boot = time.perf_counter() - t0
+        warm = [MQTTClient("127.0.0.1", p, client_id=f"warm{i}",
+                           keepalive=0) for i, p in enumerate(ports)]
+        for c in warm:
+            await c.connect(timeout=60)
+        # the service's matcher exists before the load, so its table fills
+        # in subscription order (as the broker phase's does)
+        await settle(warm, "the empty table")
+        # one client process per worker, each subscribing the sessions of
+        # its worker's direct port
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=bulk_clients,
+                             args=(ports[k], stats.name, corpus[k::WORKERS_N],
+                                   k, WORKERS_N), daemon=True)
+                 for k in range(WORKERS_N)]
+        t1 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        await until(lambda: not any(pr.is_alive() for pr in procs),
+                    "the bulk clients did not finish")
+        if any(pr.exitcode for pr in procs):
+            fail(f"workers: bulk clients exited "
+                 f"{[pr.exitcode for pr in procs]}")
+        t_sub = time.perf_counter() - t1
+        ops0 = offcard(stats)["ops"]
+        await until(lambda: stats.service_info()["ops"] >= rows,
+                    f"the service did not apply {rows} rows")
+        t_load = time.perf_counter() - t1
+        base = await settle(warm, "the loaded table")
+        t_settle = time.perf_counter() - t1 - t_load
+        for c in warm:
+            await c.disconnect()
+        return t_boot, t_sub, t_load, t_settle, ops0, base
+
+    try:
+        t_boot, t_sub, t_load, t_settle, ops0, base = asyncio.run(load())
+        print(f"[workers] {card} | {WORKERS_N} workers + 1 match service "
+              f"(GPU view on {DEVICE}) up in {t_boot:.1f}s; {len(corpus)} "
+              f"persistent sessions subscribed {rows} distinct rows over "
+              f"MQTT through the workers' direct ports ({WORKERS_N} client "
+              f"processes) in {t_sub:.1f}s "
+              f"({ops0} applied by the service by then), all {rows} ring "
+              f"ops applied after {t_load:.1f}s (single-process broker "
+              f"phase: {single['load_s']:.1f}s through "
+              f"Registry.subscribe), the loaded table settled on the "
+              f"device in {t_settle:.1f}s", flush=True)
+        local = SubscriptionTrie()
+        for j, (filters, _) in enumerate(live):
+            for f in filters:
+                local.add(f.split("/"), j, None)
+        want = [collections.Counter() for _ in live]
+        for i, t in enumerate(topics):
+            for _f, j, _v in local.match(t.split("/")):
+                want[j][(i % BROKER_PUBLISHERS, i)] += 1
+        ctx = multiprocessing.get_context("spawn")
+        conn, child = ctx.Pipe()
+        proc = ctx.Process(target=broker_clients,
+                           args=(port, live, pubs, expect, child),
+                           daemon=True)
+        proc.start()
+        child.close()
+        try:
+            if not conn.poll(BROKER_WAIT_S + 120):
+                fail("workers: the clients did not answer in time")
+            conn.recv()  # every live subscription is in place
+            time.sleep(1.0)  # their ring ops and replication
+            base = offcard(stats)
+            conn.send("go")
+            if not conn.poll(BROKER_WAIT_S + 120):
+                fail("workers: the clients did not finish in time")
+            smi = gpu_pids()
+            group = {p.pid for p in g._procs} | {proc.pid}
+            svc_pid = g._service_proc.pid
+            on_card = cuda_context_pids(group | {svc_pid})
+            got, acks, wall = conn.recv()
+            time.sleep(0.6)  # one more heartbeat of every counter
+            after = offcard(stats)
+            waits = worker_hist(stats, ("stage_collector_wait_ms",
+                                        "stage_ring_rtt_ms"))
+        finally:
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    finally:
+        g.stop()
+    inversions = check_live(got, want, "workers")
+    off = dict(service_host_pubs=after["svc_host"] - base["svc_host"],
+               service_fold_errors=after["svc_errors"] - base["svc_errors"],
+               worker_host_pubs=[a - b for a, b in zip(
+                   after["workers_host"], base["workers_host"])],
+               worker_folds_failed=[a - b for a, b in zip(
+                   after["workers_failed"], base["workers_failed"])])
+    if off["service_host_pubs"] or off["service_fold_errors"] \
+            or any(off["worker_host_pubs"]) \
+            or any(off["worker_folds_failed"]):
+        fail(f"workers: publishes served off the card: {off}")
+    folds = after["folds"] - base["folds"]
+    batches = after["batches"] - base["batches"]
+    if folds <= 0 or batches <= 0:
+        fail(f"workers: the service served {folds} folds in {batches} "
+             f"device batches")
+    if on_card != {svc_pid}:
+        fail(f"workers: processes with a CUDA context {sorted(on_card)}; "
+             f"the service is {svc_pid}, workers and clients "
+             f"{sorted(group)}")
+    from vernemq_tpu_torch.observability import histogram as hist
+
+    wait, rtt = (hist.summary(waits.get(n, ([], 0.0, 0))) for n in
+                 ("stage_collector_wait_ms", "stage_ring_rtt_ms"))
+    res = live_numbers(got, acks, wall)
+    res.update(load_s=t_load, folds=folds, device_batches=batches,
+               wait_p99=wait.get("p99_ms", 0), rtt_p50=rtt.get("p50_ms", 0))
+    print(f"[workers] {card} | {BROKER_PUBS} publishes ({sum(qos)} at QoS "
+          f"1) from {BROKER_PUBLISHERS} MQTT publishers to {BROKER_LIVE} "
+          f"MQTT subscribers through the shared port: "
+          f"{res['pubs_per_s']:.0f} publishes/s ({wall:.2f}s; single-process "
+          f"broker phase {single['pubs_per_s']:.0f}), PUBLISH->delivery p50 "
+          f"{res['lat_p50']:.2f} ms p99 {res['lat_p99']:.2f} ms (single "
+          f"{single['lat_p50']:.2f} / {single['lat_p99']:.2f}), QoS 1 PUBACK "
+          f"p50 {res['ack_p50']:.2f} ms p99 {res['ack_p99']:.2f} ms (single "
+          f"{single['ack_p50']:.2f} / {single['ack_p99']:.2f}); "
+          f"{res['deliveries']} deliveries, parity exact for every live "
+          f"subscriber, per-publisher order kept at each QoS ({inversions} "
+          f"inversions across QoS levels)", flush=True)
+    print(f"[workers] {card} | {folds} ring folds served in {batches} "
+          f"device batches ({BROKER_PUBS / max(batches, 1):.1f} publishes "
+          f"per batch); the workers' queue wait at flush start p50 "
+          f"{wait.get('p50_ms', 0):.1f} ms p99 {wait.get('p99_ms', 0):.1f} "
+          f"ms, ring round trip p50 {rtt.get('p50_ms', 0):.1f} ms p99 "
+          f"{rtt.get('p99_ms', 0):.1f} ms over {int(rtt['count'])} folds "
+          f"(whole run, log2 buckets; queued-publish expiry "
+          f"{WORKERS_EXPIRY_BUDGETS * 50} ms); off the card: {off}; of the "
+          f"group's processes "
+          f"only the service ({svc_pid}) holds a GPU device node, not the "
+          f"workers {sorted(p for p in group if p != proc.pid)} or the "
+          f"clients ({proc.pid}) (nvidia-smi lists pids {sorted(smi)}, "
+          f"of its own pid namespace)", flush=True)
+    return res
 
 
 # ------------------------------------------------------ retained replay
@@ -1988,6 +2454,290 @@ def phase_replay(card: str) -> int:
     return asyncio.run(run())
 
 
+# ------------------------------------------------------- predicate phase
+
+
+def predicate_engine():
+    """bench.py config 13's wiring, built standalone on DEVICE: a
+    SchemaRegistry and a FilterEngine with PRED_GT ``$gt(value,T)``
+    subscriptions (thresholds spread over 0..99), PRED_AGG
+    ``$avg(value,50)`` windows and PRED_CONJ ``$gt&$eq`` conjunctions (host
+    escapes), all on ``sensors/+/temp``. Returns the engine, the matched
+    rows of one publish and a maker of publish batches."""
+    from vernemq_tpu_torch.cluster.metadata import MetadataStore
+    from vernemq_tpu_torch.filters.engine import FilterEngine
+    from vernemq_tpu_torch.filters.schema_registry import SchemaRegistry
+    from vernemq_tpu_torch.protocol.types import SubOpts
+
+    rng = random.Random(SEED + 13)
+    sreg = SchemaRegistry(MetadataStore("smoke13"), "smoke13")
+    sreg.set_schema("", "sensors/+/temp", "value:number,unit:enum(c|f)")
+    eng = FilterEngine(sreg, device_gate=lambda: True, host_threshold=1,
+                       window_cap=PRED_WINDOW_CAP, max_pairs=PRED_MAX_PAIRS,
+                       device=DEVICE)
+    emissions = [0]
+    eng.emit = lambda *_a: emissions.__setitem__(0, emissions[0] + 1)
+    rows = []
+    fw = ("sensors", "+", "temp")
+    for i in range(PRED_GT):
+        o = SubOpts()
+        o.filter_expr = f"$gt(value,{rng.randrange(0, 100)})"
+        eng.on_sub_delta("add", "", o)
+        rows.append((fw, ("", f"p{i}"), o))
+    for i in range(PRED_AGG):
+        o = SubOpts()
+        o.filter_expr = "$avg(value,50)"
+        rows.append((fw, ("", f"a{i}"), o))
+    for i in range(PRED_CONJ):
+        o = SubOpts()
+        o.filter_expr = f"$gt(value,{rng.randrange(0, 50)})&$eq(unit,c)"
+        rows.append((fw, ("", f"x{i}"), o))
+    sensors = [f"s{i}" for i in range(PRED_SENSORS)]
+
+    def mk_batch():
+        items = []
+        for _ in range(PRED_BATCH):
+            t = ("sensors", rng.choice(sensors), "temp")
+            payload = json.dumps({"value": round(rng.uniform(0, 100), 2),
+                                  "unit": rng.choice(["c", "f"])}).encode()
+            items.append((t, eng.encode("", t, payload)))
+        return items
+
+    return eng, rows, mk_batch, emissions
+
+
+def predicate_bytes(table, acc, feats, pp, agg) -> int:
+    """Bytes one dispatch must move: the pair arrays and a verdict byte per
+    pair, the fold arrays (slot, publish, field, gate, valid), feats, the
+    predicate table, acc read and written, and the [4, W] partials."""
+    P, A, W = pp.numel(), agg[0].numel(), acc.shape[0]
+    return (9 * P + 17 * A + feats.numel() * 4
+            + sum(t.numel() * 4 for t in table) + 3 * 16 * W)
+
+
+def phase_predicate(card: str) -> dict:
+    """The predicate phase on the card at bench config 13's shape: every
+    verdict pair of a batch in one dispatch of the hand kernel, beside the
+    host evaluator on the same batches; the kernel held against its plain
+    version on the run's own inputs; filter_batch against filter_batch_host
+    on a fresh batch; the device.predicate outage drill. Returns the
+    kernel's numbers for the kernels JSON."""
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+    from vernemq_tpu_torch.robustness import faults
+
+    eng, rows, mk_batch, emissions = predicate_engine()
+    per_pub = PRED_GT + PRED_AGG + PRED_CONJ
+    print(f"[predicate] {card} | bench.py config 13: {PRED_GT} $gt, "
+          f"{PRED_AGG} $avg(value,50), {PRED_CONJ} conjunction "
+          f"subscriptions on sensors/+/temp ({PRED_SENSORS} sensors), "
+          f"batches of {PRED_BATCH}: {PRED_BATCH * PRED_GT:,} verdict pairs "
+          f"and {PRED_BATCH * PRED_AGG:,} folds per dispatch; max_pairs "
+          f"{eng.max_pairs:,} (the engine's default of 65,536, which "
+          f"bench.py keeps, sends every such batch to the host evaluator)",
+          flush=True)
+    batches = [mk_batch() for _ in range(PRED_BATCHES)]
+    last = []  # the kernel arguments of the latest dispatch
+    real_phase = PK.predicate_phase
+
+    def spy(*a, **kw):
+        last[:] = [(a, kw)]
+        return real_phase(*a, **kw)
+
+    disp_s = []
+    real_dispatch = eng._dispatch
+
+    def timed_dispatch(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_dispatch(*a, **kw)
+        finally:
+            disp_s.append(time.perf_counter() - t)
+
+    eng._dispatch = timed_dispatch
+    PK.predicate_phase = spy
+    try:
+        t0 = time.perf_counter()
+        eng.filter_batch("", batches[0], [list(rows) for _ in batches[0]])
+        first_s = time.perf_counter() - t0
+        base = dict(eng.stats(), pairs_device=eng.pairs_device,
+                    pairs_escaped=eng.pairs_escaped)
+        disp_s.clear()
+        wall = []
+        PK.launches = 0
+        t0 = time.perf_counter()
+        for i in range(PRED_REPS):
+            b = batches[i % PRED_BATCHES]
+            t = time.perf_counter()
+            eng.filter_batch("", b, [list(rows) for _ in b])
+            wall.append(time.perf_counter() - t)
+        dev_s = time.perf_counter() - t0
+        launches = PK.launches
+    finally:
+        PK.predicate_phase = real_phase
+        eng._dispatch = real_dispatch
+    st = eng.stats()
+    n_disp = int(st["predicate_dispatches_total"]
+                 - base["predicate_dispatches_total"])
+    host_b = int(st["predicate_host_batches"]
+                 - base["predicate_host_batches"])
+    pairs_dev = eng.pairs_device - base["pairs_device"]
+    if n_disp != PRED_REPS or host_b or launches != PRED_REPS \
+            or pairs_dev != PRED_REPS * PRED_BATCH * PRED_GT:
+        fail(f"predicate: {n_disp} dispatches, {host_b} host batches, "
+             f"{launches} launches, {pairs_dev} device pairs in "
+             f"{PRED_REPS} batches")
+    t0 = time.perf_counter()
+    for i in range(PRED_HOST_REPS):
+        b = batches[i % PRED_BATCHES]
+        eng.filter_batch_host("", b, [list(rows) for _ in b])
+    host_s = time.perf_counter() - t0
+    dev_rate = PRED_REPS * PRED_BATCH * per_pub / dev_s
+    host_rate = PRED_HOST_REPS * PRED_BATCH * per_pub / host_s
+    print(f"[predicate] {card} | {PRED_REPS} batches through filter_batch: "
+          f"{dev_rate:,.0f} pairs/s ({PRED_REPS * PRED_BATCH / dev_s:,.0f} "
+          f"publishes/s, {per_pub} pairs per publish), host evaluator "
+          f"(filter_batch_host, the first {PRED_HOST_REPS} of the same "
+          f"batches) {host_rate:,.0f} pairs/s: {dev_rate / host_rate:.2f}x; "
+          f"{n_disp} device dispatches, {launches} kernel launches, "
+          f"{pairs_dev:,} device verdict pairs, 0 host batches, "
+          f"{eng.pairs_escaped - base['pairs_escaped']:,} conjunction pairs "
+          f"escaped to the host evaluator by design, {emissions[0]} window "
+          f"emissions; first batch (table upload, window table growth) "
+          f"{first_s * 1e3:.1f} ms", flush=True)
+
+    # ------------------------------------------- kernel against plain
+    (a, kw), = last
+    table, acc, feats, pp, pr, agg = (a[:6], a[6], a[7], a[8], a[9],
+                                      a[10:15])
+    W = kw["W"]
+    acc0 = acc.clone()
+    got = PK.predicate_phase(*table, acc0.clone(), feats, pp, pr, *agg, W=W)
+    want = PK.predicate_phase_ref(*table, acc0.clone(), feats, pp, pr, *agg,
+                                  W=W)
+    torch.cuda.synchronize()
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    exact = (torch.equal(got[0], want[0])
+             and all(torch.equal(bits(g), bits(w)) for g, w in
+                     ((got[2], want[2]), (got[4], want[4]),
+                      (got[5], want[5]), (got[1][:, [0, 2, 3]],
+                                          want[1][:, [0, 2, 3]]))))
+    err = max(float((g.float() - w.float()).abs().masked_fill(
+        g.float() == w.float(), 0).nan_to_num(nan=float("inf")).max())
+        for g, w in zip(got, want))
+    sum_ok = torch.allclose(got[3], want[3], rtol=1e-5, atol=1e-5) and \
+        torch.allclose(got[1][:, 1], want[1][:, 1], rtol=1e-5, atol=1e-5)
+    P, A = pp.numel(), agg[0].numel()
+    print(f"[predicate] {card} | kernel vs plain version on the last "
+          f"dispatch's inputs (P={P:,} pairs, A={A:,} folds, W={W}): "
+          f"verdicts {'bit-equal' if torch.equal(got[0], want[0]) else 'DIFFER'}"
+          f", count/min/max {'bit-equal' if exact else 'DIFFER'}, sums "
+          f"{'allclose' if sum_ok else 'DIFFER'} (rtol 1e-5); max_abs_err "
+          f"{err:.3g}; {int(got[0].sum()):,} kept, "
+          f"{int((got[2] > 0).sum())} slots touched", flush=True)
+    if not exact or not sum_ok:
+        fail("predicate: the kernel disagrees with its plain version")
+    scratch = acc0.clone()
+    run = lambda: PK.predicate_phase(  # noqa: E731
+        *table, scratch, feats, pp, pr, *agg, W=W)
+    k_ms = event_ms(run, 50)
+    k_graph = graph_ms(run, 20)
+    plain_ms = event_ms(lambda: PK.predicate_phase_ref(
+        *table, scratch, feats, pp, pr, *agg, W=W), 3)
+    nbytes = predicate_bytes(table, acc, feats, pp, agg)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the dispatch's host-side pieces, replayed on the same arrays
+    idx_np = torch.cat([pp, pr, *agg[:4]]).cpu().numpy()
+    f_np = feats.cpu().numpy()
+
+    def host_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    up_ms = host_ms(lambda: (torch.from_numpy(idx_np).to(DEVICE),
+                             torch.from_numpy(f_np).to(DEVICE)))
+    out = run()
+    down_ms = host_ms(lambda: (out[0].cpu().numpy(), torch.stack(
+        out[2:]).cpu().numpy()))
+    disp_ms = 1e3 * float(np.mean(disp_s))
+    wall_ms = 1e3 * float(np.mean(wall))
+    print(f"[predicate] {card} | per dispatch: filter_batch {wall_ms:.1f} "
+          f"ms: the host's pair build and row assembly "
+          f"{wall_ms - disp_ms:.1f} ms, and _dispatch {disp_ms:.2f} ms, of "
+          f"it the upload {up_ms:.3f} ms ({idx_np.nbytes + f_np.nbytes:,} "
+          f"bytes), the kernel {k_ms:.4f} ms by CUDA events / "
+          f"{k_graph:.4f} ms replayed from a CUDA graph and the download "
+          f"{down_ms:.3f} ms, the rest host staging of the index arrays "
+          f"and the window commit; kernel bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {100 * bound_ms / k_ms:.0f}% "
+          f"of it reached), plain version {plain_ms:.3f} ms", flush=True)
+
+    # ---------------------------------------- parity and the drill
+    pb = mk_batch()
+    healthy = eng.filter_batch("", pb, [list(rows) for _ in pb])
+    oracle = eng.filter_batch_host("", pb, [list(rows) for _ in pb])
+    keys = lambda res: [[r[1] for r in x] for x in res]  # noqa: E731
+    if keys(healthy) != keys(oracle):
+        fail("predicate: filter_batch != filter_batch_host on a fresh "
+             "batch")
+    # the drill on a slice of the batch: a dispatch shorter than the
+    # breaker's 0.2 s first backoff, so the call after the opening one is
+    # refused rather than taken as the half-open probe
+    db = pb[:PRED_DRILL]
+    d_oracle = keys(oracle[:PRED_DRILL])
+    br = eng.breaker
+    f0, d0 = eng.device_failures, eng.dispatches
+    faults.install(faults.FaultPlan(
+        [faults.FaultRule("device.predicate", kind="error")], seed=13))
+    try:
+        for _ in range(br.failure_threshold):
+            if keys(eng.filter_batch("", db, [list(rows) for _ in db])) \
+                    != d_oracle:
+                fail("predicate: the host did not serve the outage exactly")
+        opened = br.state_name
+        sheds0 = eng.degraded_sheds
+        if keys(eng.filter_batch("", db, [list(rows) for _ in db])) \
+                != d_oracle:
+            fail("predicate: the host did not serve the open breaker "
+                 "exactly")
+        sheds = eng.degraded_sheds - sheds0
+    finally:
+        faults.clear()
+    deadline = time.monotonic() + 15.0
+    while br.state_name != "closed" and time.monotonic() < deadline:
+        time.sleep(0.05)
+        if keys(eng.filter_batch("", db, [list(rows) for _ in db])) \
+                != d_oracle:
+            fail("predicate: a probe batch differs from the host's")
+    if opened != "open" or sheds < 1 or br.state_name != "closed" \
+            or eng.dispatches <= d0:
+        fail(f"predicate: drill breaker {opened} -> {br.state_name}, "
+             f"{sheds} sheds, dispatches {d0} -> {eng.dispatches}")
+    print(f"[predicate] {card} | filter_batch == filter_batch_host on a "
+          f"fresh batch; device.predicate outage: "
+          f"{eng.device_failures - f0} failures opened the breaker, the "
+          f"host evaluator served {br.failure_threshold + 1} batches of "
+          f"{PRED_DRILL} publishes exactly ({sheds} refused while open), the "
+          f"probe closed it and "
+          f"device dispatches resumed ({eng.dispatches - d0} since)",
+          flush=True)
+    return dict(launches=launches, max_abs_err=err, ms=k_ms,
+                graph_ms=k_graph, plain_ms=plain_ms, bound_ms=bound_ms,
+                bytes=nbytes, pairs_per_s=dev_rate,
+                host_pairs_per_s=host_rate, dispatches=n_disp,
+                dispatch_ms=disp_ms, filter_batch_ms=wall_ms,
+                upload_ms=up_ms, download_ms=down_ms,
+                max_pairs=eng.max_pairs)
+
+
 def phase_reverse_kernel(compiled: bool):
     """The reverse-compare kernel against its plain version at every
     REVERSE_SHAPES entry, packed words and chunk counts bit for bit; with
@@ -2086,7 +2836,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    libs = ["tile_match", "reverse_match"]
+    libs = ["tile_match", "reverse_match", "predicate"]
     built = _build.build(libs)  # one nvcc per source, all at once
     print(f"[build] {', '.join(libs)}: built {built or 'none (up to date)'} "
           f"in {time.perf_counter() - t0:.1f}s "
@@ -2096,6 +2846,12 @@ def main() -> int:
     # need not describe the library that is loaded
     ptxas = ptxas_report(_build.log_path("tile_match").read_text()) \
         if "tile_match" in built else {}
+    if "predicate" in built:
+        print("[build] ptxas predicate (registers, spill stores, spill "
+              "loads): " + ", ".join(f"{k}: {v}" for k, v in ptxas_kernels(
+                  _build.log_path("predicate").read_text(),
+                  ("predicate_pass_kernel", "predicate_merge_kernel")
+              ).items()), flush=True)
     phase_cold(card)
 
     # ------------------------------------------------------- kernel phase
@@ -2306,7 +3062,9 @@ def main() -> int:
     phase_many(view, m, rng, pools, card)
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
-    broker_launches = phase_broker(card, path_S)
+    broker = phase_broker(card, path_S)
+    workers = phase_workers(card, broker)
+    pred = phase_predicate(card)
     ret = phase_retained(card)
     replay_launches = phase_replay(card)
 
@@ -2318,7 +3076,7 @@ def main() -> int:
         "launches": path_launches,
         "collector_launches": burst_launches,
         "churn_launches": churn_launches,
-        "broker_launches": broker_launches,
+        "broker_launches": broker["launches"],
         "max_abs_err": kernel_err,
         "ms": k_ms,
         "plain_ms": sum(p["plain_ms"] for p in probes),
@@ -2397,6 +3155,33 @@ def main() -> int:
                        for n, p in ret["per"].items()},
         "per_batch": f"probe + dense extraction of one {BATCH}-filter "
                      f"retained batch",
+    }, {
+        "name": "predicate_phase",
+        "route": "cuda",
+        "source": "vernemq_tpu_torch/csrc/predicate.cu",
+        "replaces": "vernemq_tpu/ops/predicate_kernel.py:137",
+        "launches": pred["launches"],
+        "max_abs_err": pred["max_abs_err"],
+        "ms": pred["ms"],
+        "plain_ms": pred["plain_ms"],
+        "bound_ms": pred["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "graph_ms": pred["graph_ms"],
+        "design": "one thread per verdict pair and per fold, the gate by "
+                  "the same device function; folds reduced by atomics "
+                  "(count exact, min/max over an order-preserving key of "
+                  "the float bits) into a memset scratch, then one thread "
+                  "per slot writes the partials and updates acc in place",
+        "pairs_per_s": pred["pairs_per_s"],
+        "host_pairs_per_s": pred["host_pairs_per_s"],
+        "dispatches": pred["dispatches"],
+        "dispatch_ms": pred["dispatch_ms"],
+        "filter_batch_ms": pred["filter_batch_ms"],
+        "max_pairs": pred["max_pairs"],
+        "per_batch": f"one dispatch of a {PRED_BATCH}-publish batch: "
+                     f"{PRED_BATCH * PRED_GT} verdict pairs and "
+                     f"{PRED_BATCH * PRED_AGG} folds (bench.py config 13)",
     }]
     print(f"[done] {time.perf_counter() - t_start:.1f}s total", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,11 @@ import random
 import numpy as np
 import torch
 
+from vernemq_tpu_torch.filters.predicate import (OP_EQ, OP_EXISTS, OP_GE,
+                                                 OP_GT, OP_IN, OP_LE, OP_LT,
+                                                 OP_NE, OP_NULL, OP_PAD,
+                                                 OP_RANGE, OP_TRUE)
+
 # the suite runs several workers on one machine: small plain-PyTorch
 # matches gain nothing from intra-op threads, which only contend
 torch.set_num_threads(1)
@@ -135,3 +140,67 @@ def reverse_inputs(seed: int, N: int, L: int, B: int, bits: int = 16,
     qf = (qw[:, 0] == 1) | ((qe == 0) & qh)
     return (words, row_len, dollar, active), (qw, qe.astype(np.int32), qh,
                                                qf)
+
+
+# ------------------------------------------------ the predicate phase
+
+#: (NP, B, F, P, A, W) of the parity tests: predicate rows, publishes,
+#: feature columns, pairs, folds, window slots
+PREDICATE_SHAPE = (40, 24, 4, 600, 300, 16)
+
+OPS = [OP_PAD, OP_GT, OP_GE, OP_LT, OP_LE, OP_EQ, OP_NE, OP_RANGE, OP_IN,
+       OP_EXISTS, OP_NULL, OP_TRUE]
+#: feature values that sit on the traps: codes 31/32/63/64, a non-integral
+#: code, ±inf, both zeros, a negative, NaN (missing)
+TRAPS = np.array([31, 32, 63, 64, 2.5, np.inf, -np.inf, 0.0, -0.0, -1.0,
+                  5.0, np.nan], np.float32)
+
+
+def predicate_inputs(seed, NP, B, F, P, A, W):
+    """Inputs of the predicate phase (``ops/predicate_kernel.py``): a
+    predicate table (rows 0/1 PAD/TRUE as the engine keeps them), feats
+    with trap values and NaNs, pairs and folds (the last 4 of W slots
+    untouched); numpy arrays."""
+    rng = np.random.default_rng(seed)
+    op = rng.choice(OPS, NP).astype(np.int32)
+    op[0], op[1] = OP_PAD, OP_TRUE
+    field = rng.integers(0, F, NP, dtype=np.int32)
+    a = rng.choice(np.concatenate([TRAPS[:-1], [0.5, 3.0]]),
+                   NP).astype(np.float32)
+    b = (a + rng.choice([0, 1, 10], NP)).astype(np.float32)
+    mlo = rng.integers(-2**31, 2**31, NP, dtype=np.int64).astype(np.int32)
+    mhi = rng.integers(-2**31, 2**31, NP, dtype=np.int64).astype(np.int32)
+    feats = rng.choice(TRAPS, (B, F)).astype(np.float32)
+    ints = rng.integers(0, 64, (B, F)).astype(np.float32)
+    feats = np.where(rng.random((B, F)) < 0.4, ints, feats)
+    pp = rng.integers(0, B, P, dtype=np.int32)
+    pr = rng.integers(0, NP, P, dtype=np.int32)
+    slot = rng.integers(0, W - 4, A, dtype=np.int32)  # the last 4 stay empty
+    apub = rng.integers(0, B, A, dtype=np.int32)
+    afield = rng.integers(-1, F, A, dtype=np.int32)  # -1: $COUNT
+    gate = rng.choice([0, 1, 1, 1] + list(range(2, NP)), A).astype(np.int32)
+    valid = rng.random(A) < 0.9
+    acc = np.zeros((W, 4), np.float32)
+    acc[:, 2], acc[:, 3] = np.inf, -np.inf
+    acc[::3] = rng.choice([-0.0, 0.0, 1.5, -7.0], (len(acc[::3]), 4))
+    return dict(table=(op, field, a, b, mlo, mhi), feats=feats, pp=pp, pr=pr,
+                agg=(slot, apub, afield, gate, valid), acc=acc)
+
+
+def ring_producer(name: str, seconds: float) -> None:
+    """Stream numbered records into the port's ShmRing ``name`` from a
+    process of its own for ``seconds``, then an ``END`` record: record i
+    is i (u64) repeated 1 + i % 7 times."""
+    import struct
+    import time
+
+    from vernemq_tpu_torch.parallel.shm_ring import ShmRing
+
+    ring = ShmRing.attach(name)
+    i, end = 0, time.monotonic() + seconds
+    while time.monotonic() < end:
+        if ring.push(struct.pack("<Q", i) * (1 + i % 7)):
+            i += 1
+    while not ring.push(b"END"):
+        time.sleep(0.001)
+    ring.close()

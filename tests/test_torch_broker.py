@@ -33,13 +33,14 @@ SCHEMAS = [{"mountpoint": "", "topic": "sensors/+/temp",
 #: the config both brokers share: no periodic $SYS traffic or loop-lag
 #: sampling, every flush on the device (no hybrid host dispatch, no lock
 #: bound — which on the reference also sheds a batch shape JAX has not
-#: compiled yet), and a queued-item expiry of 5 s so a slow CPU flush is not
-#: served by the trie
+#: compiled yet), a queued-item expiry of 5 s so a slow CPU flush is not
+#: served by the trie, and every predicate pair on the predicate phase's
+#: device path where the broker has one (host threshold 1)
 BASE = dict(allow_anonymous=True, systree_enabled=False,
             sysmon_enabled=False, tpu_host_batch_threshold=0,
             tpu_batch_window_us=500, tpu_lock_busy_shed_ms=0,
             watchdog_collector_expiry_budgets=100,
-            payload_schemas=SCHEMAS)
+            payload_schemas=SCHEMAS, predicate_host_threshold=1)
 
 #: publishes the collector or the matcher served on the host
 COLLECTOR_HOST = ("degraded_host_pubs", "busy_host_pubs", "rebuild_host_pubs",
@@ -226,6 +227,9 @@ async def test_port_broker_delivers_as_reference(case):
         m, hs = _host_served(pb)
         assert pb.registry.batched_view_active()
         assert m.match_publishes > 0 and not any(hs.values()), hs
+        eng = pb.filter_engine
+        if case == "filter":  # the predicate phase ran on the device path
+            assert eng.dispatches > 0 and eng.pairs_host == 0, eng.stats()
     finally:
         await pb.stop()
         await ps.stop()
@@ -502,18 +506,110 @@ def test_gpu_view_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tpu_mesh="2x4"), dict(match_service_req_ring="vmq-req"),
-    dict(worker_stats_block="vmq-stats"), dict(metadata_plugin="swc"),
+    dict(tpu_mesh="2x4"), dict(metadata_plugin="swc"),
     dict(http_enabled=True), dict(graphite_enabled=True),
     dict(bridges=[{"name": "br0", "host": "127.0.0.1", "port": 1}]),
     dict(plugins=[{"name": "vmq_acl"}]), dict(observability_enabled=False)],
     ids=lambda k: next(iter(k)))
 def test_unported_configs_raise(knob):
-    """A device mesh (ROADMAP item 8), worker mode (item 9) and the host
-    surfaces not copied yet (item 11) are not ported: asking for any of
-    them raises, naming the item, before a broker is built."""
+    """A device mesh (ROADMAP item 8) and the host surfaces not copied yet
+    (item 11) are not ported: asking for any of them raises, naming the
+    item, before a broker is built. (Worker mode, item 9, is served:
+    test_torch_workers.py.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Broker(Config(default_reg_view="tpu", **knob), device="cpu")
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("knob", ["worker_stats_block",
+                                  "match_service_req_ring"])
+async def test_worker_mode_configs_are_served(knob):
+    """Worker mode (ROADMAP item 9) is served, no longer refused: a broker
+    configured as worker 0 of a group attaches the shared stats block and,
+    with the match-service rings, mounts the ring stub as its tpu view —
+    resolving no device, so its predicate phase stays on the exact host
+    evaluator — and delivers through the port's match service on the GPU
+    match engine (``device="cpu"``; a thread stands in for the service
+    process)."""
+    import threading
+
+    from vernemq_tpu_torch.broker.match_service import (MatchService,
+                                                        ShmMatchView)
+    from vernemq_tpu_torch.parallel.shm_ring import ShmRing, WorkerStatsBlock
+
+    tag = f"bw{time.time_ns() & 0xFFFFFF:x}"
+    stats = WorkerStatsBlock.create(tag + "s", 1)
+    stats.set_service(1, 4242)
+    cfg = dict(BASE, worker_stats_block=stats.name, worker_index=0,
+               workers_total=1)
+    rings, svc, stop, th = [], None, threading.Event(), None
+    if knob == "match_service_req_ring":
+        rings = [ShmRing.create(tag + "q", 1 << 20),
+                 ShmRing.create(tag + "r", 1 << 20)]
+        svc = MatchService(stats, [(ShmRing.attach(rings[0].name),
+                                    ShmRing.attach(rings[1].name))],
+                           view="tpu", device="cpu",
+                           tpu_opts=dict(max_levels=8))
+        svc._view.matcher("")
+
+        def serve():
+            async def run():
+                ev = asyncio.Event()
+                task = asyncio.get_running_loop().create_task(svc.run(ev))
+                while not stop.is_set():
+                    await asyncio.sleep(0.01)
+                ev.set()
+                await task
+            asyncio.run(run())
+
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        cfg.update(match_service_req_ring=rings[0].name,
+                   match_service_resp_ring=rings[1].name,
+                   default_reg_view="tpu", tpu_retained_enabled=False)
+    try:
+        b, s = await start_broker(Config(**cfg), port=0, node_name="w0")
+        try:
+            assert b.worker_stats is not None and b.device is None
+            f = await _client(s.port, "f")
+            await f.subscribe("sensors/+/temp?$gt(value,30)", qos=1)
+            u = await _client(s.port, "u")
+            await u.subscribe("w/#", qos=1)
+            p = await _client(s.port, "p")
+            if svc is not None:
+                assert isinstance(b.registry.reg_views["tpu"], ShmMatchView)
+                deadline = time.monotonic() + 20.0
+                while svc.subscriptions() < 2:  # the owned rows' resync
+                    assert time.monotonic() < deadline
+                    await asyncio.sleep(0.05)
+            for v in (25, 55):
+                await p.publish("sensors/a/temp",
+                                json.dumps({"value": v}).encode(), qos=1)
+            assert json.loads((await f.recv(5.0)).payload)["value"] == 55
+            for i in range(3):
+                await p.publish(f"w/{i}", b"%d" % i, qos=1)
+                assert (await u.recv(5.0)).payload == b"%d" % i
+            eng = b.filter_engine
+            assert eng.dispatches == 0 and eng.pairs_host >= 2
+            if svc is not None:
+                assert svc.folds > 0 and b.match_client.folds_sent > 0
+                m = svc._view.matcher("")
+                assert m.match_publishes > 0 and not m.host_fallbacks
+            for c in (f, u, p):
+                await c.disconnect()
+        finally:
+            await b.stop()
+            await s.stop()
+    finally:
+        stop.set()
+        if th is not None:
+            th.join(5.0)
+            svc.close()
+        for h in rings:
+            h.close()
+            h.unlink()
+        stats.close()
+        stats.unlink()
 
 
 @pytest.mark.asyncio

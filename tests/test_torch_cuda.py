@@ -690,3 +690,140 @@ def test_retained_first_build_warms_without_changing_it():
         got = want if rows is None else rows
         assert sorted(got) == sorted(want), f
     assert idx.host_fallback_queries <= 4  # only "#" may pass k
+
+
+# ------------------------------------------------ the predicate phase
+
+
+def _pred_tensors(inp, dev):
+    t = lambda x: torch.from_numpy(np.array(x)).to(dev)  # noqa: E731
+    return ([t(x) for x in inp["table"]], t(inp["acc"]), t(inp["feats"]),
+            t(inp["pp"]), t(inp["pr"]), [t(x) for x in inp["agg"]])
+
+
+def _pred_run(fn, inp, dev, W):
+    table, acc, feats, pp, pr, agg = _pred_tensors(inp, dev)
+    out = fn(*table, acc, feats, pp, pr, *agg, W=W)
+    return [x.cpu().numpy() for x in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (40, 24, 4, 600, 300, 16), (300, 2048, 4, 1 << 20, 1 << 18, 8192),
+    (3, 5, 2, 1, 1, 1)], ids=["small", "storm", "tiny"])
+def test_predicate_kernel_matches_plain(shape):
+    """The predicate kernel against its plain version on the same card
+    tensors: verdicts bit for bit, count, min and max bit for bit (-0.0
+    below +0.0 in both), sums allclose (rtol 1e-5: atomic float adds in
+    another order), acc likewise; at the parity tests' shape, at the
+    telemetry storm's (2^20 pairs, 2^18 folds into 8192 slots) and at one
+    pair and one fold."""
+    from _torch_port import predicate_inputs
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+
+    _card()
+    W = shape[-1]
+    inp = predicate_inputs(7, *shape) if shape[-1] > 1 else \
+        predicate_inputs(7, *shape[:-1], 5)
+    if W == 1:  # every fold into slot 0 of a one-slot table
+        inp["agg"][0][:] = 0
+        inp["acc"] = inp["acc"][:1]
+    before = PK.launches
+    got = _pred_run(PK.predicate_phase, inp, "cuda", W)
+    torch.cuda.synchronize()
+    assert PK.launches == before + 1
+    want = _pred_run(PK.predicate_phase_ref, inp, "cuda", W)
+    keep, acc, cnt, sm, mn, mx = got
+    np.testing.assert_array_equal(keep, want[0])
+    for g, w in ((cnt, want[2]), (mn, want[4]), (mx, want[5]),
+                 (acc[:, [0, 2, 3]], want[1][:, [0, 2, 3]])):
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    np.testing.assert_allclose(sm, want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(acc[:, 1], want[1][:, 1], rtol=1e-5,
+                               atol=1e-5)
+    table, _, feats, pp, pr, _ = _pred_tensors(inp, "cuda")
+    ek = PK.eval_pairs(*table, feats, pp, pr).cpu().numpy()
+    np.testing.assert_array_equal(ek, want[0])
+
+
+PRED_FAULT_SCRIPT = r"""
+import json, torch
+from vernemq_tpu_torch.cluster.metadata import MetadataStore
+from vernemq_tpu_torch.filters.engine import FilterEngine
+from vernemq_tpu_torch.filters.schema_registry import SchemaRegistry
+from vernemq_tpu_torch.ops import _build
+from vernemq_tpu_torch.ops import predicate_kernel as PK
+from vernemq_tpu_torch.ops.tile_match import KernelError
+from vernemq_tpu_torch.protocol.types import SubOpts
+
+reg = SchemaRegistry(MetadataStore("n1"), "n1")
+reg.set_schema("", "s/#", "v:number")
+eng = FilterEngine(reg, device_gate=lambda: True, host_threshold=1,
+                   device="cuda")
+o = SubOpts()
+o.filter_expr = "$gt(v,50)"
+eng.on_sub_delta("add", "", o)
+rows = [(("s", "#"), ("", "c"), o)]
+items = [(("s", "x"), eng.encode("", ("s", "x"), b'{"v": %d}' % v))
+         for v in (10, 90)]
+healthy = eng.filter_batch("", items, [list(rows), list(rows)])
+# a real fault: one launch with feats in the never-mapped first page
+one = torch.ones(1, dtype=torch.int32, device="cuda")
+keep = torch.empty(1, dtype=torch.bool, device="cuda")
+lib = _build.load("predicate")
+t = [x.data_ptr() for x in eng._tables[""].dev]
+lib.predicate_phase_launch(*t, 2, 256, 1, 1, one.data_ptr(),
+                           one.data_ptr(), keep.data_ptr(), 1, None, None,
+                           None, None, None, 0, None, 0, None, None,
+                           torch.cuda.current_stream().cuda_stream)
+try:
+    eng.filter_batch("", items, [list(rows), list(rows)])
+    out = "served"
+except KernelError as e:
+    out = "KernelError"
+print(json.dumps(dict(
+    healthy=[[r[1] for r in x] for x in healthy], out=out,
+    device_failures=eng.device_failures, breaker=eng.breaker.state_name,
+    pairs_host=eng.pairs_host, dispatches=eng.dispatches)))
+"""
+
+
+@pytest.mark.cuda
+def test_predicate_fault_raises_and_is_not_host_served():
+    """A real CUDA fault (a launch reading an unmapped address) is sticky:
+    the engine's next dispatch raises KernelError out of filter_batch —
+    the host evaluator does not answer it and the breaker hears nothing.
+    In a subprocess, because the fault poisons the whole process."""
+    _card()
+    tests = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", PRED_FAULT_SCRIPT], capture_output=True,
+        text=True, timeout=600, cwd=tests.parent,
+        env={**os.environ, "PYTHONPATH": f"{tests}:{tests.parent}"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["healthy"] == [[], [["", "c"]]], res
+    assert res["out"] == "KernelError", res
+    assert res["device_failures"] == 0 and res["breaker"] == "closed"
+    assert res["pairs_host"] == 0 and res["dispatches"] == 1
+
+
+@pytest.mark.cuda
+def test_predicate_engine_warms_without_changing_it():
+    """An engine created on the card builds the kernel and runs one warm
+    dispatch on scratch tensors: one launch, and nothing of the engine
+    touched (no table, no device acc, every counter 0)."""
+    from vernemq_tpu_torch.cluster.metadata import MetadataStore
+    from vernemq_tpu_torch.filters.engine import FilterEngine
+    from vernemq_tpu_torch.filters.schema_registry import SchemaRegistry
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+
+    _card()
+    before = PK.launches
+    eng = FilterEngine(SchemaRegistry(MetadataStore("n1"), "n1"),
+                       device="cuda")
+    assert PK.launches == before + 1
+    assert not eng._tables and eng._win.dev is None
+    assert eng._win.acc[:, :2].sum() == 0
+    assert all(v == 0 for k, v in eng.stats().items()
+               if not k.startswith("aggregate_window_capacity"))

@@ -47,9 +47,12 @@ class Broker:
         self.config = config or Config()
         self.node_name = node_name
         refuse_unported(self.config)
+        # a worker whose tpu view is the match service's ring stub runs
+        # on no device: the service process owns the card
         self.device = (resolve_device(device)
                        if "tpu" in (self.config.default_reg_view,
                                     *self.config.get("reg_views", []))
+                       and not self.config.get("match_service_req_ring")
                        else device)
         self._resolve_base_dirs()
         self.metrics = Metrics()
@@ -115,8 +118,15 @@ class Broker:
                 window_initial=cfg.get("aggregate_initial_windows", 256),
                 window_cap=cfg.get("aggregate_max_windows", 4096),
                 tick_ms=cfg.get("aggregate_tick_ms", 250),
-                # the device phase runs only while the tpu view serves
-                device_gate=lambda: self.registry.batched_view_active(),
+                # the device phase runs only where the device lives:
+                # never in SO_REUSEPORT workers (the match service owns
+                # the card; rows come back over the rings and the
+                # worker's exact host evaluator filters them), and only
+                # while the tpu view actually serves
+                device_gate=lambda: (
+                    self.match_client is None
+                    and self.registry.batched_view_active()),
+                device=self.device,
             )
             self.filter_engine.emit = self._deliver_aggregate
         # no mesh slice map: the port serves one GPU (tpu_mesh is refused,
@@ -251,10 +261,15 @@ class Broker:
         # when canary_enabled — the loopback subscription must not
         # exist unless the operator asked for the probe
         self.canary: Optional[Any] = None
-        # no worker mode (worker_stats_block and the match service are
-        # refused, ROADMAP Queue 1 item 9); sysmon and the cluster copies
-        # read this None
+        # multi-process session front end (broker/workers.py): when this
+        # broker is one of N SO_REUSEPORT workers, the parent hands it a
+        # shared stats slot (fused overload pressure, `vmq-admin workers
+        # show`) and optionally a ring pair to the device-match service.
+        # Both stay None in the classic single-process boot — the
+        # workers=1 byte-identical guarantee.
+        self.worker_index = int(self.config.get("worker_index", 0) or 0)
         self.worker_stats: Optional[Any] = None
+        self.match_client: Optional[Any] = None
         self.sysmon: Optional[Any] = None
         self.overload: Optional[Any] = None  # adaptive overload governor
         self.supervisor: Optional[Any] = None  # crash-restart supervision
@@ -505,6 +520,55 @@ class Broker:
                                    "breaker).",
             "tpu_rebuild_abandons": "Wedged device-table rebuilds "
                                     "abandoned by the watchdog.",
+            # multi-process front end (broker/workers.py +
+            # broker/match_service.py): per-worker counters aggregated
+            # at the scrape/$SYS point from the shared stats block,
+            # plus the worker's own match-service client stats
+            "workers_total": "Worker slots in the shared stats block "
+                             "(the SO_REUSEPORT group size).",
+            "workers_alive": "Workers with a fresh heartbeat in the "
+                             "shared stats block.",
+            "workers_sessions_total": "Connected sessions summed "
+                                      "across live workers.",
+            "workers_admitted_pubs_total": "PUBLISHes admitted summed "
+                                           "across live workers.",
+            "workers_level_max": "Highest overload level any live "
+                                 "worker reports (the fused L2/L3 "
+                                 "shedding gate).",
+            "workers_pressure_max": "Highest local overload pressure "
+                                    "any live worker reports.",
+            "overload_peer_pressure": "Peer-worker pressure fused into "
+                                      "this governor (0 outside "
+                                      "multi-process mode).",
+            "match_client_folds": "Fold batches this worker shipped to "
+                                  "the match service.",
+            "match_client_fold_pubs": "Publishes that rode a "
+                                      "match-service fold batch.",
+            "match_client_timeouts": "Match-service folds abandoned at "
+                                     "the reply deadline (local trie "
+                                     "served).",
+            "match_client_stalls": "Match-service folds abandoned by "
+                                   "the stall watchdog (local trie "
+                                   "served).",
+            "match_client_degraded": "Folds refused while the "
+                                     "match-service breaker was open "
+                                     "(local trie served).",
+            "match_client_held": "Folds served locally while an op "
+                                 "backlog/resync was still in flight "
+                                 "(ordering fence).",
+            "match_client_ops_sent": "Subscription write ops forwarded "
+                                     "to the match service.",
+            "match_client_ops_dropped": "Subscription ops dropped on "
+                                        "backlog overflow (a full "
+                                        "resync replaces them).",
+            "match_client_resyncs": "Owned-row replays after a "
+                                    "match-service (re)start.",
+            "match_client_breaker_state": "Match-service client breaker "
+                                          "state (0 closed, 1 "
+                                          "half-open, 2 open).",
+            "match_client_op_backlog": "Subscription ops buffered "
+                                       "while the request ring is "
+                                       "full.",
             # flight recorder (observability/recorder.py)
             "flight_sampled": "Publishes sampled by the flight "
                               "recorder (1-in-N at admission).",
@@ -582,6 +646,10 @@ class Broker:
                                   "not units).",
             "rebalance_cycles": "Automatic planner cycles that passed "
                                 "every safety rail and acted.",
+            # shared-memory ring publish ordering (parallel/shm_ring.py)
+            "shm_ring_fence": "1 when the native release fence backs "
+                              "ShmRing tail publishes, 0 on the "
+                              "pure-Python x86-TSO fallback.",
         })
         from ..observability import events as _events
         from ..observability.canary import GAUGE_HELP as _canary_help
@@ -607,6 +675,29 @@ class Broker:
         spool = getattr(self.cluster, "spool", None)
         if spool is not None:
             out.update(spool.stats())
+        if self.worker_stats is not None:
+            # scrape-point aggregation: every worker writes only its own
+            # slot; any worker's scrape (and the parent's bench reads)
+            # fuse the block into one node-level view
+            try:
+                slots = self.worker_stats.read_all()
+                live = [s for s in slots
+                        if s["heartbeat_age_s"] is not None
+                        and s["heartbeat_age_s"] < 5.0]
+                out["workers_total"] = float(self.worker_stats.n_workers)
+                out["workers_alive"] = float(len(live))
+                out["workers_sessions_total"] = float(
+                    sum(s["sessions"] for s in live))
+                out["workers_admitted_pubs_total"] = float(
+                    sum(s["admitted_pubs"] for s in live))
+                out["workers_level_max"] = float(
+                    max((s["level"] for s in live), default=0))
+                out["workers_pressure_max"] = round(
+                    max((s["pressure"] for s in live), default=0.0), 4)
+            except Exception:
+                pass  # a torn attach must never break the scrape
+        if self.match_client is not None:
+            out.update(self.match_client.stats_dict())
         if self._retained_engine is not None:
             out.update(self._retained_engine.stats())
         if self._retained_collector is not None:
@@ -645,6 +736,9 @@ class Broker:
             planner = getattr(self.cluster, "planner", None)
             if planner is not None:
                 out["rebalance_cycles"] = float(planner.cycles)
+        from ..parallel.shm_ring import fence_active
+
+        out["shm_ring_fence"] = 1.0 if fence_active() else 0.0
         return out
 
     def _observability_gauges(self) -> Dict[str, float]:
@@ -658,6 +752,89 @@ class Broker:
         if self.canary is not None:
             out.update(self.canary.stats())
         return out
+
+    def _peer_histograms(self):
+        """Merged stage-histogram blocks of every OTHER live worker
+        (heartbeat-fresh slots only — a dead worker's frozen block must
+        not pin the tail forever). Wired as ``metrics.histogram_extra``
+        in worker mode."""
+        from ..observability import histogram as _hist
+
+        ws = self.worker_stats
+        out = {}
+        if ws is None:
+            return out
+        for i in range(ws.n_workers):
+            if i == self.worker_index:
+                continue
+            slot = ws.read_slot(i)
+            hb = slot.get("heartbeat_age_s")
+            if hb is None or hb > 5.0:
+                continue
+            for name, snap in _hist.unpack_flat(ws.read_hist(i)).items():
+                cur = out.get(name)
+                out[name] = _hist.merge(cur, snap) if cur else snap
+        # the match service's block carries the device-side seams
+        # (dispatch/delta/rebuild run in ITS process) — merged when the
+        # service is live and a DIFFERENT process (an in-process service
+        # shares this worker's registry; merging its block would double
+        # count every observation)
+        try:
+            svc = ws.service_info()
+            if (svc.get("pid") and svc["pid"] != os.getpid()
+                    and svc.get("heartbeat_age_s") is not None
+                    and svc["heartbeat_age_s"] < 5.0):
+                for name, snap in _hist.unpack_flat(
+                        ws.read_service_hist()).items():
+                    cur = out.get(name)
+                    out[name] = _hist.merge(cur, snap) if cur else snap
+        except Exception:
+            pass
+        return out
+
+    def merged_journal_events(self, merge: bool = False):
+        """The control-plane event stream for this node: the local
+        journal (full detail), plus — with ``merge`` in worker mode —
+        every OTHER live worker's packed slot events and the match
+        service's, interleaved by monotonic stamp into ONE list
+        (`vmq-admin events dump --merge` / `timeline dump --merge`; the
+        on-hardware capture item scrapes one worker instead of N)."""
+        from ..observability import events as _events
+
+        out = _events.journal().snapshot()
+        ws = self.worker_stats
+        if not merge or ws is None:
+            return out
+        my_pid = os.getpid()
+        for i in range(ws.n_workers):
+            if i == self.worker_index:
+                continue
+            slot = ws.read_slot(i)
+            hb = slot.get("heartbeat_age_s")
+            if hb is None or hb > 5.0:
+                continue
+            out.extend(_events.unpack(ws.read_events(i),
+                                      pid=slot.get("pid", 0)))
+        try:
+            svc = ws.service_info()
+            if (svc.get("pid") and svc["pid"] != my_pid
+                    and svc.get("heartbeat_age_s") is not None
+                    and svc["heartbeat_age_s"] < 5.0):
+                out.extend(_events.unpack(ws.read_service_events(),
+                                          pid=svc["pid"]))
+        except Exception:
+            pass  # an old-layout block (no event region) stays healthy
+        # a peer's packed ring may overlap what we read last time;
+        # dedup on the (stamp, code, pid) identity, then one timeline
+        seen = set()
+        uniq = []
+        for e in sorted(out, key=lambda e: e["t"]):
+            key = (round(e["t"], 6), e["code"], e.get("pid", 0))
+            if key in seen:
+                continue
+            seen.add(key)
+            uniq.append(e)
+        return uniq
 
     def cluster_ready(self) -> bool:
         """is_ready consistency gate (vmq_cluster.erl:67-92)."""
@@ -1366,6 +1543,44 @@ class Broker:
         if log_dir and log_file and not _os.path.isabs(log_file):
             self.config.set("log_file", _os.path.join(log_dir, log_file))
 
+    async def _publish_worker_stats(self, interval: float = 0.25) -> None:
+        """Heartbeat this worker's health row into the shared stats
+        block (pid, live sessions, admitted publishes). The overload
+        level/pressure pair is written by the governor's own tick and
+        the loop-lag samples by sysmon — every field has exactly one
+        writer, so the block needs no locking."""
+        from ..observability import events as _events
+        from ..observability import histogram as _hist
+
+        ws = self.worker_stats
+        idx = self.worker_index
+        while True:
+            try:
+                ws.write_health(
+                    idx, pid=os.getpid(), sessions=len(self.sessions),
+                    admitted=self.metrics.value("mqtt_publish_received"))
+                # publish this worker's stage histograms into its slot:
+                # the scrape-point aggregation reads every live slot so
+                # ANY worker's /metrics (and the parent's bench read)
+                # shows the node-level merged families
+                ws.write_hist(idx, _hist.pack_all())
+                ws.write_events(idx, _events.journal().pack())
+                mc, col = self.match_client, getattr(self, "_collector",
+                                                     None)
+                if mc is not None:
+                    from .match_service import collector_host_pubs
+
+                    # the port's off-card counters: publishes this worker
+                    # served from its local trie, folds the service missed
+                    ws.write_offcard(
+                        idx, collector_host_pubs(col)
+                        if col is not None else 0,
+                        mc.fold_timeouts + mc.fold_stalls
+                        + mc.fold_degraded + mc.fold_held)
+            except Exception:
+                log.exception("worker stats heartbeat failed")
+            await asyncio.sleep(interval)
+
     async def start_systree(self) -> None:
         """$SYS tree publisher (vmq_systree.erl): periodic internal publish
         of all metrics to $SYS/<node>/... topics. Mountpoint, QoS and
@@ -1509,12 +1724,67 @@ class Broker:
         if float(self.config.get("store_compact_interval_ms", 1000)) > 0:
             self._bg_tasks.append(asyncio.get_event_loop().create_task(
                 self._store_maintenance_loop()))
+        # multi-process front end: attach the shared worker stats slot
+        # and, when the parent configured a match service, mount the
+        # ring-backed reg view so folds route to the service process
+        # (broker/match_service.py). Both are worker-only — the classic
+        # boot leaves the config keys empty and changes nothing.
+        stats_name = str(self.config.get("worker_stats_block", "") or "")
+        if stats_name:
+            from ..parallel.shm_ring import WorkerStatsBlock
+
+            try:
+                self.worker_stats = WorkerStatsBlock.attach(stats_name)
+                # the parent's workers_total must agree with the slot
+                # count baked into the segment header: a mismatch means
+                # this worker attached a STALE block from a previous
+                # group generation (or a torn rolling restart) — peer
+                # pressure fusion and `workers show` would read slots
+                # that belong to nobody
+                expected = int(self.config.get("workers_total", 1) or 0)
+                if expected and expected != self.worker_stats.n_workers:
+                    log.warning(
+                        "worker stats block %r has %d slots but "
+                        "workers_total=%d — parent and worker config "
+                        "generations disagree (stale segment?)",
+                        stats_name, self.worker_stats.n_workers,
+                        expected)
+                # scrape-point histogram aggregation: merge the OTHER
+                # live workers' slot blocks into this worker's scrape
+                # (our own observations come from the live in-process
+                # registry, which is fresher than our own slot)
+                self.metrics.histogram_extra = self._peer_histograms
+            except Exception:
+                log.exception("worker stats block %r unavailable; "
+                              "running without fused worker pressure",
+                              stats_name)
+        req_ring = str(self.config.get("match_service_req_ring", "") or "")
+        if req_ring and stats_name:
+            from .match_service import MatchServiceClient, ShmMatchView
+
+            # no try: a worker whose rings cannot be attached fails its
+            # start (the supervisor respawns it) — the port has no path
+            # that would build a device view inside a worker instead
+            client = MatchServiceClient(
+                req_ring,
+                str(self.config.get("match_service_resp_ring", "")),
+                stats_name, self.worker_index, self.node_name,
+                timeout_ms=float(self.config.get(
+                    "match_service_timeout_ms", 2000)))
+            self.match_client = client
+            # pre-mounting "tpu": the worker never touches a device —
+            # the service owns the mirror; the worker's trie stays the
+            # degraded-mode oracle
+            self.registry.reg_views["tpu"] = ShmMatchView(
+                self.registry, client)
+            client.start(self.registry)
         # materialize the reg views listed in the reg_views knob
         # (vmq_server.schema reg_views: views started at BOOT, not on
         # first default_reg_view routing) — an operator listing tpu with
         # default_reg_view=trie wants the device table building now so
         # a later `config set default_reg_view tpu` flips onto a warm
-        # view (already-present names are skipped)
+        # view; the worker-mode ShmMatchView mount above stays
+        # authoritative (already-present names are skipped)
         from .schema import REG_VIEW_ALIASES
 
         valid_views = sorted(set(REG_VIEW_ALIASES.values()))
@@ -1555,6 +1825,14 @@ class Broker:
             l2_burst=cfg.get("overload_l2_burst", 100),
             l3_disconnect_top=cfg.get("overload_l3_disconnect_top", 5))
         self.overload.start()
+        if self.worker_stats is not None:
+            # fuse per-worker governors into one cluster-style level:
+            # each tick writes THIS worker's local pressure into its
+            # slot and reads the peers' as the "workers" signal
+            self.overload.attach_worker_stats(self.worker_stats,
+                                              self.worker_index)
+            self.supervisor.spawn("worker-stats",
+                                  self._publish_worker_stats)
         if self.config.get("sysmon_enabled", True):
             from .sysmon import Sysmon
 
@@ -1649,6 +1927,11 @@ class Broker:
         if (getattr(self, "_boot_fault_plan", None) is not None
                 and faults.active() is self._boot_fault_plan):
             faults.clear()
+        if self.worker_stats is not None:
+            # the match client's own attachment went down with the tpu
+            # view close above; this is the broker's direct handle
+            self.worker_stats.close()
+            self.worker_stats = None
         # after the collectors/views that dispatch through it are down;
         # wedged sacrificial threads are daemons and die with the process
         self.watchdog.stop()

@@ -91,8 +91,7 @@ def refuse_unported(config) -> None:
     naming the ROADMAP Queue 1 item that ports them, before a broker is
     built, instead of failing later on a module that was never copied: a
     ``tpu_mesh`` (the reference shards its table over a device mesh; the
-    port serves one GPU), worker mode (``match_service_req_ring``,
-    ``worker_stats_block``), the SWC metadata store, admin HTTP, Graphite,
+    port serves one GPU), the SWC metadata store, admin HTTP, Graphite,
     bridges and the bundled plugins, and ``observability_enabled`` off
     (the port's histograms have no off switch)."""
     spec = str(config.get("tpu_mesh", "") or "").strip()
@@ -100,11 +99,6 @@ def refuse_unported(config) -> None:
         raise NotImplementedError(
             f"tpu_mesh={spec!r}: the multi-GPU matcher is not ported yet "
             f"(ROADMAP Queue 1 item 8); unset tpu_mesh to serve on one GPU")
-    for key in ("match_service_req_ring", "worker_stats_block"):
-        if str(config.get(key, "") or ""):
-            raise NotImplementedError(
-                f"{key} is set: worker mode and the match service are not "
-                f"ported yet (ROADMAP Queue 1 item 9)")
     unported = {
         "metadata_plugin=swc (cluster/swc_store)":
             config.get("metadata_plugin", "lww") == "swc",

@@ -482,19 +482,32 @@ class MQTTServer:
 async def start_broker(
     config=None, host: str = "127.0.0.1", port: int = 1883,
     node_name: str = "node1", device=None,
+    cluster_listen: Optional[Tuple[str, int]] = None,
+    join: Optional[Tuple[str, int]] = None,
+    reuse_port: bool = False,
 ) -> Tuple[Broker, MQTTServer]:
     """Boot a broker with one MQTT listener (vmq_test_utils:setup-style
     convenience; port=0 picks a random free port). ``device`` is where the
     ``tpu`` reg view runs (default the CUDA card; see :class:`Broker`).
-    The reference's ``cluster_listen`` / ``join`` (the multi-node plane,
-    ROADMAP Queue 1 item 11) and ``reuse_port`` (worker mode, item 9) are
-    not offered."""
+    ``cluster_listen`` additionally starts the inter-node channel listener
+    (the reference's ``vmq`` listener type, vmq_ranch_config.erl:224-227);
+    ``join`` dials a seed node. ``reuse_port`` lets worker processes share
+    the MQTT port (broker/workers.py), whose cluster channels on loopback
+    are what these two serve in the port."""
     broker = Broker(config, node_name=node_name, device=device)
     await broker.start()
     from .listeners import ListenerManager
 
     manager = ListenerManager(broker)
-    server = await manager.start_listener("mqtt", host, port)
+    server = await manager.start_listener(
+        "mqtt", host, port, {"reuse_port": reuse_port} if reuse_port else None)
+    if cluster_listen is not None:
+        from ..cluster import Cluster
+
+        cluster = Cluster(broker, cluster_listen[0], cluster_listen[1])
+        await cluster.start()
+        if join is not None:
+            cluster.join(*join)
     return broker, server
 
 

@@ -35,8 +35,14 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
+from ..models.matcher import _is_cuda_fault
 from ..observability import histogram as obs
+from ..ops import predicate_kernel as PK
+from ..ops.tile_match import KernelError
+from ..robustness import faults
 from ..robustness import watchdog as watchdog_mod
 from ..robustness.breaker import CircuitBreaker
 from .predicate import (
@@ -223,7 +229,14 @@ class FilterEngine:
                  window_initial: int = 256,
                  window_cap: int = 4096,
                  tick_ms: int = 250,
-                 device_gate: Optional[Callable[[], bool]] = None):
+                 device_gate: Optional[Callable[[], bool]] = None,
+                 device=None):
+        """``device``: where the predicate phase's device path runs (the
+        broker passes its own); None means no device path, so the exact host
+        evaluator serves every batch. A CUDA device is resolved here (no
+        card raises), the phase's kernel is built and one warm dispatch runs
+        on scratch tensors, so the first batch does not wait on module
+        loading; the warm-up leaves the engine's state untouched."""
         self.schemas = schemas
         self.metrics = metrics
         self.breaker: Optional[CircuitBreaker] = (CircuitBreaker(
@@ -255,7 +268,10 @@ class FilterEngine:
         self._mp_refs: Dict[str, int] = {}
         self._enc_cache: Dict[Tuple[str, Tuple[str, ...]], Any] = {}
         self._device = None
-        self._device_checked = False
+        if device is not None:
+            self._device = resolve_device(device)
+            if self._device.type == "cuda":
+                self._warm()
         self._loop = None
         self._tick_handle = None
         self._closed = False
@@ -396,11 +412,16 @@ class FilterEngine:
         matched rows). Returns the predicate-filtered fanout with
         aggregation rows consumed into their windows. Runs on an
         executor thread (the collector wraps it in the watchdog's
-        sacrificial dispatch); MUST NOT raise — a failure fails open
-        (unfiltered rows, counted) rather than losing publishes."""
+        sacrificial dispatch); a failure fails open (unfiltered rows,
+        counted) rather than losing publishes — except a fault of the
+        device code (``KernelError``: a kernel that fails to build, refuses
+        its input or faulted on the card), which raises to the caller and
+        is never answered by the host evaluator."""
         try:
             return self._filter_batch_impl(mountpoint, items, results,
                                            force_host=False)
+        except KernelError:
+            raise
         except Exception:
             self.errors += 1
             self._m("predicate_errors")
@@ -629,11 +650,41 @@ class FilterEngine:
         agg_feed.append((slot, i, fi, gate))
 
     def _device_ok(self) -> bool:
-        """False: the predicate phase's device path is not ported yet
-        (ROADMAP Queue 1 item 7), so every batch takes the exact host
-        evaluator, which the reference holds bit-identical to its device
-        phase."""
-        return False
+        """Is the device path worth attempting? Deliberately does NOT
+        consult the breaker — ``_dispatch``'s single ``allow()`` call
+        owns the half-open probe slot (a second allow() here would
+        consume the probe and wedge the breaker half-open). The device is
+        the one the engine was given (no probe)."""
+        gate = self.device_gate
+        if gate is not None:
+            try:
+                if not gate():
+                    return False
+            except Exception:
+                return False
+        return self._device is not None
+
+    def _warm(self) -> None:
+        """Build the phase's kernel and run one dispatch on scratch tensors
+        of the engine's device (CUDA loads a kernel's module at its first
+        launch); nothing of the engine is read or written."""
+        dev = self._device
+        i32 = dict(dtype=torch.int32, device=dev)
+        table = (torch.tensor([OP_PAD, OP_TRUE], **i32),
+                 torch.zeros(2, **i32),
+                 torch.zeros(2, dtype=torch.float32, device=dev),
+                 torch.zeros(2, dtype=torch.float32, device=dev),
+                 torch.zeros(2, **i32), torch.zeros(2, **i32))
+        one = torch.ones(1, **i32)
+        acc = torch.from_numpy(_Windows._fresh(1)).to(dev)
+        PK.predicate_phase(*table, acc,
+                           torch.zeros((1, 2), dtype=torch.float32,
+                                       device=dev),
+                           one, one, torch.zeros(1, **i32),
+                           torch.zeros(1, **i32), torch.zeros(1, **i32),
+                           one, torch.ones(1, dtype=torch.bool, device=dev),
+                           W=1)
+        torch.cuda.synchronize(dev)
 
     def record_stall(self, exc: Optional[BaseException] = None) -> None:
         """Collector hook: the sacrificial dispatch abandoned a wedged
@@ -650,10 +701,148 @@ class FilterEngine:
 
     def _dispatch(self, table, feats, pair_pub, pair_pred, agg_norm,
                   now, emissions) -> Optional[np.ndarray]:
-        """The device dispatch of the phase: not ported (``_device_ok``
-        is False, so nothing calls it); the caller runs the exact host
-        path on PredicateDegraded."""
-        raise PredicateDegraded("the predicate device phase is not ported")
+        """One device call for the whole batch: pair verdicts + window
+        folds. Raises PredicateDegraded when the device cannot serve
+        (breaker fed); the caller runs the exact host path. A fault of the
+        device code raises ``KernelError`` instead: it is not fed to the
+        breaker and the host evaluator does not answer it."""
+        if not self._device_lock.acquire(timeout=0.5):
+            # a wedged/slow dispatch holds the lock: don't pile in
+            raise PredicateDegraded("device busy")
+        try:
+            br = self.breaker
+            if br is not None and not br.allow():
+                self.degraded_sheds += 1
+                self._m("predicate_degraded_sheds")
+                raise PredicateDegraded("breaker open")
+            t0 = time.monotonic()
+            dev = self._device
+            put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            try:
+                faults.inject("device.predicate")
+                # snapshot HOST copies under the lock, upload OUTSIDE
+                # it: the event loop takes self._lock every tick
+                # (_tick, retained replay, admin status), and a wedged
+                # upload held here would park every session. Copies are
+                # tiny (the predicate table is hundreds of rows, the acc
+                # table W×4 f32). Staleness flags are CONSUMED at
+                # snapshot; a concurrent change re-marks them and the
+                # next dispatch re-uploads.
+                with self._lock:
+                    t_host = ((table.op.copy(), table.field.copy(),
+                               table.a.copy(), table.b.copy(),
+                               table.mlo.copy(), table.mhi.copy())
+                              if table.dev is None or table.dirty
+                              else None)
+                    if t_host is not None:
+                        table.dirty = False
+                    dev_table = table.dev
+                    win = self._win
+                    W = win.cap
+                    acc_host = (win.acc.copy()
+                                if agg_norm and (win.dev is None
+                                                 or win.dev_stale)
+                                else None)
+                    if acc_host is not None:
+                        win.dev_stale = False
+                    acc_dev = win.dev
+                if t_host is not None:
+                    dev_table = tuple(put(a) for a in t_host)
+                    with self._lock:
+                        if not table.dirty:
+                            table.dev = dev_table
+                        # else: a schema change re-dirtied mid-upload —
+                        # serve this batch from the consistent snapshot,
+                        # leave table.dev for the next dispatch
+                if acc_host is not None:
+                    acc_dev = put(acc_host)
+                # no padding: the pair and fold counts are the batch's own
+                # (the reference pads both to powers of two to bound its
+                # XLA compiles); one int32 block carries every index array
+                P, A = len(pair_pub), len(agg_norm)
+                idx = np.empty(2 * P + 4 * A, np.int32)
+                idx[:P] = pair_pub
+                idx[P:2 * P] = pair_pred
+                if A:  # rows: slot, pub, field, gate
+                    idx[2 * P:] = np.asarray(agg_norm, np.int32).T.ravel()
+                idx_dev = put(idx)
+                pp, pr = idx_dev[:P], idx_dev[P:2 * P]
+                f_dev = put(feats)
+                if agg_norm:
+                    agg = idx_dev[2 * P:].view(4, A)
+                    keep, new_acc, cnt, sm, mn, mx = PK.predicate_phase(
+                        *dev_table, acc_dev, f_dev, pp, pr, *agg,
+                        torch.ones(A, dtype=torch.bool, device=dev), W=W)
+                    keep = keep.cpu().numpy()
+                    partials = tuple(torch.stack((cnt, sm, mn, mx))
+                                     .cpu().numpy())
+                else:
+                    keep = PK.eval_pairs(*dev_table, f_dev, pp,
+                                         pr).cpu().numpy()
+                    new_acc = partials = None
+            except Exception as e:
+                if agg_norm:
+                    # the acc table is updated in place: a failed call may
+                    # have left it half folded — invalidate so the next
+                    # dispatch re-uploads from the authoritative host mirror
+                    with self._lock:
+                        self._win.dev = None
+                        self._win.dev_stale = True
+                if isinstance(e, KernelError):
+                    raise
+                if _is_cuda_fault(e):
+                    raise KernelError(
+                        f"predicate phase: CUDA fault on the card: {e}") \
+                        from e
+                self.device_failures += 1
+                self._m("predicate_device_failures")
+                if br is not None:
+                    if watchdog_mod.current_op_abandoned():
+                        raise PredicateDegraded(
+                            f"late failure of abandoned dispatch: {e!r}")
+                    if br.record_failure():
+                        log.error(
+                            "predicate device path OPENED after %d "
+                            "consecutive failures (last: %s); host "
+                            "evaluator serves", br.failure_threshold, e)
+                    raise PredicateDegraded(str(e)) from e
+                raise
+            if watchdog_mod.current_op_abandoned():
+                # the watchdog released our waiter and the host path
+                # already served this batch: committing the fold would
+                # double-count — discard, mark the device table stale.
+                # A held half-open probe is handed back (the stall was
+                # already fed to the breaker via record_stall).
+                if br is not None:
+                    br.probe_aborted()
+                with self._lock:
+                    self._win.dev = None
+                    self._win.dev_stale = True
+                raise PredicateDegraded("abandoned dispatch discarded")
+            if br is not None:
+                br.record_success()
+            self.dispatches += 1
+            self.pairs_device += len(pair_pub)
+            self._m("predicate_dispatches")
+            self._m("predicate_pairs_evaluated", len(pair_pub))
+            obs.observe("stage_predicate_dispatch_ms",
+                        (time.monotonic() - t0) * 1e3)
+            if partials is not None:
+                with self._lock:
+                    if self._win.cap == W:
+                        self._win.dev = new_acc
+                    else:
+                        # the table grew while we dispatched against
+                        # the old capacity: the device copy is stale —
+                        # re-upload the mirror next time
+                        self._win.dev = None
+                        self._win.dev_stale = True
+                    self._commit_partials(partials, now, emissions)
+            return keep if pair_pub else None
+        finally:
+            self._device_lock.release()
+
+    # host twin ------------------------------------------------------------
 
     def _host_pairs_eval(self, table, feats, pair_pub,
                          pair_pred) -> np.ndarray:

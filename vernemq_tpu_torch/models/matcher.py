@@ -1180,8 +1180,9 @@ class BatchCollector:
     expired or stalled one is logged as a warning too. A kernel fault (``KernelError``) reaches the futures as an
     error. With a ``filter_engine`` every flush's matched fanout runs the
     payload-predicate phase before the futures settle, on every shed path
-    too. A copy of the reference's collector without the match-service
-    fold meta (``meta_box``), which only its worker mode fills."""
+    too; a fault of the phase's kernel fails the flush's futures. A view
+    with ``fold_meta_capable`` (the worker's match-service stub) fills a
+    ``meta_box`` with the ring stamps of a traced flush."""
 
     #: device calls allowed in flight at once: two slots double-buffer the
     #: pipeline (batch N+1's host encode overlaps batch N's device work)
@@ -1495,7 +1496,24 @@ class BatchCollector:
             self.view.matcher(mp)  # first load on the loop thread
             lock_to = (self.lock_busy_shed_ms / 1e3
                        if self.lock_busy_shed_ms else None)
+            # flight-recorder envelope: when a sampled publish rides
+            # this flush and the view can report fold meta (the
+            # match-service client's cross-process ring stamps), hand
+            # the fold a box to fill — the executor thread writes it,
+            # the loop reads it after the await
+            mtraces = traces_mp.get(mp)
+            meta_box = ({} if mtraces
+                        and getattr(self.view, "fold_meta_capable", False)
+                        else None)
             view = self.view
+            if meta_box is not None:
+                fold_many_fn = (lambda m, c, lt, _mb=meta_box:
+                                view.fold_many(m, c, lt, meta_out=_mb))
+                fold_batch_fn = (lambda m, t, lt, _mb=meta_box:
+                                 view.fold_batch(m, t, lt, meta_out=_mb))
+            else:
+                fold_many_fn = getattr(view, "fold_many", None)
+                fold_batch_fn = view.fold_batch
             chunks = ([topics[i:i + self.max_batch]
                        for i in range(0, len(topics), self.max_batch)]
                       if len(topics) > self.max_batch
@@ -1508,12 +1526,12 @@ class BatchCollector:
                         nested = await wd.dispatch_async(
                             "device.dispatch",
                             lambda m=mp, c=chunks, lt=lock_to:
-                                view.fold_many(m, c, lt),
+                                fold_many_fn(m, c, lt),
                             self.dispatch_deadline,
                             label=f"fold_many:{mp or '(default)'}")
                     else:
                         nested = await loop.run_in_executor(
-                            None, view.fold_many, mp, chunks, lock_to)
+                            None, fold_many_fn, mp, chunks, lock_to)
                     results = [rows for batch in nested for rows in batch]
                     # counted only on success: a shed super-batch served
                     # elsewhere must not read as a fused dispatch
@@ -1523,12 +1541,12 @@ class BatchCollector:
                     results = await wd.dispatch_async(
                         "device.dispatch",
                         lambda m=mp, t=topics, lt=lock_to:
-                            view.fold_batch(m, t, lt),
+                            fold_batch_fn(m, t, lt),
                         self.dispatch_deadline,
                         label=f"fold_batch:{mp or '(default)'}")
                 else:
                     results = await loop.run_in_executor(
-                        None, view.fold_batch, mp, topics, lock_to)
+                        None, fold_batch_fn, mp, topics, lock_to)
             except StallAbandoned as sa:
                 # deadline overrun: a device failure for the breaker; THIS
                 # flush is served by the trie, the late result discarded
@@ -1582,8 +1600,14 @@ class BatchCollector:
                         eng.record_stall(sa)
                         results = await loop.run_in_executor(
                             None, eng.filter_batch_host, mp, tf, results)
-            for tr in traces_mp.get(mp, ()):
+                    except Exception as e:  # a fault of the phase's kernel
+                        for _, fut, _feat in items:
+                            self._settle(fut, exc=e)
+                        continue
+            for tr in mtraces or ():
                 tr.stamp("match")
+                if meta_box:
+                    tr.meta = meta_box
             for (_, fut, _feat), rows in zip(items, results):
                 self._settle(fut, res=rows)
         # the pressure EWMA: whole-flush service time (shed and degraded

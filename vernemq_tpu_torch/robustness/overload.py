@@ -172,6 +172,16 @@ class OverloadGovernor:
         self._rss = 0
         self._rss_watermark = 0
 
+        # multi-process fusion (broker/workers.py): the shared stats
+        # block and this worker's slot index. Each tick writes the
+        # LOCAL pressure (peers excluded — writing the fused value
+        # would echo-amplify between workers) and reads the peers' as
+        # one more severity signal, so L2/L3 shedding engages on every
+        # worker when any one of them drowns — the cluster-style
+        # aggregate level. None outside worker mode.
+        self._wstats: Optional[Any] = None
+        self._widx = 0
+        self._local_pressure = 0.0
 
         # talker tracking: per-sid publish counts folded into EWMA rates
         # each tick — drives the L1 proportional factor, the L2 buckets'
@@ -243,9 +253,10 @@ class OverloadGovernor:
             s["rss"] = _clamp01(
                 (self._rss / self._rss_watermark - 0.75) * 2.0)
         # keep slow-path signals sticky between ticks so an inline
-        # recompute can't mask a saturated collector
+        # recompute can't mask a saturated collector (or a drowning
+        # peer worker)
         for k in ("collector", "retained", "breaker", "cluster",
-                  "injected"):
+                  "injected", "workers"):
             if k in self._last_signals:
                 s[k] = self._last_signals[k]
         return (max(s.values(), default=0.0), s)
@@ -273,6 +284,7 @@ class OverloadGovernor:
         else:
             s.pop("cluster", None)
         s.pop("injected", None)
+        s.pop("workers", None)
         try:
             # chaos seam: an error rule here forces full pressure (the
             # way tests drive collector-depth conditions without a real
@@ -287,7 +299,38 @@ class OverloadGovernor:
             if plan is not None and any(r.point == "device.pressure"
                                         for r in plan.rules):
                 s["injected"] = 1.0
+        # local pressure = what THIS worker contributes to the fused
+        # view (written to the stats slot by tick(); peers excluded so
+        # two workers can't echo-amplify each other's fused value)
+        self._local_pressure = max(s.values(), default=0.0)
+        w = self._worker_severity()
+        if w > 0:
+            s["workers"] = w
         return (max(s.values(), default=0.0), s)
+
+    def attach_worker_stats(self, stats: Any, worker_index: int) -> None:
+        """Join the cross-worker fusion (multi-process front end): read
+        peers' pressure as a signal, export local pressure per tick."""
+        self._wstats = stats
+        self._widx = int(worker_index)
+
+    def _worker_severity(self) -> float:
+        """Fused peer-worker pressure: the max of every LIVE peer
+        slot's LOCAL pressure. Deliberately pressure-only — fusing the
+        peers' LEVELS would let two hysteresis-held governors pin each
+        other up forever (A holds L3 because B's slot says L3, which B
+        holds because A's does). Local pressures exclude this signal,
+        so the fusion converges: when the drowning worker's own load
+        drops, every peer's ``workers`` signal drops with it and each
+        governor de-escalates through its own hysteresis. Stale slots
+        (dead worker) are ignored by the block's heartbeat gate."""
+        if self._wstats is None:
+            return 0.0
+        try:
+            peers = self._wstats.peer_pressure(self._widx)
+        except Exception:
+            return 0.0
+        return _clamp01(peers["pressure"])
 
     def _breaker_severity(self) -> float:
         """An open device breaker means the host trie is carrying device
@@ -346,6 +389,14 @@ class OverloadGovernor:
         pressure, signals = self._pressure()
         self._last_pressure, self._last_signals = pressure, signals
         self._update_level(now, pressure)
+        if self._wstats is not None:
+            # export AFTER the level update so peers see the level this
+            # tick actually enforces; local pressure only (see above)
+            try:
+                self._wstats.write_overload(self._widx, self.level,
+                                            self._local_pressure)
+            except Exception:
+                pass  # a torn block must never kill the governor tick
         if self.level < 2 and self._buckets:
             self._buckets.clear()  # token debt dies with the episode
         return self.level
@@ -617,4 +668,6 @@ class OverloadGovernor:
             "overload_level_enters_l1": float(self.enters[1]),
             "overload_level_enters_l2": float(self.enters[2]),
             "overload_level_enters_l3": float(self.enters[3]),
+            "overload_peer_pressure": round(
+                self._last_signals.get("workers", 0.0), 4),
         }
