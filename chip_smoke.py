@@ -74,7 +74,27 @@ kernels are built for sm_90a). It
    deliveries equal the registry trie's rows for its subscriptions, in
    publish order per publisher; every host-served counter 0; the tile
    kernel launched; publishes/s, PUBLISH→delivery and PUBACK p50/p99
-   printed;
+   printed; on the same broker the admin surface (``[admin]``): during
+   the counted load the clients' process polls the admin HTTP API (API
+   key on) every 0.5 s through ``admin/cli.py`` — ``metrics show``,
+   ``breaker show``, ``watchdog show``, ``profile device`` and a
+   ``/metrics`` scrape — with the phase's exactness and 0 host-served
+   publishes kept and the admin's device counters equal to the broker's
+   own; after it ``breaker trip path=match`` (256 publishes delivered
+   exactly, all served by the trie) and ``breaker reset`` (256 more,
+   served on the card), a client trace, a ``ql query`` of one subscriber
+   id (its 100 filters) and a Graphite reporter into a local sink
+   carrying the device counters; then two port nodes on the one card
+   (``[cluster]``): two broker processes started through
+   ``start_broker(cluster_listen=, join=)`` with the SWC store, the same
+   corpus split by subscriber id so each node's GPU table holds its
+   ~500k rows and the peer's filters as ~300k node-pointer rows (the SWC
+   replication time printed), the same live load (16,384 of its
+   publishes) split over the nodes with every delivery exact against the nodes' tries, cross-node
+   deliveries, no publish served off the card on either node (read over
+   each node's admin HTTP API), the tile kernel launched on both, and an
+   unsubscribe of 100 filters on A that stops B's publishes reaching
+   them until they are resubscribed;
 12. retained reverse match (bench.py config 8, the retained subscribe
    storm): 1,000,000 retained inserts of ``r{0..63}/d{0..255}/m{0..63}``
    topics through a ``RetainStore`` whose dirty hook writes through to a
@@ -172,6 +192,37 @@ BROKER_PUBLISHERS = 16
 BROKER_PUBS = BURST_WINDOWS * BATCH
 BROKER_QOS1 = 0.25
 BROKER_WAIT_S = 300
+# admin phase, on the broker phase's broker: during its counted load the
+# clients' process polls the admin HTTP API (API key on) every
+# ADMIN_POLL_S with ADMIN_POLL and a /metrics scrape; after it, the breaker
+# drill sends ADMIN_DRILL_PUBS publishes with the match breaker tripped and
+# as many after the reset, to ADMIN_DRILL_SUBS subscribers with the
+# filters of the first live subscribers; ADMIN_QL_ID's filters come back
+# through `ql query`
+ADMIN_POLL = (("metrics", "show"), ("breaker", "show"), ("watchdog", "show"),
+              ("profile", "device"))
+ADMIN_POLL_S = 0.5
+ADMIN_DRILL_PUBS = 256
+ADMIN_DRILL_SUBS = 8
+ADMIN_TRACE_PUBS = 8
+ADMIN_QL_ID = "bulk7"
+# cluster phase: two broker processes on the one card, each started through
+# start_broker(cluster_listen=, join=) with the SWC metadata store; the
+# broker phase's corpus split by subscriber id (the first half on node A),
+# subscribed CLUSTER_YIELD ids between event-loop turns; the broker
+# phase's live load with subscriber j and publisher k on node j % 2 / k % 2;
+# then CLUSTER_UNSUB of A's live subscribers (4 filters each) unsubscribe
+# and resubscribe while B's publishers send to their exact filters
+CLUSTER_NODES = ("A", "B")
+CLUSTER_YIELD = 25
+CLUSTER_UNSUB = 25
+CLUSTER_WAIT_S = 300
+#: the broker's host-served publish counters as `metrics show` names them
+HOST_METRICS = ("tpu_hybrid_host_pubs", "tpu_overload_shed_pubs",
+                "tpu_rebuild_shed_pubs", "tpu_busy_shed_pubs",
+                "tpu_degraded_host_pubs", "tpu_stalled_host_pubs",
+                "tpu_expired_host_pubs", "tpu_host_fallbacks",
+                "tpu_degraded_sheds", "tpu_device_failures")
 # workers phase: the broker phase's corpus and live load through worker
 # mode — WORKERS_N SO_REUSEPORT workers and one match service on the card.
 # The corpus is subscribed over MQTT by persistent v3.1.1 sessions of
@@ -1063,97 +1114,237 @@ def broker_config():
     every flush on the device (no hybrid host dispatch of
     small flushes), no $SYS publisher and no loop-lag sampler (the corpus
     load holds the loop for tens of seconds on purpose, which no live
-    broker does). The queued-publish expiry and the dispatch deadline are
-    the broker's own defaults: a publish they send to the trie fails the
-    phase."""
+    broker does), and the admin HTTP API on an ephemeral port with its
+    API-key check on. The queued-publish expiry and the dispatch deadline
+    are the broker's own defaults: a publish they send to the trie fails
+    the phase."""
     from vernemq_tpu_torch.broker.config import Config
 
     return Config(allow_anonymous=True, default_reg_view="tpu",
                   systree_enabled=False, sysmon_enabled=False,
                   tpu_initial_capacity=1 << (N_SUBS - 1).bit_length(),
-                  tpu_host_batch_threshold=0)
+                  tpu_host_batch_threshold=0, http_enabled=True,
+                  http_host="127.0.0.1", http_port=0)
 
 
-def broker_clients(port: int, live, pubs, expect, conn) -> None:
-    """The MQTT clients of the broker phase, in a process of their own:
-    connect and subscribe the live subscribers (``live``: (filters, v5)),
-    connect the publishers, say ``"ready"`` over ``conn`` and wait for a
-    word back, then send each publisher's ``pubs[k]`` ((seq, topic, qos))
-    with a send timestamp in the payload — awaiting the PUBACK of
-    every QoS 1 publish, as a client with one message in flight does —
-    until every subscriber has its ``expect[j]`` deliveries, then take
-    whatever more arrives within half a second. Sends back, over
-    ``conn``, per subscriber the (publisher, seq, QoS, latency ms) of
-    every delivery in arrival order, the QoS 1 PUBACK latencies, and the wall
-    from the first send to the last delivery."""
-    import asyncio
-    import struct
+def admin_poller(http_port: int, api_key: str, stop, out: list) -> None:
+    """Poll a broker's admin HTTP API every ADMIN_POLL_S until ``stop`` is
+    set, through the port's ``admin/cli.py`` (``run_remote``): the
+    ADMIN_POLL commands, then a ``/metrics`` scrape. Appends (what,
+    latency ms, ok) per request to ``out``, and each ``metrics show``
+    table as ("metrics", rows, True)."""
+    import urllib.request
 
+    from vernemq_tpu_torch.admin.cli import run_remote
+
+    base = f"http://127.0.0.1:{http_port}"
+    while not stop.is_set():
+        t_round = time.monotonic()
+        for words in ADMIN_POLL:
+            t = time.monotonic()
+            res = run_remote(base, api_key, list(words), timeout=30)
+            ok = res.get("type") == "table" and "error" not in res
+            out.append((" ".join(words), (time.monotonic() - t) * 1e3, ok))
+            if ok and words == ("metrics", "show"):
+                out.append(("metrics", res["table"], True))
+        t = time.monotonic()
+        try:
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                ok = r.status == 200 and b"tpu_match_publishes" in r.read()
+        except OSError:
+            ok = False
+        out.append(("/metrics", (time.monotonic() - t) * 1e3, ok))
+        stop.wait(max(0.0, ADMIN_POLL_S - (time.monotonic() - t_round)))
+
+
+async def mqtt_connect(cid: str, v5: bool, port: int):
+    """A connected port MQTT client (v5 or v3.1.1, no keepalive)."""
     from vernemq_tpu_torch.client import MQTTClient
 
-    async def connect(cid, v5):
-        c = MQTTClient("127.0.0.1", port, client_id=cid, keepalive=0,
-                       proto_ver=5 if v5 else 4)
-        await c.connect(timeout=60)
-        return c
+    c = MQTTClient("127.0.0.1", port, client_id=cid, keepalive=0,
+                   proto_ver=5 if v5 else 4)
+    await c.connect(timeout=60)
+    return c
+
+
+async def live_traffic(subs, publishers, pubs, expect, admin=None):
+    """The counted load of the broker phases over connected clients: send
+    each publisher's ``pubs[k]`` ((seq, topic, qos)) with a send timestamp
+    in the payload — awaiting the PUBACK of every QoS 1 publish, as a
+    client with one message in flight does — until every subscriber has
+    its ``expect[j]`` deliveries, then take whatever more arrives within
+    half a second. Returns per subscriber the (publisher, seq, QoS,
+    latency ms) of every delivery in arrival order, the QoS 1 PUBACK
+    latencies, the wall from the first send to the last delivery, and the
+    admin poll's records: with ``admin`` ((HTTP port, API key)) a thread
+    polls that broker's admin API (:func:`admin_poller`) from the first
+    send to the last delivery."""
+    import asyncio
+    import struct
+    import threading
+
+    loop = asyncio.get_running_loop()
+    got = [[] for _ in subs]
+    last = [0.0]
+    acks = []
+    polls, stop = [], threading.Event()
+
+    def take(j, m):
+        pub, seq, t = struct.unpack("<IId", m.payload)
+        now = time.monotonic()
+        got[j].append((pub, seq, m.qos, (now - t) * 1e3))
+        last[0] = max(last[0], now)
+
+    async def receive(j, c):
+        while len(got[j]) < expect[j]:
+            m = await c.messages.get()
+            if m is None:
+                return
+            take(j, m)
+
+    async def publish(k, c):
+        for seq, topic, qos in pubs[k]:
+            t = time.monotonic()
+            payload = struct.pack("<IId", k, seq, t)
+            if qos:
+                await c.publish(topic, payload, qos=1, timeout=120)
+                acks.append((time.monotonic() - t) * 1e3)
+            else:
+                await c.publish(topic, payload)
+
+    poller = None
+    if admin is not None:
+        poller = threading.Thread(target=admin_poller,
+                                  args=(*admin, stop, polls), daemon=True)
+        poller.start()
+    readers = [loop.create_task(receive(j, c)) for j, c in enumerate(subs)]
+    t0 = time.monotonic()
+    await asyncio.gather(*(publish(k, c) for k, c in enumerate(publishers)))
+    _, late = await asyncio.wait(readers, timeout=BROKER_WAIT_S)
+    for r in late:
+        r.cancel()
+    stop.set()
+    await asyncio.sleep(0.5)  # any delivery past the expected ones
+    for j, c in enumerate(subs):
+        while not c.messages.empty():
+            m = c.messages.get_nowait()
+            if m is not None:
+                take(j, m)
+    if poller is not None:
+        await loop.run_in_executor(None, poller.join)
+    return got, acks, last[0] - t0, polls
+
+
+def broker_clients(port: int, live, pubs, expect, conn, admin=None) -> None:
+    """The MQTT clients of the broker phases, in a process of their own:
+    connect and subscribe the live subscribers (``live``: (filters, v5))
+    and connect the publishers on ``port``, say ``"ready"`` over ``conn``
+    and wait for a word back, then run :func:`live_traffic` (with the
+    ``admin`` poller) and send its result back over ``conn``."""
+    import asyncio
 
     async def run():
         subs = []
         for j, (filters, v5) in enumerate(live):
-            c = await connect(f"live{j}", v5)
+            c = await mqtt_connect(f"live{j}", v5, port)
             await c.subscribe(filters, qos=1 if v5 else 0, timeout=60)
             subs.append(c)
-        publishers = [await connect(f"pub{k}", k % 2 == 0)
+        publishers = [await mqtt_connect(f"pub{k}", k % 2 == 0, port)
                       for k in range(len(pubs))]
         conn.send("ready")
         await asyncio.get_running_loop().run_in_executor(None, conn.recv)
-        got = [[] for _ in subs]
-        last = [0.0]
-        acks = []
-
-        def take(j, m):
-            pub, seq, t = struct.unpack("<IId", m.payload)
-            now = time.monotonic()
-            got[j].append((pub, seq, m.qos, (now - t) * 1e3))
-            last[0] = max(last[0], now)
-
-        async def receive(j, c):
-            while len(got[j]) < expect[j]:
-                m = await c.messages.get()
-                if m is None:
-                    return
-                take(j, m)
-
-        async def publish(k, c):
-            for seq, topic, qos in pubs[k]:
-                t = time.monotonic()
-                payload = struct.pack("<IId", k, seq, t)
-                if qos:
-                    await c.publish(topic, payload, qos=1, timeout=120)
-                    acks.append((time.monotonic() - t) * 1e3)
-                else:
-                    await c.publish(topic, payload)
-
-        loop = asyncio.get_running_loop()
-        readers = [loop.create_task(receive(j, c))
-                   for j, c in enumerate(subs)]
-        t0 = time.monotonic()
-        await asyncio.gather(*(publish(k, c)
-                               for k, c in enumerate(publishers)))
-        _, late = await asyncio.wait(readers, timeout=BROKER_WAIT_S)
-        for r in late:
-            r.cancel()
-        await asyncio.sleep(0.5)  # any delivery past the expected ones
-        for j, c in enumerate(subs):
-            while not c.messages.empty():
-                m = c.messages.get_nowait()
-                if m is not None:
-                    take(j, m)
+        result = await live_traffic(subs, publishers, pubs, expect, admin)
         for c in subs + publishers:
             await c.disconnect()
-        return got, acks, last[0] - t0
+        return result
 
     conn.send(asyncio.run(run()))
+    conn.close()
+
+
+def cluster_clients(live, pubs, expect, conn, sub_ports, pub_ports,
+                    probe_port: int) -> None:
+    """The MQTT clients of the cluster phase, in a process of their own:
+    subscriber ``j`` on ``sub_ports[j]`` and publisher ``k`` on
+    ``pub_ports[k]``, and a marker subscriber on ``probe_port``; after
+    ``"ready"`` and a word back, :func:`live_traffic`, whose result goes
+    back over ``conn``. Then the clients stay connected and serve
+    commands over ``conn`` until ``"done"``: ``("unsub", js)`` / ``("sub",
+    js)`` unsubscribe / resubscribe the filters of subscribers ``js`` and
+    answer the monotonic time of the last acknowledgement; ``("probe",
+    [(k, topic)], expect)`` sends each topic from publisher ``k`` at QoS
+    1, then a marker from each of those publishers to the marker
+    subscriber, and answers, once the markers are in and the subscribers
+    of ``expect`` ({j: n}) hold their n deliveries, with every
+    subscriber's probe deliveries {j: [topic]} after half a second
+    more."""
+    import asyncio
+
+    async def probe(subs, publishers, marker, sends, want):
+        seen = {j: [] for j in range(len(subs))}
+        for k, topic in sends:
+            await publishers[k].publish(topic, b"probe", qos=1, timeout=120)
+        ks = sorted({k for k, _ in sends})
+        for k in ks:
+            await publishers[k].publish(f"$probe/{k}", b"m", qos=1,
+                                        timeout=120)
+        marks = set()
+        while len(marks) < len(ks):
+            m = await asyncio.wait_for(marker.messages.get(), 120)
+            marks.add(m.topic)
+
+        def drain():
+            for j, c in enumerate(subs):
+                while not c.messages.empty():
+                    m = c.messages.get_nowait()
+                    if m is not None:
+                        seen[j].append(m.topic)
+
+        deadline = time.monotonic() + 60
+        while True:
+            drain()
+            if all(len(seen[j]) >= n for j, n in want.items()) \
+                    or time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(0.5)
+        drain()
+        return seen
+
+    async def run():
+        subs = []
+        for j, (filters, v5) in enumerate(live):
+            c = await mqtt_connect(f"live{j}", v5, sub_ports[j])
+            await c.subscribe(filters, qos=1 if v5 else 0, timeout=60)
+            subs.append(c)
+        publishers = [await mqtt_connect(f"pub{k}", k % 2 == 0, pub_ports[k])
+                      for k in range(len(pubs))]
+        marker = await mqtt_connect("probe-marker", True, probe_port)
+        await marker.subscribe("$probe/#", qos=1, timeout=60)
+        conn.send("ready")
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, conn.recv)
+        conn.send(await live_traffic(subs, publishers, pubs, expect))
+        while True:
+            cmd = await loop.run_in_executor(None, conn.recv)
+            if cmd == "done":
+                break
+            if cmd[0] in ("unsub", "sub"):
+                for j in cmd[1]:
+                    filters, v5 = live[j]
+                    if cmd[0] == "unsub":
+                        await subs[j].unsubscribe(filters, timeout=60)
+                    else:
+                        await subs[j].subscribe(
+                            filters, qos=1 if v5 else 0, timeout=60)
+                conn.send(time.monotonic())  # the last (UN)SUBACK
+            else:
+                _, sends, want = cmd
+                conn.send(await probe(subs, publishers, marker, sends, want))
+        for c in subs + publishers + [marker]:
+            await c.disconnect()
+
+    asyncio.run(run())
     conn.close()
 
 
@@ -1243,6 +1434,8 @@ def phase_broker(card: str, path_S: int) -> dict:
 
     import numpy as np
 
+    from vernemq_tpu_torch.admin.commands import (CommandRegistry,
+                                                  register_core_commands)
     from vernemq_tpu_torch.broker.server import start_broker
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
     from vernemq_tpu_torch.observability import histogram as hist
@@ -1293,10 +1486,30 @@ def phase_broker(card: str, path_S: int) -> dict:
                  f"the load order doubled the table")
         rng = random.Random(SEED + 4)
         live, topics, qos, pubs, expect = live_load(rng, pools, "broker")
+        # [admin]: an API key for the management API, and one metrics
+        # scrape at this size timed in-process
+        api_key = register_core_commands(CommandRegistry()).run(
+            b, ["api-key", "create"])["table"][0]["key"]
+        t1 = time.perf_counter()
+        n_metrics = len(b.metrics.all_metrics())
+        scrape_ms = (time.perf_counter() - t1) * 1e3
+        # what each scrape cost while the trie's stats walked every node
+        # (the reference's SubscriptionTrie.stats): one such walk, timed
+        t1 = time.perf_counter()
+        stack, nodes = [reg.trie("")._root], 0
+        while stack:
+            nd = stack.pop()
+            nodes += 1
+            stack.extend(nd.children.values())
+        walk_ms = (time.perf_counter() - t1) * 1e3
+        if nodes != reg.trie("").stats()["nodes"]:
+            fail(f"admin: the trie's kept node count "
+                 f"{reg.trie('').stats()['nodes']} against a walk's {nodes}")
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=broker_clients,
-                           args=(port, live, pubs, expect, child),
+                           args=(port, live, pubs, expect, child,
+                                 (b.http.port, api_key)),
                            daemon=True)
         proc.start()
         child.close()
@@ -1330,7 +1543,7 @@ def phase_broker(card: str, path_S: int) -> dict:
             profiler().reset()
             TM.launches = 0
             conn.send("go")
-            got, acks, wall = await recv()
+            got, acks, wall, polls = await recv()
             launches = TM.launches
         finally:
             proc.join(30)
@@ -1411,9 +1624,679 @@ def phase_broker(card: str, path_S: int) -> dict:
               f"the device was busy at most ~"
               f"{100 * flush_ms * m.match_batches / 1e3 / wall:.0f}% of "
               f"the traffic's wall (estimate)", flush=True)
+        res["admin"] = await phase_admin(card, b, m, col, port, api_key,
+                                         polls, live, pools, rng,
+                                         (scrape_ms, n_metrics, walk_ms,
+                                          nodes))
         return res
 
     return asyncio.run(run())
+
+
+def cluster_config():
+    """A cluster node's configuration: the broker phase's (the GPU view at
+    capacity 2^20, the broker's own queued-publish expiry and dispatch
+    deadline, the admin HTTP API) with the SWC metadata store."""
+    cfg = broker_config()
+    cfg.set("metadata_plugin", "swc")
+    return cfg
+
+
+def cluster_node(name: str, join, conn) -> None:
+    """One node of the cluster phase, in a process of its own: a broker
+    on the card through ``start_broker(cluster_listen=, join=)``, its
+    cluster listener on an ephemeral port that it sends to the parent
+    first, serving the parent's commands over ``conn`` (see
+    :func:`phase_cluster`). It counts the publishes the peer forwards to
+    it: each is folded on its host trie for its local subscribers
+    (``Registry.publish_from_remote``, as the reference does)."""
+    import asyncio
+    import collections
+
+    from vernemq_tpu_torch.admin.commands import (CommandRegistry,
+                                                  register_core_commands)
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.observability import histogram as hist
+    from vernemq_tpu_torch.ops import tile_match as TM
+    from vernemq_tpu_torch.protocol.types import SubOpts
+
+    mine = CLUSTER_NODES.index(name)
+    n_ids = -(-N_SUBS // BROKER_PER_ID)
+    ids = collections.defaultdict(list)
+    build_corpus(random.Random(SEED), N_SUBS,
+                 lambda f, i: ids[i // BROKER_PER_ID].append(f))
+    own = [i for i in sorted(ids) if (2 * i >= n_ids) == bool(mine)]
+    peer = set(ids) - set(own)
+    local = sum(len({tuple(f) for f in ids[i]}) for i in own)
+    remote = len({tuple(f) for i in peer for f in ids[i]})
+
+    async def run():
+        b, server = await start_broker(
+            cluster_config(), host="127.0.0.1", port=0, node_name=name,
+            device=DEVICE, cluster_listen=("127.0.0.1", 0), join=join)
+        conn.send(("listening", b.cluster.listen_port))
+        try:
+            await serve(b, server)
+        finally:
+            await b.cluster.stop()
+            await b.stop()
+            await server.stop()
+
+    async def serve(b, server):
+        loop = asyncio.get_running_loop()
+        reg = b.registry
+        deadline = time.monotonic() + CLUSTER_WAIT_S
+        while not (len(b.cluster.members()) == 2 and b.cluster.is_ready()):
+            if time.monotonic() > deadline:
+                fail(f"cluster: node {name} never joined")
+            await asyncio.sleep(0.05)
+        view = reg.reg_view("tpu")
+        m = view.matcher("")  # empty: the load fills it in order
+        folds = [0]  # trie folds of publishes the peer forwarded
+        from_peer = reg.publish_from_remote
+
+        def counted(msg, trace=None):
+            folds[0] += 1
+            return from_peer(msg, trace=trace)
+
+        reg.publish_from_remote = counted
+        col = b.batch_collector()
+        api_key = register_core_commands(CommandRegistry()).run(
+            b, ["api-key", "create"])["table"][0]["key"]
+        conn.send(("up", server.port, b.http.port, api_key, os.getpid()))
+        base = {}
+        while True:
+            cmd = await loop.run_in_executor(None, conn.recv)
+            if cmd[0] == "load":
+                c0, t0 = time.process_time(), time.monotonic()
+                opts = SubOpts(qos=0)
+                for n, i in enumerate(own):
+                    reg.subscribe(("", f"bulk{i}"),
+                                  [(f, opts) for f in ids[i]])
+                    if n % CLUSTER_YIELD == CLUSTER_YIELD - 1:
+                        await asyncio.sleep(0)  # the channel drains
+                t_loaded, c_loaded = time.monotonic(), time.process_time()
+                while len(reg.trie("")) < local + remote:
+                    if time.monotonic() > t0 + CLUSTER_WAIT_S:
+                        fail(f"cluster: node {name} holds "
+                             f"{len(reg.trie(''))} of {local + remote} "
+                             f"rows")
+                    await asyncio.sleep(0.01)
+                conn.send(("loaded", t0, t_loaded, time.monotonic(),
+                           c_loaded - c0, time.process_time() - c_loaded,
+                           local, remote, len(reg.trie("")),
+                           b.metrics.value("cluster_frames_dropped"),
+                           b.metrics.value("cluster_bytes_dropped")))
+            elif cmd[0] == "build":
+                t0 = time.perf_counter()
+                settle_sync(m)
+                conn.send(("built", time.perf_counter() - t0,
+                           m.table.count, int(m.table.cap), m.warm_ms))
+            elif cmd[0] == "want":
+                # each local live subscriber's deliveries as this node's
+                # trie (local rows and the peer's pointers) gives them
+                _, topics, sids = cmd
+                trie = reg.trie("")
+                want = {j: collections.Counter() for j in sids.values()}
+                for i, t in enumerate(topics):
+                    for _f, key, _o in trie.match(t.split("/")):
+                        j = sids.get(key)
+                        if j is not None:
+                            want[j][(i % BROKER_PUBLISHERS, i)] += 1
+                conn.send(want)
+            elif cmd[0] == "reset":
+                hist.reset_all()
+                TM.launches = 0
+                base = dict(pubs=m.match_publishes, batches=m.match_batches,
+                            folds=folds[0],
+                            remote=b.metrics.value("router_matches_remote"),
+                            dropped=b.metrics.value(
+                                "cluster_frames_dropped"))
+                conn.send("reset")
+            elif cmd[0] == "read":
+                conn.send(dict(
+                    launches=TM.launches,
+                    pubs=m.match_publishes - base["pubs"],
+                    batches=m.match_batches - base["batches"],
+                    flushes=hist.get("stage_collector_wait_ms").snapshot()[2],
+                    wait=hist.summary(hist.get(
+                        "stage_collector_wait_ms").snapshot()),
+                    forwards=b.metrics.value("router_matches_remote")
+                    - base["remote"],
+                    trie_folds=folds[0] - base["folds"],
+                    dropped=b.metrics.value("cluster_frames_dropped")
+                    - base["dropped"],
+                    rows=m.table.count,
+                    host={k: getattr(col, k) for k in (
+                        "degraded_host_pubs", "busy_host_pubs",
+                        "rebuild_host_pubs", "overload_host_pubs",
+                        "expired_host_pubs", "stalled_host_pubs",
+                        "host_hybrid_pubs")}))
+            elif cmd[0] == "synced":
+                # the peer's (un)subscribe reached this node's store and
+                # trie: each sid's record holds ``n`` filters; answers the
+                # monotonic time this node first saw it so
+                _, sids, n = cmd
+                t0 = time.monotonic()
+                while any(len(getattr(reg.db.read(sid), "subs", {})) != n
+                          for sid in sids):
+                    if time.monotonic() > t0 + CLUSTER_WAIT_S:
+                        fail(f"cluster: node {name} never saw the peer's "
+                             f"records of {len(sids)} subscribers with "
+                             f"{n} filters")
+                    await asyncio.sleep(0.001)
+                conn.send(time.monotonic())
+            else:
+                return
+
+    asyncio.run(run())
+    conn.close()
+
+
+def phase_cluster(card: str, single: dict) -> dict:
+    """[cluster]: two port nodes on the one card, each a broker process
+    started through ``start_broker(cluster_listen=, join=)`` with the SWC
+    store (node B joins node A). The broker phase's corpus, split by
+    subscriber id between them, reaches each node's GPU table as its own
+    rows and the peer's node-pointer rows (~1M rows per node); the broker
+    phase's live load split over both nodes is delivered exactly as each
+    node's trie gives it, with cross-node deliveries, no publish served
+    off the card on either node (read over each node's admin HTTP API) and
+    the tile kernel launched on both; then an unsubscribe of 100 filters
+    on A stops B's publishes reaching them, and the resubscribe brings
+    them back."""
+    import collections
+    import multiprocessing
+
+    import numpy as np
+
+    from vernemq_tpu_torch.admin.cli import run_remote
+    from vernemq_tpu_torch.models.trie import SubscriptionTrie
+
+    from vernemq_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    # the kernel libraries are built here, before the nodes spawn: two
+    # processes never run nvcc into the build directory at once
+    _build.build(["tile_match", "reverse_match", "predicate"])
+    pools = build_corpus(random.Random(SEED), 0, None)
+    rng = random.Random(SEED + 4)
+    live, topics, qos, pubs, expect = live_load(rng, pools, "cluster")
+    ctx = multiprocessing.get_context("spawn")
+    nodes, procs = [], []
+    client = None
+
+    def spawn(name: str, join) -> None:
+        conn, child = ctx.Pipe()
+        proc = ctx.Process(target=cluster_node, args=(name, join, child),
+                           daemon=True)
+        proc.start()
+        child.close()
+        nodes.append((name, proc, conn))
+        procs.append(proc)
+
+    def ask(i: int, cmd=None, limit: float = CLUSTER_WAIT_S):
+        name, proc, conn = nodes[i]
+        if cmd is not None:
+            conn.send(cmd)
+        deadline = time.monotonic() + limit
+        while not conn.poll(1.0):
+            if time.monotonic() > deadline or not proc.is_alive():
+                fail(f"cluster: node {name} did not answer "
+                     f"{cmd[0] if cmd else 'up'} (exit code "
+                     f"{proc.exitcode})")
+        return conn.recv()
+
+    def both(cmd):
+        for _, _, conn in nodes:
+            conn.send(cmd)
+        return [ask(i) for i in range(len(nodes))]
+
+    try:
+        spawn(CLUSTER_NODES[0], None)
+        # B joins A at the port A's cluster listener took
+        spawn(CLUSTER_NODES[1], ("127.0.0.1", ask(0)[1]))
+        ask(1)  # B's listener
+        ups = [ask(i, limit=CLUSTER_WAIT_S) for i in range(len(nodes))]
+        t_up = time.perf_counter() - t_phase
+        mqtt = [u[1] for u in ups]
+        loaded = both(("load",))
+        t_last = max(x[2] for x in loaded)
+        repl_s = max(x[3] for x in loaded) - t_last
+        built = both(("build",))
+        for (name, _, _), up, ld, bl in zip(nodes, ups, loaded, built):
+            print(f"[cluster] {card} | node {name} (pid {up[4]}): "
+                  f"{ld[6]} local rows of its {BROKER_PER_ID}-filter ids "
+                  f"subscribed in {ld[2] - ld[1]:.1f}s ({ld[4]:.1f} CPU s), "
+                  f"{ld[7]} node-pointer rows of the peer's filters; "
+                  f"table rows {bl[2]}, S={bl[3]}; device table built in "
+                  f"{bl[1]:.1f}s; after its own last subscribe it spent "
+                  f"{ld[5]:.1f} CPU s until it held every row "
+                  f"({ld[3] - ld[2]:.1f}s); its channel to the peer dropped "
+                  f"{ld[9]} frames ({ld[10] / 1e6:.1f} MB) of the load, "
+                  f"past its {cluster_config().outgoing_clustering_buffer_size / 1e6:.0f} "
+                  f"MB buffer, and anti-entropy repaired them", flush=True)
+            if bl[2] != ld[6] + ld[7]:
+                fail(f"cluster: node {name}'s table holds {bl[2]} rows, "
+                     f"its trie {ld[6] + ld[7]}")
+        print(f"[cluster] {card} | both nodes up in {t_up:.1f}s; SWC "
+              f"replication of {-(-N_SUBS // BROKER_PER_ID)} subscriber "
+              f"records: from the last subscribe to both tables holding "
+              f"every row {repl_s:.2f}s", flush=True)
+
+        sub_ports = [mqtt[j % 2] for j in range(BROKER_LIVE)]
+        pub_ports = [mqtt[k % 2] for k in range(BROKER_PUBLISHERS)]
+        conn, child = ctx.Pipe()
+        client = ctx.Process(target=cluster_clients,
+                             args=(live, pubs, expect, child, sub_ports,
+                                   pub_ports, mqtt[0]),
+                             daemon=True)
+        client.start()
+        child.close()
+        if not conn.poll(BROKER_WAIT_S + 120):
+            fail("cluster: the clients did not answer in time")
+        conn.recv()  # every live subscription is in place
+        print(f"[cluster] {card} | {BROKER_LIVE} live subscribers and "
+              f"{BROKER_PUBLISHERS} publishers connected "
+              f"{time.perf_counter() - t_phase:.1f}s into the phase",
+              flush=True)
+        want = [None] * BROKER_LIVE
+        for n in range(len(nodes)):
+            sids = {("", f"live{j}"): j for j in range(n, BROKER_LIVE, 2)}
+            for j, w in ask(n, ("want", topics, sids)).items():
+                want[j] = w
+        if [sum(w.values()) for w in want] != expect:
+            fail("cluster: the clients' stop counts disagree with the "
+                 "nodes' tries")
+        both(("reset",))
+        conn.send("go")
+        if not conn.poll(BROKER_WAIT_S + 120):
+            fail("cluster: the clients did not finish in time")
+        got, acks, wall, _ = conn.recv()
+        t_traffic = time.perf_counter()
+        reads = both(("read",))
+        lat = {"local": [], "cross-node": []}
+        for j, g in enumerate(got):
+            for k, _seq, _q, ms in g:
+                lat["cross-node" if k % 2 != j % 2 else "local"].append(ms)
+        res = live_numbers(got, acks, wall)
+        print(f"[cluster] {card} | {BROKER_PUBS} publishes ({sum(qos)} at "
+              f"QoS 1) from {BROKER_PUBLISHERS} MQTT publishers "
+              f"({BROKER_PUBLISHERS // 2} per node) to {BROKER_LIVE} MQTT "
+              f"subscribers ({BROKER_LIVE // 2} per node): "
+              f"{res['pubs_per_s']:.0f} publishes/s ({wall:.2f}s; one "
+              f"broker: {single['pubs_per_s']:.0f}), {res['deliveries']} "
+              f"deliveries of which {len(lat['cross-node'])} cross-node; "
+              f"PUBLISH->delivery local {percentiles(lat['local'])}, "
+              f"cross-node {percentiles(lat['cross-node'])}; QoS 1 PUBACK "
+              f"p50 {res['ack_p50']:.2f} ms p99 {res['ack_p99']:.2f} ms "
+              f"({t_traffic - t_phase:.1f}s into the phase)", flush=True)
+        for (name, _, _), r in zip(nodes, reads):
+            print(f"[cluster] {card} | node {name}: {r['flushes']} collector "
+                  f"flushes, {r['batches']} device batches for {r['pubs']} "
+                  f"publishes, tile launches {r['launches']}, queue wait at "
+                  f"flush start p50 {r['wait'].get('p50_ms', 0):.1f} ms p99 "
+                  f"{r['wait'].get('p99_ms', 0):.1f} ms; {r['forwards']} "
+                  f"matches forwarded to the peer; {r['trie_folds']} "
+                  f"publishes forwarded by the peer matched for its local "
+                  f"subscribers on its host trie, as the reference does "
+                  f"(Registry.publish_from_remote); host-served "
+                  f"{r['host']}; cluster frames dropped during the traffic "
+                  f"{r['dropped']}", flush=True)
+        inversions = check_live(got, want, "cluster")
+        over_http = []
+        for (name, _, _), u in zip(nodes, ups):
+            shown = run_remote(f"http://127.0.0.1:{u[2]}", u[3],
+                               ["metrics", "show"], 30)
+            if "error" in shown:
+                fail(f"cluster: node {name}'s admin API: {shown['error']}")
+            over_http.append({r["metric"]: r["value"]
+                              for r in shown["table"]})
+        off = {name: {k: mt[k] for k in HOST_METRICS if mt[k]}
+               for (name, _, _), mt in zip(nodes, over_http)}
+        if any(off.values()) or any(any(r["host"].values()) for r in reads):
+            fail(f"cluster: publishes served off the card: {off}, "
+                 f"{[r['host'] for r in reads]}")
+        if any(r["launches"] <= 0 for r in reads):
+            fail(f"cluster: tile launches per node "
+                 f"{[r['launches'] for r in reads]}")
+        if any(r["dropped"] for r in reads):
+            fail(f"cluster: cluster frames dropped during the traffic "
+                 f"{[r['dropped'] for r in reads]}")
+        if not lat["cross-node"]:
+            fail("cluster: no cross-node delivery")
+        if [r["trie_folds"] for r in reads] != \
+                [r["forwards"] for r in reads[::-1]]:
+            fail(f"cluster: trie folds of forwarded publishes "
+                 f"{[r['trie_folds'] for r in reads]} against the peer's "
+                 f"forwards {[r['forwards'] for r in reads[::-1]]}")
+        print(f"[cluster] {card} | parity exact for every live subscriber "
+              f"against its node's trie over the whole corpus, "
+              f"per-publisher order kept at each QoS ({inversions} "
+              f"inversions across QoS levels); over each node's admin API "
+              f"tpu_match_publishes "
+              f"{[mt['tpu_match_publishes'] for mt in over_http]} and every "
+              f"host-served counter 0: every publish a client sent to a "
+              f"node was matched on the card; every publish forwarded to "
+              f"the peer was matched there again for its local subscribers "
+              f"on its host trie ({[r['trie_folds'] for r in reads]}), as "
+              f"the reference does; no cluster frame dropped during the "
+              f"traffic", flush=True)
+
+        # one unsubscribe round: 100 filters on A
+        unsub = list(range(0, BROKER_LIVE, 2))[:CLUSTER_UNSUB]
+        sids = [("", f"live{j}") for j in unsub]
+        sends = [(1 + 2 * (n % (BROKER_PUBLISHERS // 2)), live[j][0][0])
+                 for n, j in enumerate(unsub)]
+        check = SubscriptionTrie()
+        for j in unsub:
+            for f in live[j][0]:
+                check.add(f.split("/"), j, None)
+        want_probe = collections.Counter(
+            j for _k, t in sends for _f, j, _v in check.match(t.split("/")))
+        rounds = []
+        for op, n_filters in (("unsub", 0), ("sub", 4)):
+            conn.send((op, unsub))
+            t_ack = conn.recv()
+            # an upper bound: B may have held them before it was asked
+            sync_s = ask(1, ("synced", sids, n_filters)) - t_ack
+            conn.send(("probe", sends,
+                       {} if op == "unsub" else dict(want_probe)))
+            if not conn.poll(BROKER_WAIT_S):
+                fail("cluster: the probe did not finish in time")
+            seen = conn.recv()
+            counts = {j: len(seen[j]) for j in unsub}
+            rounds.append((sync_s, sum(counts.values())))
+            if op == "unsub" and any(counts.values()):
+                fail(f"cluster: after the unsubscribe B's publishes still "
+                     f"reached {sum(map(bool, counts.values()))} of A's "
+                     f"subscribers")
+            if op == "sub" and counts != {j: want_probe[j] for j in unsub}:
+                fail(f"cluster: after the resubscribe {counts} against "
+                     f"{dict(want_probe)}")
+        print(f"[cluster] {card} | unsubscribe round: {len(unsub)} of A's "
+              f"live subscribers unsubscribed {4 * len(unsub)} filters, "
+              f"on B's store at most {rounds[0][0] * 1e3:.1f} ms after the "
+              f"last UNSUBACK; {len(sends)} publishes from B's publishers "
+              f"to their exact filters reached them 0 times; resubscribed, "
+              f"on B at most {rounds[1][0] * 1e3:.1f} ms after the last "
+              f"SUBACK, the same publishes reached them {rounds[1][1]} "
+              f"times, as the filters give", flush=True)
+        conn.send("done")
+        for _, _, c in nodes:
+            c.send(("stop",))
+    finally:
+        for pr in procs + ([client] if client is not None else []):
+            pr.join(60)
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    res.update(launches=sum(r["launches"] for r in reads),
+               node_launches=[r["launches"] for r in reads],
+               replication_s=repl_s,
+               cross_node=len(lat["cross-node"]),
+               trie_folds=[r["trie_folds"] for r in reads],
+               lat_local_p50=float(np.percentile(lat["local"], 50)),
+               lat_cross_p50=float(np.percentile(lat["cross-node"], 50)),
+               seconds=time.perf_counter() - t_phase)
+    print(f"[cluster] {card} | [cluster] took {res['seconds']:.1f}s",
+          flush=True)
+    return res
+
+
+def percentiles(xs) -> str:
+    import numpy as np
+
+    return (f"p50 {np.percentile(xs, 50):.2f} ms p99 "
+            f"{np.percentile(xs, 99):.2f} ms") if len(xs) else "none"
+
+
+async def phase_admin(card: str, b, m, col, port: int, api_key: str, polls,
+                      live, pools, rng, scrape) -> dict:
+    """[admin], on the broker phase's broker after its counted load: the
+    poll's requests and latencies, the admin's device counters against the
+    broker's own, then the breaker drill (trip: the trie serves, reset:
+    the card serves), a client trace, a ``ql query`` of one subscriber id
+    and a Graphite reporter into a local sink. Returns the numbers for the
+    kernels line. ``scrape``: one in-process metrics scrape's ms and
+    metric count, and the ms and node count of one walk of the trie."""
+    import asyncio
+    import collections
+
+    import numpy as np
+
+    from vernemq_tpu_torch.admin.cli import run_remote
+    from vernemq_tpu_torch.admin.graphite import GraphiteReporter
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    t_start = time.perf_counter()
+    loop = asyncio.get_running_loop()
+    base = f"http://127.0.0.1:{b.http.port}"
+
+    async def admin(*words, timeout=30):
+        res = await loop.run_in_executor(None, run_remote, base, api_key,
+                                         list(words), timeout)
+        if "error" in res:
+            fail(f"admin: {' '.join(words)}: {res['error']}")
+        return res
+
+    def metrics(rows):
+        return {r["metric"]: r["value"] for r in rows}
+
+    reqs = [(w, ms, ok) for w, ms, ok in polls if w != "metrics"]
+    seen = [metrics(rows) for w, rows, _ in polls if w == "metrics"]
+    bad = [w for w, _, ok in reqs if not ok]
+    if not reqs or bad or not seen:
+        fail(f"admin: {len(reqs)} requests during the load, {len(bad)} "
+             f"failed ({bad[:3]}), {len(seen)} metrics tables")
+    per = collections.defaultdict(list)
+    for w, ms, _ in reqs:
+        per[w].append(ms)
+    final = metrics((await admin("metrics", "show"))["table"])
+    own = dict(tpu_match_publishes=m.match_publishes,
+               tpu_match_batches=m.match_batches,
+               tpu_table_rows=m.table.count,
+               tpu_degraded_host_pubs=col.degraded_host_pubs,
+               tpu_expired_host_pubs=col.expired_host_pubs,
+               tpu_stalled_host_pubs=col.stalled_host_pubs,
+               tpu_busy_shed_pubs=col.busy_host_pubs,
+               tpu_host_fallbacks=m.host_fallbacks)
+    if any(final[k] != v for k, v in own.items()) \
+            or any(final[k] for k in HOST_METRICS):
+        fail(f"admin: the admin's device counters "
+             f"{ {k: final[k] for k in own} } against the broker's {own}, "
+             f"host-served { {k: final[k] for k in HOST_METRICS} }")
+    mid = [x["tpu_match_publishes"] for x in seen]
+    if mid != sorted(mid) or mid[-1] > final["tpu_match_publishes"] \
+            or not any(0 < x < final["tpu_match_publishes"] for x in mid):
+        fail(f"admin: the polled device counters never moved with the "
+             f"load: {mid[:3]}..{mid[-3:]}")
+    print(f"[admin] {card} | during [broker]'s counted load: {len(reqs)} "
+          f"admin requests over HTTP (API key on; every "
+          f"{ADMIN_POLL_S} s: {', '.join(' '.join(w) for w in ADMIN_POLL)}, "
+          f"/metrics), 0 failed, {percentiles([x for _, x, _ in reqs])}; "
+          + "; ".join(f"{w} {percentiles(v)}" for w, v in per.items())
+          + f"; tpu_match_publishes read {len(seen)} times rising to "
+          f"{mid[-1]}; after the load the admin's device counters equal "
+          f"the broker's own ({', '.join(f'{k} {v}' for k, v in own.items())}"
+          f"), host-served counters all 0; one in-process metrics scrape of "
+          f"{scrape[1]} metrics at {m.table.count} rows {scrape[0]:.1f} ms "
+          f"(the trie's node count kept, not walked: one walk of its "
+          f"{scrape[3]} nodes takes {scrape[2]:.1f} ms)", flush=True)
+
+    # ---- breaker drill: trip → the trie serves; reset → the card serves
+    drill = [(f"drill{j}", filters) for j, (filters, _) in
+             enumerate(live[:ADMIN_DRILL_SUBS])]
+    subs = []
+    for cid, filters in drill:
+        c = MQTTClient("127.0.0.1", port, client_id=cid, keepalive=0,
+                       proto_ver=5)
+        await c.connect(timeout=60)
+        await c.subscribe(filters, qos=1, timeout=60)
+        subs.append(c)
+    pub = MQTTClient("127.0.0.1", port, client_id="drill-pub", keepalive=0)
+    await pub.connect(timeout=60)
+    trie = b.registry.trie("")
+
+    async def send(tag: str) -> dict:
+        """ADMIN_DRILL_PUBS zipf publishes at QoS 0, every drill
+        subscriber's deliveries equal to the trie's rows; returns the
+        device and host counters' deltas."""
+        topics = ["/".join(t) for t in zipf_topics(rng, pools,
+                                                   ADMIN_DRILL_PUBS)]
+        want = [collections.Counter() for _ in subs]
+        for i, t in enumerate(topics):
+            for _f, key, _o in trie.match(t.split("/")):
+                for j, (cid, _) in enumerate(drill):
+                    if key == ("", cid):
+                        want[j][(t, b"%s%d" % (tag.encode(), i))] += 1
+        n_want = sum(sum(w.values()) for w in want)
+        if not n_want:
+            fail(f"admin: the {tag} drill's publishes match no drill "
+                 f"subscriber")
+        before = (TM.launches, m.match_publishes, col.degraded_host_pubs,
+                  sum(getattr(col, k) for k in (
+                      "busy_host_pubs", "rebuild_host_pubs",
+                      "overload_host_pubs", "expired_host_pubs",
+                      "stalled_host_pubs", "host_hybrid_pubs")))
+        for i, t in enumerate(topics):
+            await pub.publish(t, b"%s%d" % (tag.encode(), i))
+        got = [collections.Counter() for _ in subs]
+
+        async def take(j, c):
+            while sum(got[j].values()) < sum(want[j].values()):
+                msg = await c.messages.get()
+                got[j][(msg.topic, bytes(msg.payload))] += 1
+
+        await asyncio.wait_for(asyncio.gather(
+            *(take(j, c) for j, c in enumerate(subs))), 120)
+        await asyncio.sleep(0.3)
+        for j, c in enumerate(subs):
+            while not c.messages.empty():
+                msg = c.messages.get_nowait()
+                got[j][(msg.topic, bytes(msg.payload))] += 1
+        if got != want:
+            fail(f"admin: the {tag} drill's deliveries differ from the "
+                 f"trie's rows")
+        after = (TM.launches, m.match_publishes, col.degraded_host_pubs,
+                 sum(getattr(col, k) for k in (
+                     "busy_host_pubs", "rebuild_host_pubs",
+                     "overload_host_pubs", "expired_host_pubs",
+                     "stalled_host_pubs", "host_hybrid_pubs")))
+        return dict(zip(("launches", "device_pubs", "trie_pubs", "other"),
+                        (a - b_ for a, b_ in zip(after, before))),
+                    deliveries=n_want)
+
+    t0 = time.perf_counter()
+    trip = await admin("breaker", "trip", "path=match")
+    tripped = await send("trip")
+    shown = {r["path"]: r["state"] for r in
+             (await admin("breaker", "show"))["table"]}
+    await admin("breaker", "reset", "path=match")
+    reset = await send("reset")
+    if (tripped["trie_pubs"] != ADMIN_DRILL_PUBS or tripped["launches"]
+            or tripped["device_pubs"] or tripped["other"]
+            or shown.get("match") != "forced_open"):
+        fail(f"admin: with the match breaker tripped ({trip}, shown "
+             f"{shown.get('match')}) {tripped}")
+    if (reset["launches"] <= 0 or reset["device_pubs"] != ADMIN_DRILL_PUBS
+            or reset["trie_pubs"] or reset["other"]):
+        fail(f"admin: after the reset {reset}")
+    t_drill = time.perf_counter() - t0
+    print(f"[admin] {card} | breaker drill: `breaker trip path=match` "
+          f"({trip['text']}), {ADMIN_DRILL_PUBS} publishes to "
+          f"{ADMIN_DRILL_SUBS} subscribers delivered exactly "
+          f"({tripped['deliveries']} deliveries), all {tripped['trie_pubs']} "
+          f"served by the trie and counted as the drill's, tile launches "
+          f"+{tripped['launches']}, `breaker show` match={shown['match']}; "
+          f"`breaker reset`, {ADMIN_DRILL_PUBS} more delivered exactly "
+          f"({reset['deliveries']}) on the card: tile launches "
+          f"+{reset['launches']}, device publishes +{reset['device_pubs']}, "
+          f"host-served +{reset['trie_pubs'] + reset['other']} "
+          f"({t_drill:.1f}s)", flush=True)
+
+    # ---- trace one publisher's PUBLISH frames
+    # the tracer's rate limit (10 frames per 0.1 s by default) raised
+    # past the frames of the traced publishes and their PUBACKs
+    await admin("trace", "client", "client-id=drill-pub",
+                f"rate-max={4 * ADMIN_TRACE_PUBS}")
+    for i in range(ADMIN_TRACE_PUBS):
+        await pub.publish(f"trace/{i}", b"t", qos=1, timeout=60)
+    lines = (await admin("trace", "show"))["text"]["text"].splitlines()
+    await admin("trace", "stop")
+    traced = [ln for ln in lines if "MQTT RECV: PUBLISH" in ln
+              and "[drill-pub]" in ln]
+    if len(traced) != ADMIN_TRACE_PUBS:
+        fail(f"admin: the trace shows {len(traced)} of drill-pub's "
+             f"{ADMIN_TRACE_PUBS} PUBLISH frames: {lines[:4]}")
+    for c in subs + [pub]:
+        await c.disconnect()
+
+    # ---- ql query of one subscriber id
+    t0 = time.perf_counter()
+    rows = (await admin("ql", "query", f"q=SELECT topic FROM subscriptions "
+                        f"WHERE client_id='{ADMIN_QL_ID}'", timeout=120))
+    ql_ms = (time.perf_counter() - t0) * 1e3
+    have = sorted(r["topic"] for r in rows["table"])
+    want_ql = sorted("/".join(w) for w in
+                     b.registry.subscriptions[("", ADMIN_QL_ID)])
+    if have != want_ql or len(have) != BROKER_PER_ID:
+        fail(f"admin: ql query of {ADMIN_QL_ID} gave {len(have)} filters, "
+             f"its subscriptions are {len(want_ql)}")
+
+    # ---- Graphite into a local sink
+    lines = []
+
+    async def handle(reader, writer):
+        while True:
+            ln = await reader.readline()
+            if not ln:
+                break
+            lines.append(ln.decode())
+        writer.close()
+
+    sink = await asyncio.start_server(handle, "127.0.0.1", 0)
+    b.config.set("graphite_host", "127.0.0.1")
+    b.config.set("graphite_port", sink.sockets[0].getsockname()[1])
+    b.config.set("graphite_interval", ADMIN_POLL_S)
+    reporter = GraphiteReporter(b)
+    t0 = time.perf_counter()
+    reporter.start()
+    try:
+        deadline = time.monotonic() + 30
+        while not any(".tpu_match_publishes " in ln for ln in lines):
+            if time.monotonic() > deadline:
+                fail("admin: no Graphite line carried the device counters")
+            await asyncio.sleep(0.05)
+    finally:
+        reporter._task.cancel()
+        sink.close()
+    graphite_s = time.perf_counter() - t0
+    gvals = {ln.split()[0].rsplit(".", 1)[-1]: float(ln.split()[1])
+             for ln in lines}
+    if gvals["tpu_match_publishes"] != m.match_publishes or any(
+            gvals.get(k, 0) != getattr(col, c) for k, c in (
+                ("tpu_degraded_host_pubs", "degraded_host_pubs"),
+                ("tpu_expired_host_pubs", "expired_host_pubs"))):
+        fail(f"admin: Graphite's device counters "
+             f"{ {k: gvals.get(k) for k in HOST_METRICS} } against the "
+             f"broker's")
+    total = time.perf_counter() - t_start
+    print(f"[admin] {card} | `trace client client-id=drill-pub`: its "
+          f"{len(traced)} PUBLISH frames in `trace show`; `ql query` of "
+          f"{ADMIN_QL_ID}: exactly its {len(have)} filters in "
+          f"{ql_ms:.0f} ms (a scan of every subscriber record); Graphite: "
+          f"{len(lines)} lines in the local sink after {graphite_s:.2f}s, "
+          f"tpu_match_publishes {gvals['tpu_match_publishes']:.0f} and "
+          f"tpu_table_rows {gvals.get('tpu_table_rows', 0):.0f} as the "
+          f"broker holds them; [admin] after the load took {total:.1f}s",
+          flush=True)
+    lat = [x for _, x, _ in reqs]
+    return dict(requests=len(reqs), p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                drill_trie_pubs=tripped["trie_pubs"],
+                drill_launches=reset["launches"], seconds=total)
 
 
 # --------------------------------------------------------- worker mode
@@ -1696,7 +2579,7 @@ def phase_workers(card: str, single: dict) -> dict:
             group = {p.pid for p in g._procs} | {proc.pid}
             svc_pid = g._service_proc.pid
             on_card = cuda_context_pids(group | {svc_pid})
-            got, acks, wall = conn.recv()
+            got, acks, wall, _ = conn.recv()
             time.sleep(0.6)  # one more heartbeat of every counter
             after = offcard(stats)
             waits = worker_hist(stats, ("stage_collector_wait_ms",
@@ -3063,6 +3946,7 @@ def main() -> int:
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
     broker = phase_broker(card, path_S)
+    cluster = phase_cluster(card, broker)
     workers = phase_workers(card, broker)
     pred = phase_predicate(card)
     ret = phase_retained(card)
@@ -3077,6 +3961,8 @@ def main() -> int:
         "collector_launches": burst_launches,
         "churn_launches": churn_launches,
         "broker_launches": broker["launches"],
+        "admin_drill_launches": broker["admin"]["drill_launches"],
+        "cluster_launches": cluster["node_launches"],
         "max_abs_err": kernel_err,
         "ms": k_ms,
         "plain_ms": sum(p["plain_ms"] for p in probes),
@@ -3092,6 +3978,10 @@ def main() -> int:
         "ptxas": {str(kp): ptxas.get(kp) for kp in sorted(launched_kp)}
         if "tile_match" in built else None,
         "per_batch": f"probe A + probe B launches of one {BATCH}-publish batch",
+        "admin": broker["admin"],
+        "cluster": {k: cluster[k] for k in (
+            "pubs_per_s", "lat_local_p50", "lat_cross_p50", "lat_p99",
+            "cross_node", "trie_folds", "replication_s", "seconds")},
     }, {
         "name": "reverse_match",
         "route": "cuda",

@@ -204,3 +204,21 @@ def ring_producer(name: str, seconds: float) -> None:
     while not ring.push(b"END"):
         time.sleep(0.001)
     ring.close()
+
+
+async def retained_ready(b):
+    """A broker's retained index for mountpoint "", built (either
+    package's broker): a first build still in the background would send
+    the first replays to the host walk."""
+    idx = await b.retained_engine().index_async("")
+    while True:
+        with idx.lock:
+            try:
+                idx.sync()
+                return
+            except Exception as e:  # either package's RebuildInProgress
+                if type(e).__name__ != "RebuildInProgress":
+                    raise
+                th = idx._rebuild_thread
+        if th is not None:
+            th.join()

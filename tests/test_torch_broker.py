@@ -14,11 +14,13 @@ import asyncio
 import collections
 import json
 import time
+import urllib.request
 
 import pytest
 import torch
 
 import _torch_port  # noqa: F401  (one intra-op thread per worker)
+from _torch_port import retained_ready
 from vernemq_tpu.broker.config import Config as RefConfig
 from vernemq_tpu.broker.server import start_broker as ref_start_broker
 from vernemq_tpu_torch.broker.broker import Broker
@@ -319,24 +321,6 @@ async def _case_retained(port):
     return {"p": p, "c": c, "d": d}
 
 
-async def _retained_ready(b):
-    """The broker's retained index for mountpoint "", built: a first build
-    still in the background would send the first replays to the host
-    walk."""
-    idx = await b.retained_engine().index_async("")
-    while True:
-        with idx.lock:
-            try:
-                idx.sync()
-                return
-            except Exception as e:  # either package's RebuildInProgress
-                if type(e).__name__ != "RebuildInProgress":
-                    raise
-                th = idx._rebuild_thread
-        if th is not None:
-            th.join()
-
-
 @pytest.mark.asyncio
 async def test_retained_replays_ride_the_device_collector_on_both_brokers():
     """The retained case on both brokers' GPU/TPU views with every replay
@@ -353,7 +337,7 @@ async def test_retained_replays_ride_the_device_collector_on_both_brokers():
                            (start_broker, Config, {"device": "cpu"})):
         b, s = await start(Cfg(**cfg), port=0, **kw)
         try:
-            await _retained_ready(b)
+            await retained_ready(b)
             clients = await _case_retained(s.port)
             got = {}
             for name, c in clients.items():
@@ -505,19 +489,64 @@ def test_gpu_view_without_a_card_raises(monkeypatch):
     assert Broker(Config()).device is None  # the trie view needs no card
 
 
+#: the configurations the port still refuses: a device mesh (ROADMAP
+#: Queue 1 item 8), bridges and the bundled plugins (item 11b)
+REFUSED = ("tpu_mesh", "bridges", "plugins")
+
+
+@pytest.mark.asyncio
 @pytest.mark.parametrize("knob", [
     dict(tpu_mesh="2x4"), dict(metadata_plugin="swc"),
     dict(http_enabled=True), dict(graphite_enabled=True),
     dict(bridges=[{"name": "br0", "host": "127.0.0.1", "port": 1}]),
     dict(plugins=[{"name": "vmq_acl"}]), dict(observability_enabled=False)],
     ids=lambda k: next(iter(k)))
-def test_unported_configs_raise(knob):
-    """A device mesh (ROADMAP item 8) and the host surfaces not copied yet
-    (item 11) are not ported: asking for any of them raises, naming the
-    item, before a broker is built. (Worker mode, item 9, is served:
+async def test_unported_configs_raise(knob):
+    """A device mesh (ROADMAP item 8), bridges and the bundled plugins
+    (item 11b) are not ported: asking for any of them raises, naming the
+    item, before a broker is built. The knobs items 11a and 11c ported are
+    served: the SWC metadata store, the admin HTTP API, the Graphite
+    reporter and observability off each boot a broker on the GPU view that
+    delivers a publish. (Worker mode, item 9, is served too:
     test_torch_workers.py.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        Broker(Config(default_reg_view="tpu", **knob), device="cpu")
+    from vernemq_tpu_torch.observability import histogram as hist
+
+    name = next(iter(knob))
+    if name in REFUSED:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            Broker(Config(default_reg_view="tpu", **knob), device="cpu")
+        return
+    b, s = await start_broker(Config(**BASE, default_reg_view="tpu",
+                                     http_port=0, **knob),
+                              port=0, device="cpu")
+    try:
+        c = await _client(s.port, "k")
+        await c.subscribe("k/+", qos=1)
+        if name == "metadata_plugin":
+            from vernemq_tpu_torch.broker.subscriber_db import PREFIX
+            from vernemq_tpu_torch.cluster.swc_store import SWCMetadata
+
+            assert isinstance(b.metadata, SWCMetadata)
+            assert b.metadata.get(PREFIX, ("", "k")) is not None
+        await c.publish("k/x", b"served", qos=1)
+        assert (await c.recv(10)).payload == b"served"
+        await c.disconnect()
+        m, hs = _host_served(b)
+        assert m.match_publishes > 0 and not any(hs.values()), hs
+        if name == "http_enabled":
+            loop = asyncio.get_running_loop()
+            url = f"http://127.0.0.1:{b.http.port}/health"
+            body = await loop.run_in_executor(
+                None, lambda: urllib.request.urlopen(url, timeout=5).read())
+            assert json.loads(body) == {"status": "OK"}
+        elif name == "graphite_enabled":
+            assert b.graphite is not None and not b.graphite._task.done()
+        elif name == "observability_enabled":
+            assert not hist.enabled()
+    finally:
+        await b.stop()
+        await s.stop()
+        hist.set_enabled(True)
 
 
 @pytest.mark.asyncio
@@ -613,18 +642,69 @@ async def test_worker_mode_configs_are_served(knob):
 
 
 @pytest.mark.asyncio
+async def test_observability_off_delivers_as_reference():
+    """``observability_enabled`` off: the port's broker delivers what the
+    reference's delivers on the same script, and no histogram of the
+    port's records an observation (each seam is one boolean test)."""
+    from vernemq_tpu.observability import histogram as ref_hist
+    from vernemq_tpu_torch.observability import histogram as hist
+    from vernemq_tpu_torch.observability.profiler import profiler
+
+    rb, rs = await ref_start_broker(
+        RefConfig(**BASE, default_reg_view="trie",
+                  observability_enabled=False), port=0)
+    try:
+        want = await _run("shared", rs.port)
+    finally:
+        await rb.stop()
+        await rs.stop()
+        ref_hist.set_enabled(True)
+    hist.reset_all()
+    profiler().reset()
+    pb, ps = await start_broker(Config(**BASE, default_reg_view="tpu",
+                                       observability_enabled=False),
+                                port=0, device="cpu")
+    try:
+        got = await _run("shared", ps.port)
+        m, hs = _host_served(pb)
+        assert m.match_publishes > 0 and not any(hs.values()), hs
+        observed = {name: n for name, (_c, _s, n)
+                    in hist.snapshot_all().items() if n}
+        assert not hist.enabled() and observed == {}
+        assert profiler().snapshot() == []
+    finally:
+        await pb.stop()
+        await ps.stop()
+        hist.set_enabled(True)
+    assert got == want
+
+
+@pytest.mark.asyncio
 @pytest.mark.parametrize("kind", ["http", "vmq"])
 async def test_unported_listener_kinds_raise(kind):
-    """The admin and cluster listener kinds are not ported (item 11): a
-    conf-file listener of either kind fails the broker's start."""
+    """No listener kind is refused since items 11a and 11c: a conf-file
+    listener of the admin kind serves the HTTP endpoints, one of the
+    cluster kind starts the cluster channel."""
     b = Broker(Config(allow_anonymous=True, systree_enabled=False,
                       sysmon_enabled=False,
                       listeners=[{"kind": kind, "addr": "127.0.0.1",
                                   "port": 0}]))
     try:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            await b.start()
+        await b.start()
+        (row,) = b.listeners.show()
+        assert row["type"] == kind and row["status"] == "running", row
+        if kind == "http":
+            loop = asyncio.get_running_loop()
+            url = f"http://127.0.0.1:{row['port']}/status.json"
+            body = await loop.run_in_executor(
+                None, lambda: urllib.request.urlopen(url, timeout=5).read())
+            assert json.loads(body)["node"] == "node1"
+        else:
+            assert b.cluster is not None and b.cluster.listen_port \
+                == row["port"]
     finally:
+        if b.cluster is not None:
+            await b.cluster.stop()
         await b.stop()
 
 

@@ -409,6 +409,144 @@ def test_broker_serves_mqtt_through_the_tile_kernel():
     assert launches > 0 and not any(host.values()), (launches, host)
 
 
+@pytest.mark.cuda
+def test_broker_starts_on_the_card_in_a_fresh_process():
+    """A broker process that has imported nothing else starts on the card
+    with the GPU view, the retained index and the predicate phase (each
+    loading its kernel library at boot) and stops cleanly."""
+    _card()
+    code = (
+        "import asyncio, sys\n"
+        f"sys.path.insert(0, {str(pathlib.Path(__file__).resolve().parent.parent)!r})\n"
+        "from vernemq_tpu_torch.broker.config import Config\n"
+        "from vernemq_tpu_torch.broker.server import start_broker\n"
+        "async def main():\n"
+        "    b, s = await start_broker(Config(default_reg_view='tpu',\n"
+        "        systree_enabled=False, sysmon_enabled=False), port=0,\n"
+        "        device='cuda')\n"
+        "    ok = b.filter_engine is not None and \\\n"
+        "        b.registry.batched_view_active()\n"
+        "    await b.stop()\n"
+        "    await s.stop()\n"
+        "    print('started', ok)\n"
+        "asyncio.run(main())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["started", "True"], out.stdout
+
+
+async def _two_nodes_pointer_rows(device, filters, topics):
+    """Two port nodes in this process on ``device`` (GPU view, SWC
+    metadata, B joined to A): the bucket corpus and ``filters`` of a live
+    subscriber on A, replicated to B as node-pointer rows; then a device
+    fold on B of ``topics`` and the same topics published on B. Returns,
+    per topic, whether B's fold returned A's pointer and whether A holds a
+    matching subscription; the fold's tile launches; the subscriber's
+    deliveries and what A's trie predicts for it; both nodes' off-card
+    counters, device publishes and layouts."""
+    import asyncio
+    import time
+
+    from vernemq_tpu_torch.broker.config import Config
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.protocol.types import SubOpts
+
+    conf = dict(allow_anonymous=True, systree_enabled=False,
+                sysmon_enabled=False, default_reg_view="tpu",
+                metadata_plugin="swc", tpu_initial_capacity=8192,
+                tpu_max_fanout=64, tpu_host_batch_threshold=0,
+                watchdog_collector_expiry_budgets=100)
+    a, sa = await start_broker(Config(**conf), port=0, node_name="A",
+                               device=device, cluster_listen=("127.0.0.1", 0))
+    b, sb = await start_broker(Config(**conf), port=0, node_name="B",
+                               device=device, cluster_listen=("127.0.0.1", 0),
+                               join=(a.cluster.listen_host,
+                                     a.cluster.listen_port))
+    try:
+        deadline = time.monotonic() + 30
+        while not all(len(n.cluster.members()) == 2 and n.cluster.is_ready()
+                      for n in (a, b)):  # the CAP gate refuses subscribes
+            assert time.monotonic() < deadline, "the nodes never joined"
+            await asyncio.sleep(0.05)
+        views = [n.registry.reg_view("tpu") for n in (a, b)]
+        ms = [v.matcher("") for v in views]
+        a.registry.subscribe(("", "bulk"), [
+            (f, SubOpts()) for f in bucket_corpus(300)])
+        sub = MQTTClient(sa.host, sa.port, "sub", proto_ver=5)
+        await sub.connect()
+        await sub.subscribe(filters, qos=1)
+        want_refs = {tuple(f) for f in bucket_corpus(300)} \
+            | {tuple(f.split("/")) for f in filters}
+        deadline = time.monotonic() + 30
+        while {fw for _mp, fw, node in b.registry._remote_refs
+               if node == "A"} != want_refs:
+            assert time.monotonic() < deadline, "replication timed out"
+            await asyncio.sleep(0.05)
+        TM.launches = 0
+        rows = views[1].fold_batch("", [t.split("/") for t in topics])
+        fold_launches = TM.launches
+        trie = a.registry.trie("")
+        fold = [("A" in {k for _f, k, _o in r},
+                 any(isinstance(k, tuple) for _f, k, _o in
+                     trie.match(t.split("/"))))
+                for t, r in zip(topics, rows)]
+        pub = MQTTClient(sb.host, sb.port, "pub")
+        await pub.connect()
+        for i, t in enumerate(topics):
+            await pub.publish(t, b"%d" % i, qos=i % 2)
+        want = sorted((t, b"%d" % i) for i, t in enumerate(topics)
+                      for _f, key, _o in trie.match(t.split("/"))
+                      if key == ("", "sub"))
+        got = []
+        while len(got) < len(want):
+            f = await sub.recv(10.0)
+            got.append((f.topic, bytes(f.payload)))
+        host = []
+        for n, m in zip((a, b), ms):
+            col = n.batch_collector()
+            host.append({k: getattr(col, k) for k in dir(col)
+                         if k.endswith("_host_pubs")})
+            host[-1].update(host_fallbacks=m.host_fallbacks,
+                            device_failures=m.device_failures)
+        await sub.disconnect()
+        await pub.disconnect()
+        return (fold, fold_launches, sorted(got), want, host,
+                [m.match_publishes for m in ms],
+                [m.table.bucketed for m in ms])
+    finally:
+        for n, s in ((b, sb), (a, sa)):
+            await n.cluster.stop()
+            await n.stop()
+            await s.stop()
+
+
+@pytest.mark.cuda
+def test_two_nodes_on_the_card_match_the_peer_pointer_rows():
+    """Two port nodes on the card (the multi-node plane): node A's
+    subscriptions reach node B's GPU table as node-pointer rows through
+    the SWC store and the view's delta path; B's tile kernel matches them
+    (a fold on B returns A's pointer for every topic one of A's
+    subscriptions matches), and a publish on B reaches A's subscriber
+    exactly, with no publish served off the card on either node."""
+    import asyncio
+
+    _card()
+    filters = ["r1/+/m2", "+/d3/m4", "r5/d6/#", "r1/d3/m2"]
+    topics = ["r1/d3/m2", "r1/d9/m2", "r7/d3/m4", "r5/d6/m0", "r8/d8/m8"] * 4
+    fold, launches, got, want, host, pubs, bucketed = asyncio.run(
+        _two_nodes_pointer_rows("cuda", filters, topics))
+    assert all(bucketed) and want and got == want
+    assert all(pointer == held for pointer, held in fold), fold
+    assert any(pointer for pointer, _ in fold)
+    # B's device matched every publish; A folds a forwarded publish for
+    # its local subscribers on its trie (reg.publish_from_remote, as the
+    # reference does, vmq_cluster_com.erl:153-157)
+    assert launches > 0 and pubs[1] >= len(topics) and pubs[0] == 0
+    assert not any(v for h in host for v in h.values()), host
+
+
 def _cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 

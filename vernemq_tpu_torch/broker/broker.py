@@ -61,14 +61,24 @@ class Broker:
 
         self.plugins = PluginManager(self)
         # replicated metadata store (vmq_metadata facade,
-        # vmq_metadata.erl:24-28): the plumtree-flavored LWW store ("lww";
-        # the "swc" store is refused in refuse_unported, ROADMAP item 11)
+        # vmq_metadata.erl:24-28): ``metadata_plugin`` picks the backend the
+        # way metadata_impl selects vmq_plumtree or vmq_swc — "lww" is the
+        # plumtree-flavored LWW store, "swc" the server-wide-clock store
         persist_dir = (self.config.metadata_dir
                        if self.config.get("metadata_persistence", False)
                        else None)
-        from ..cluster.metadata import MetadataStore
+        if self.config.get("metadata_plugin", "lww") == "swc":
+            from ..cluster.swc_store import SWCMetadata
 
-        self.metadata = MetadataStore(node_name, persist_dir=persist_dir)
+            self.metadata = SWCMetadata(
+                node_name, persist_dir=persist_dir,
+                n_groups=self.config.get("swc_replication_groups", 8),
+                sync_interval=self.config.get("swc_sync_interval", 2.0),
+                db_backend=self.config.get("swc_db_backend", "kvstore"))
+        else:
+            from ..cluster.metadata import MetadataStore
+
+            self.metadata = MetadataStore(node_name, persist_dir=persist_dir)
         self.cluster: Optional[Any] = None  # set by cluster.Cluster
         # stall watchdog (robustness/watchdog.py): monitored-operation
         # registry + sacrificial dispatch for every cross-boundary wait
@@ -1605,6 +1615,25 @@ class Broker:
 
     # ---------------------------------------------------- session tracing
 
+    def start_trace(self, client_id: str, mountpoint: str = "",
+                    **opts) -> Any:
+        """vmq-admin trace client client-id=X; single tracer at a time
+        (vmq_tracer_cli: "another trace is already running")."""
+        if self.tracer is not None:
+            raise RuntimeError("another trace is already running")
+        from ..admin.tracer import Tracer
+
+        opts.setdefault("metrics", self.metrics)
+        self.tracer = Tracer(client_id, mountpoint, **opts)
+        n = sum(1 for sid in self.sessions
+                if sid == (mountpoint, client_id))
+        self.tracer.session_event(
+            f'Starting trace for {n} existing sessions for client "{client_id}"')
+        return self.tracer
+
+    def stop_trace(self) -> None:
+        self.tracer = None
+
     def trace_frame(self, direction: str, mountpoint: str,
                     client_id: Optional[str], frame: Any,
                     session_start: bool = False) -> None:
@@ -1649,10 +1678,14 @@ class Broker:
     async def start(self) -> None:
         self._log_handlers: List[Any] = []
         self._setup_logging()
-        # observability is always on in the port (observability_enabled
-        # off is refused in __init__); the registries are process-global
+        # observability master switch: off reduces every histogram/
+        # profiler seam to one module-global boolean test. The flag is
+        # process-global like the registries it gates.
+        from ..observability import histogram as _hist
         from ..observability import profiler as _profiler
 
+        _hist.set_enabled(
+            bool(self.config.get("observability_enabled", True)))
         _profiler().set_capacity(
             int(self.config.get("profiler_capacity", 2048)))
         from ..observability import events as _events
@@ -1693,10 +1726,22 @@ class Broker:
         self.supervisor.watch_listeners()
         if self.config.systree_enabled:
             self.supervisor.spawn("systree", self.start_systree)
-        # admin HTTP, Graphite, bridges and the bundled plugins are not
-        # ported (refused in __init__, ROADMAP Queue 1 item 11); conf-file
-        # listeners (listener.<kind>.<name> = ip:port) — the boot-time
-        # half of the vernemq.conf layer (broker/conf.py)
+        if self.config.http_enabled:
+            from ..admin.http import HttpServer
+
+            self.http = HttpServer(self, self.config.http_host,
+                                   self.config.http_port,
+                                   tuple(self.config.http_modules))
+            await self.http.start()
+        if self.config.graphite_enabled:
+            from ..admin.graphite import GraphiteReporter
+
+            self.graphite = GraphiteReporter(self)
+            self.graphite.start()
+        # bridges and the bundled plugins are not ported (refused in
+        # __init__, ROADMAP Queue 1 item 11b); conf-file listeners
+        # (listener.<kind>.<name> = ip:port) — the boot-time half of the
+        # vernemq.conf layer (broker/conf.py)
         conf_listeners = self.config.get("listeners", [])
         if conf_listeners:
             if self.listeners is None:

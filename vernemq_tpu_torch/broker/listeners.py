@@ -5,9 +5,7 @@ Listener kinds map to transports exactly like the reference
 ``ws``/``wss`` (the reference's ``mqttws``/``mqttwss``) WebSocket MQTT,
 ``http``/``https`` the admin endpoints, ``vmq``/``vmqs`` the cluster
 data-plane channel. Listeners can be started/stopped/reconfigured at
-runtime via ``vmq-admin listener ...``. The port serves the MQTT and
-WebSocket kinds; the admin and cluster kinds raise ``NotImplementedError``
-(ROADMAP Queue 1 item 11)."""
+runtime via ``vmq-admin listener ...``."""
 
 from __future__ import annotations
 
@@ -20,8 +18,6 @@ log = logging.getLogger("vernemq_tpu_torch.listeners")
 KINDS = ("mqtt", "mqtts", "ws", "wss", "http", "https", "vmq", "vmqs")
 # accept the reference's own names too
 ALIASES = {"mqttws": "ws", "mqttwss": "wss"}
-#: kinds whose server modules (admin/, the cluster plane) are not copied
-UNPORTED_KINDS = ("http", "https", "vmq", "vmqs")
 
 
 class ListenerManager:
@@ -42,10 +38,6 @@ class ListenerManager:
         kind = ALIASES.get(kind, kind)
         if kind not in KINDS:
             raise ValueError(f"unknown listener kind {kind!r}")
-        if kind in UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{kind} listener: the admin endpoints and the cluster "
-                f"plane are not ported yet (ROADMAP Queue 1 item 11)")
         # fault-injection point: a simulated bind failure (EADDRINUSE,
         # EMFILE, ...) — the watchdog's rebind-retry path is exercised
         # by tests/test_restart_storm.py through this hook. Async
@@ -55,7 +47,7 @@ class ListenerManager:
         await faults.inject_async("listener.bind")
         opts = dict(opts or {})
         ssl_context = None
-        if kind in ("mqtts", "wss"):
+        if kind in ("mqtts", "wss", "https", "vmqs"):
             from .ssl_util import make_server_context
 
             ssl_context = make_server_context(opts)
@@ -77,7 +69,7 @@ class ListenerManager:
                 reuse_port=bool(opts.get("reuse_port")))
             await server.start()
             port = server.port
-        else:  # ws / wss
+        elif kind in ("ws", "wss"):
             from .websocket import WebSocketServer
 
             server = WebSocketServer(
@@ -92,6 +84,44 @@ class ListenerManager:
                 reuse_port=bool(opts.get("reuse_port")))
             await server.start()
             port = server.port
+        elif kind in ("http", "https"):
+            from ..admin.http import DEFAULT_MODULES, HttpServer
+
+            modules = opts.get("http_modules") or DEFAULT_MODULES
+            server = HttpServer(self.broker, addr, port,
+                                modules=tuple(modules),
+                                ssl_context=ssl_context)
+            await server.start()
+            port = server.port
+        else:  # vmq / vmqs — the cluster data-plane listener
+            if self.broker.cluster is not None:
+                # stop_listener schedules Cluster.stop() as a task; a
+                # stop-then-start sequence must wait for that detach
+                # instead of refusing against the half-stopped cluster.
+                # Never gather OURSELVES: an admin `listener start` runs
+                # inside a tracked task, and awaiting it here would
+                # deadlock the listener manager permanently.
+                cur = asyncio.current_task()
+                pending = [t for t in self._start_tasks
+                           if not t.done() and t is not cur]
+                if pending:
+                    await asyncio.gather(*pending, return_exceptions=True)
+            if self.broker.cluster is None:
+                from ..cluster import Cluster
+
+                cluster = Cluster(self.broker, addr, port)
+                try:
+                    await cluster.start()
+                except BaseException:
+                    # __init__ attached broker.cluster/metadata hooks; a
+                    # failed bind (stolen port, moved cert) must detach or
+                    # every later start hits 'already running' forever
+                    await cluster.stop()
+                    raise
+                server = cluster
+                port = cluster.listen_port
+            else:
+                raise ValueError("cluster listener already running")
         self._listeners[(addr, port)] = {
             "kind": kind, "server": server, "opts": opts,
             "ssl_context": ssl_context,

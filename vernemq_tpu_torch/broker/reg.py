@@ -91,24 +91,15 @@ def refuse_unported(config) -> None:
     naming the ROADMAP Queue 1 item that ports them, before a broker is
     built, instead of failing later on a module that was never copied: a
     ``tpu_mesh`` (the reference shards its table over a device mesh; the
-    port serves one GPU), the SWC metadata store, admin HTTP, Graphite,
-    bridges and the bundled plugins, and ``observability_enabled`` off
-    (the port's histograms have no off switch)."""
+    port serves one GPU), bridges and the bundled plugins."""
     spec = str(config.get("tpu_mesh", "") or "").strip()
     if spec:
         raise NotImplementedError(
             f"tpu_mesh={spec!r}: the multi-GPU matcher is not ported yet "
             f"(ROADMAP Queue 1 item 8); unset tpu_mesh to serve on one GPU")
     unported = {
-        "metadata_plugin=swc (cluster/swc_store)":
-            config.get("metadata_plugin", "lww") == "swc",
-        "http_enabled (admin/http)": bool(config.get("http_enabled")),
-        "graphite_enabled (admin/graphite)":
-            bool(config.get("graphite_enabled")),
         "bridges (plugins/bridge)": bool(config.get("bridges")),
         "plugins (the bundled plugins)": bool(config.get("plugins")),
-        "observability_enabled=off":
-            not config.get("observability_enabled", True),
     }
     for what, asked in unported.items():
         if asked:

@@ -492,8 +492,7 @@ async def start_broker(
     ``cluster_listen`` additionally starts the inter-node channel listener
     (the reference's ``vmq`` listener type, vmq_ranch_config.erl:224-227);
     ``join`` dials a seed node. ``reuse_port`` lets worker processes share
-    the MQTT port (broker/workers.py), whose cluster channels on loopback
-    are what these two serve in the port."""
+    the MQTT port (broker/workers.py)."""
     broker = Broker(config, node_name=node_name, device=device)
     await broker.start()
     from .listeners import ListenerManager
@@ -532,7 +531,20 @@ def main() -> None:  # pragma: no cover
                         help="device of the tpu reg view (default cuda; "
                              "cpu runs its plain PyTorch path)")
     parser.add_argument("--node-name", default="node1")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="start the HTTP endpoint (metrics/health/"
+                             "status/mgmt API) on this port")
+    parser.add_argument("--no-mgmt-auth", action="store_true",
+                        help="disable api-key auth on the management API")
+    parser.add_argument("--cluster-listen", default=None, metavar="HOST:PORT",
+                        help="start the inter-node cluster listener")
+    parser.add_argument("--join", default=None, metavar="HOST:PORT",
+                        help="join an existing cluster via this seed node")
     args = parser.parse_args()
+
+    def _addr(s):
+        h, _, p = s.rpartition(":")
+        return (h or "127.0.0.1", int(p))
 
     async def _run():
         from .config import Config
@@ -541,13 +553,28 @@ def main() -> None:  # pragma: no cover
         cfg.set("default_reg_view", args.reg_view)
         if args.allow_anonymous:
             cfg.set("allow_anonymous", True)
+        if args.http_port is not None:
+            cfg.set("http_enabled", True)
+            cfg.set("http_port", args.http_port)
+            cfg.set("http_host", args.host)
+        if args.no_mgmt_auth:
+            cfg.set("http_mgmt_api_auth", False)
         broker, server = await start_broker(
             cfg, host=args.host, port=args.port, node_name=args.node_name,
-            device=args.device)
+            device=args.device,
+            cluster_listen=_addr(args.cluster_listen) if args.cluster_listen else None,
+            join=_addr(args.join) if args.join else None,
+        )
         print(f"vernemq_tpu_torch broker {args.node_name} listening on "
               f"{args.host}:{server.port} (reg view {args.reg_view}"
               f"{' on ' + str(broker.device) if args.reg_view == 'tpu' else ''})",
               flush=True)
+        if broker.http is not None:
+            print(f"http endpoint on {broker.http.host}:{broker.http.port}",
+                  flush=True)
+        if broker.cluster is not None:
+            print(f"cluster listener on {broker.cluster.listen_host}:"
+                  f"{broker.cluster.listen_port}", flush=True)
         await asyncio.Event().wait()
 
     asyncio.run(_run())

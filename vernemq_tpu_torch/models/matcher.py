@@ -567,6 +567,17 @@ class GpuMatcher:
 
     def _apply_delta_device_impl(self, slots: np.ndarray) -> None:
         faults.inject("device.delta")
+        t_obs = time.monotonic()
+        self._apply_delta_device_inner(slots)
+        # success-only + straggler-guarded: a failed or watchdog-abandoned
+        # scatter records nothing (the launches are asynchronous: this is
+        # the host's share of the scatter, as `profile device` shows it)
+        if not watchdog_mod.current_op_abandoned():
+            dur = (time.monotonic() - t_obs) * 1e3
+            obs.observe("stage_delta_scatter_ms", dur)
+            record_dispatch("delta", t_obs, dur, dpad=int(len(slots)))
+
+    def _apply_delta_device_inner(self, slots: np.ndarray) -> None:
         t = self.table
         dev = self.device
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -38,6 +38,10 @@ class SubscriptionTrie:
     def __init__(self) -> None:
         self._root = _Node()
         self._count = 0  # number of (filter, key) entries
+        # trie nodes, the root included, kept as nodes are made and pruned
+        # so stats() need not walk the trie (a metrics scrape runs on the
+        # event loop)
+        self._nodes = 1
 
     def __len__(self) -> int:
         return self._count
@@ -50,6 +54,7 @@ class SubscriptionTrie:
             if nxt is None:
                 nxt = _Node()
                 node.children[w] = nxt
+                self._nodes += 1
             node = nxt
         if key not in node.subs:
             self._count += 1
@@ -76,6 +81,7 @@ class SubscriptionTrie:
             if child.subs or child.children:
                 break
             del parent.children[w]
+            self._nodes -= 1
         return True
 
     def match(self, topic_words: Sequence[str]) -> List[Tuple[Tuple[str, ...], Hashable, Any]]:
@@ -138,15 +144,11 @@ class SubscriptionTrie:
     def stats(self) -> Dict[str, int]:
         """Subscription count + rough memory, feeding the
         ``router_subscriptions`` / ``router_memory`` gauges
-        (vmq_reg_trie.erl:101-112)."""
+        (vmq_reg_trie.erl:101-112). The node count is kept by ``add`` and
+        ``remove``, not walked."""
         import sys
 
-        nodes = 0
-        stack = [self._root]
-        while stack:
-            n = stack.pop()
-            nodes += 1
-            stack.extend(n.children.values())
+        nodes = self._nodes
         return {
             "subscriptions": self._count,
             "nodes": nodes,

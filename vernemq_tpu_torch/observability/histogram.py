@@ -14,10 +14,8 @@ an idle pool thread, and the hot path takes no lock.
 The registry is process-global (like ``robustness/faults``): matcher
 and collector code observes without threading a metrics handle through
 every layer, and the broker's ``Metrics`` object reads the registry at
-scrape time. The port has no off switch: ``observability_enabled``
-off is refused when a broker is built (``broker/reg.py``
-``refuse_unported``), so :func:`enabled` is always true and
-:func:`observe` tests nothing.
+scrape time. ``set_enabled(False)`` (the ``observability_enabled``
+knob) reduces every seam to one module-global boolean test.
 """
 
 from __future__ import annotations
@@ -129,6 +127,9 @@ STAGE_FAMILIES: List[Tuple[str, str]] = [
      "(the bounded-pause guarantee; informs "
      "handoff_freeze_deadline_ms and bench config 15's pause p99)."),
 ]
+
+_ENABLED = True
+
 
 def bucket_index(ms: float) -> int:
     """Bucket index for one observation (N_BUCKETS = overflow/+Inf)."""
@@ -249,14 +250,20 @@ _REGISTRY: Dict[str, Histogram] = {
 
 
 def enabled() -> bool:
-    """Always true in the port (no observability switch; see above)."""
-    return True
+    return _ENABLED
+
+
+def set_enabled(flag: bool) -> None:
+    global _ENABLED
+    _ENABLED = bool(flag)
 
 
 def observe(name: str, ms: float) -> None:
-    """Record one observation (milliseconds) into a registered family;
-    unknown names raise — register the family in STAGE_FAMILIES."""
-    _REGISTRY[name].observe(ms)
+    """Record one observation (milliseconds) into a registered family.
+    One boolean test when observability is off; unknown names raise —
+    register the family in STAGE_FAMILIES."""
+    if _ENABLED:
+        _REGISTRY[name].observe(ms)
 
 
 def get(name: str) -> Histogram:

@@ -54,6 +54,8 @@ from ..models.matcher import (
     load_kernels, prepare_windows,
 )
 from ..ops import reverse_kernel as RK
+# imported for its binder: load_kernels(KERNEL_LIBS) loads its library
+from ..ops import reverse_tiles  # noqa: F401
 from ..ops.tile_match import KernelError
 from ..protocol.topic import match_dollar_aware
 from ..robustness import faults
