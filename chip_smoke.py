@@ -22,19 +22,29 @@ kernels are built for sm_90a). It
    window of a 2^20-row table with lc < L, tiles of 64 and 256 query slots,
    lc = 1 and lc = 16 at L = 16, and a table whose size is no multiple of
    the 256-row chunk with windows starting off the chunk grid, with
-   ``$``-topics, inactive rows and empty slots;
+   ``$``-topics, inactive rows and empty slots; and the extraction kernel
+   against its plain version (idx where valid, valid and count, bit for
+   bit) with and without chunk counts at the probe-A and retained-dense
+   widths, ragged widths, k = 1 and k = 256 and one row, on rows that are
+   empty, all ones (count past k), repeated and dead;
 3. drives the port's main path — ``GpuRegView.fold_batch`` over a
    1,000,000-subscription table (the bench.py headline corpus: 60% exact,
    20% ``w0/+/w2``, 10% ``+/w1/w2``, 10% ``w0/w1/#``; L = 8, max_fanout 256,
    flat_avg 128) with zipf batches of 4096 publishes — and checks exact
    ``(filter, key)`` set equality with the port's own host trie on 1024
    publishes of every batch, that no publish fell back to the host, and
-   that the tile kernel was launched on that path;
+   that the tile and extraction kernels were launched on that path (one
+   extraction a probe and one for dense region 0 in every dispatch, and no
+   plain extraction of a tensor on the card);
 4. adds and removes 1,000 subscriptions, syncs and checks parity again;
 5. times the kernel (CUDA events) per probe and per batch beside its bound
    (achieved TFLOP/s, share of the bound), its plain version, a batched
    fp32 ``torch.bmm`` of the same product (a yardstick the port never
-   calls), the device path and its profile, a whole batch and the host
+   calls); holds the extraction kernel against its plain version on the
+   batch's own packed masks (probe A, probe B, dense region 0) and times
+   each (CUDA events, and from a CUDA graph) beside its bound and its plain
+   version; then the device path (beside the 11.03 ms of an earlier run
+   with the plain extraction) and its profile, a whole batch and the host
    encode/prep, and prints them beside the card and the ptxas register /
    spill report of every kernel template the run launched;
 6. serves publish bursts through the serving layer's entry point, a
@@ -73,11 +83,12 @@ kernels are built for sm_90a). It
    burst's 36,864 zipf publishes, a quarter at QoS 1: every subscriber's
    deliveries equal the registry trie's rows for its subscriptions, in
    publish order per publisher; every host-served counter 0; the tile
-   kernel launched; publishes/s, PUBLISH→delivery and PUBACK p50/p99
-   printed; on the same broker the admin surface (``[admin]``): during
-   the counted load the clients' process polls the admin HTTP API (API
-   key on) every 0.5 s through ``admin/cli.py`` — ``metrics show``,
-   ``breaker show``, ``watchdog show``, ``profile device`` and a
+   and extraction kernels launched; publishes/s, PUBLISH→delivery and
+   PUBACK p50/p99 printed; on the same broker the admin surface
+   (``[admin]``): during the counted load the clients' process polls the
+   admin HTTP API (API key on) every 0.5 s through ``admin/cli.py`` —
+   ``metrics show``, ``breaker show``, ``watchdog show``, ``profile
+   device`` and a
    ``/metrics`` scrape — with the phase's exactness and 0 host-served
    publishes kept and the admin's device counters equal to the broker's
    own; after it ``breaker trip path=match`` (256 publishes delivered
@@ -89,10 +100,11 @@ kernels are built for sm_90a). It
    ``start_broker(cluster_listen=, join=)`` with the SWC store, the same
    corpus split by subscriber id so each node's GPU table holds its
    ~500k rows and the peer's filters as ~300k node-pointer rows (the SWC
-   replication time printed), the same live load (16,384 of its
-   publishes) split over the nodes with every delivery exact against the nodes' tries, cross-node
-   deliveries, no publish served off the card on either node (read over
-   each node's admin HTTP API), the tile kernel launched on both, and an
+   replication time printed), the same live load (all 36,864 publishes)
+   split over the nodes with every delivery exact against the nodes'
+   tries, cross-node deliveries, no publish served off the card on either
+   node (read over each node's admin HTTP API), the tile and extraction
+   kernels launched on both (no plain extraction on the card), and an
    unsubscribe of 100 filters on A that stops B's publishes reaching
    them until they are resubscribed;
 12. retained reverse match (bench.py config 8, the retained subscribe
@@ -105,8 +117,9 @@ kernels are built for sm_90a). It
    deletes and 1,000 new topics scattered in place and one more batch
    checked the same way; filters/s and
    replayed rows/s beside the host walk's, host-fallback filters, the
-   compare and extraction kernels' launches per batch, and the probe and
-   dense launches of both timed (CUDA events back to back, and replayed
+   compare and extraction kernels' launches per batch (and no plain
+   extraction on the card), and the probe and dense launches of both
+   timed (CUDA events back to back, and replayed
    from a CUDA graph, which leaves out the wrappers' host work) beside
    their bound (the compare at the card's INT32 lane rate, and at the fp32
    rate earlier runs used), the first design's times, their plain
@@ -120,7 +133,7 @@ kernels are built for sm_90a). It
    as a multiset of (topic, payload, retain), equal the store's matches;
    the replay collector's device path served filters; every degraded,
    rebuild, fallback, stalled and expired replay counter 0 at the broker's
-   default expiry; the reverse kernel launched;
+   default expiry; the reverse compare and extraction kernels launched;
 14. worker mode (``[workers]``): the broker phase's load through 4
    SO_REUSEPORT workers and one match service on the card — the same
    corpus subscribed over MQTT by 10,000 persistent sessions through the
@@ -129,7 +142,9 @@ kernels are built for sm_90a). It
    queued-publish expiry of 5 s (the broker's default is 200 ms): every
    live subscriber's deliveries exact, nothing served off the card (the
    service's trie-served publishes and failed folds, each worker's
-   trie-served publishes and missed folds, all 0), and of the group only
+   trie-served publishes and missed folds, all 0), the service's tile and
+   extraction kernel launches read from the workers' stats block (no plain
+   extraction on the card), and of the group only
    the service holds a GPU device node; publishes/s, PUBLISH->delivery and
    PUBACK p50/p99 and the load time printed beside the broker phase's;
 15. the predicate phase (``[predicate]``, bench.py config 13): 512 ``$gt``,
@@ -329,6 +344,34 @@ REVERSE_SHAPES = [
     ("ragged N=2^20-100 starts off the chunk grid", (1 << 20) - 100, 8, 16,
      3, 16, 96, 4096, True),
 ]
+# the extraction kernel's first design (one warp a row, one lane emitting a
+# chunk's bits), the retained probe and dense extraction of one storm batch
+# by CUDA events / from a CUDA graph, and the forward device path per
+# 4096-publish batch while its extraction was plain PyTorch, all measured by
+# earlier versions of this script on one H100 80GB HBM3 at 700 W; printed
+# beside this run's times, never as this run's
+EXTRACT_EARLIER_MS = {"probe": (0.0593, 0.0100), "dense": (0.0388, 0.0313)}
+PATH_EARLIER_MS = 11.03
+# the extraction kernel against its plain version: (label, R0 rows, W
+# words, k, with chunk counts, R selected rows or None for every row) — the
+# forward probe A width split over warps and one warp a row, the retained
+# dense width (4,136 chunks a row, 224 rows), ragged widths (W = 1029 and
+# 61: a last chunk of 5 words), k = 1 and k = 256, one row; every case has an
+# empty and an all-ones row (count = 32 W > k), repeated rows out of order
+# and ~10% dead rows
+EXTRACT_SHAPES = [
+    ("probe A width, split rows", 512, 8192, 256, False, 300),
+    ("probe A width, a warp a row", 512, 8192, 256, False, 3000),
+    ("probe A width, k = 1", 512, 8192, 1, False, 3000),
+    ("counts, k = 256", 512, 8192, 256, True, 600),
+    ("counts, k = 1", 512, 8192, 1, True, 600),
+    ("retained dense width, counts", 224, 4136 * 8, 256, True, 224),
+    ("ragged W = 1029", 256, 1029, 256, False, 300),
+    ("ragged W = 61, k = 1", 64, 61, 1, False, 64),
+    ("every row, W = 64", 4096, 64, 256, False, None),
+    ("one row", 8, 8192, 256, False, 1),
+    ("one row, counts", 8, 8192, 256, True, 1),
+]
 
 
 def build_corpus(rng: random.Random, n_subs: int, add):
@@ -458,6 +501,36 @@ def mask_diff(x, y) -> int:
     return int(((x ^ y) != 0).any()) if x.shape == y.shape else 1
 
 
+def reset_counts() -> None:
+    """Zero the forward path's counters: tile-matcher and extraction kernel
+    launches, and plain extractions of tensors on the card."""
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    TM.launches = EX.launches = TK.plain_cuda_extractions = 0
+
+
+def forward_counts(label: str, counts=None):
+    """``(tile, extraction)`` launches since :func:`reset_counts` in this
+    process, or ``counts = (tile, extraction, plain)`` read from another.
+    Fails unless the tile kernel ran and every dispatch's zones went
+    through the extraction kernel: a dispatch launches one extraction per
+    tile launch and one for dense region 0, so more extraction than tile
+    launches, and no plain extraction touched the card."""
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    tile, ex, plain = counts if counts is not None else (
+        TM.launches, EX.launches, TK.plain_cuda_extractions)
+    if tile <= 0 or ex <= tile or plain:
+        fail(f"{label}: tile launches {tile}, extraction launches {ex}, "
+             f"plain extractions on the card {plain}: a dispatch ran "
+             f"without its kernels")
+    return tile, ex
+
+
 def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
                     seg: int, seed: int, vocab=None, eff_lo: int = 1,
                     long_pubs: float = 0.0):
@@ -579,7 +652,7 @@ def profile_device_path(torch, fn, card: str, path_ms: float,
     batches — the device-busy share (kernel time over the profiled window's
     wall time, and over ``path_ms``, the path's time per batch measured
     with CUDA events and no profiler), the top operators by the device time
-    of their kernels (with input shapes), and the hand kernel's own rows."""
+    of their kernels (with input shapes), and the hand kernels' own rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -603,7 +676,8 @@ def profile_device_path(torch, fn, card: str, path_ms: float,
     ops = [e for e in avg if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
-    for e in ops[:10] + [e for e in kernels if "tile_match" in e.key]:
+    for e in ops[:10] + [e for e in kernels if "tile_match" in e.key
+                         or "extract_kernel" in e.key]:
         shapes = str(getattr(e, "input_shapes", "") or "")[:60]
         print(f"[profile]   {e.self_device_time_total / 1e3 / reps:8.3f} ms "
               f"per batch  x{e.count // reps:<3d} {e.key[:44]} {shapes}")
@@ -687,9 +761,9 @@ def collector_kw() -> dict:
                 host_threshold=8, lock_busy_shed_ms=500)
 
 
-def phase_burst(view, m, trie, rng, pools, card: str) -> int:
-    """Collector bursts at the headline width; returns the tile launches of
-    the measured rounds."""
+def phase_burst(view, m, trie, rng, pools, card: str) -> tuple:
+    """Collector bursts at the headline width; returns the tile and
+    extraction launches of the measured rounds."""
     import asyncio
 
     import numpy as np
@@ -697,7 +771,6 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> int:
     from vernemq_tpu_torch.models.matcher import BatchCollector
     from vernemq_tpu_torch.observability import histogram as hist
     from vernemq_tpu_torch.observability.profiler import profiler
-    from vernemq_tpu_torch.ops import tile_match as TM
 
     # no warm-up: the first round is measured like the others
     rounds = [zipf_topics(rng, pools, BURST_WINDOWS * BATCH)
@@ -711,9 +784,9 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> int:
 
     hist.reset_all()
     profiler().reset()
-    TM.launches = 0
+    reset_counts()
     served = asyncio.run(measured())
-    launches = TM.launches
+    launches, ex_launches = forward_counts("burst")
     for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
         check_rows(trie, topics, rows, f"burst round {r}")
         if order != list(range(len(topics))):
@@ -744,8 +817,8 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> int:
           f"of {per_super:.2f} windows each ({supers} match_many "
           f"dispatches), saturated merges {col.saturated_merges}; parity "
           f"exact on {PARITY_PUBS} publishes per window, released in "
-          f"submission order, tile launches {launches}, host-served "
-          f"counters all 0", flush=True)
+          f"submission order, tile / extraction launches {launches} / "
+          f"{ex_launches}, host-served counters all 0", flush=True)
     # the dispatch records (encode, window prep, device, download; no row
     # resolve) of the measured rounds, by windows per dispatch
     recs = profiler().snapshot(kind="match")
@@ -763,10 +836,10 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> int:
           f"p50 {wait.get('p50_ms', 0):.1f} ms p99 "
           f"{wait.get('p99_ms', 0):.1f} ms over {int(wait['count'])} "
           f"flushes", flush=True)
-    return launches
+    return launches, ex_launches
 
 
-def phase_churn(view, m, trie, reg, rng, pools, card: str) -> int:
+def phase_churn(view, m, trie, reg, rng, pools, card: str) -> tuple:
     """Collector rounds under subscription churn, with the 500 ms lock
     bound: a task on the event loop adds CHURN_STEP subscriptions through
     on_delta at every step (and removes the oldest past CHURN_LIVE) while
@@ -774,15 +847,14 @@ def phase_churn(view, m, trie, reg, rng, pools, card: str) -> int:
     The churned filters end in one of 64 words no publish carries, so the
     trie's rows stay what the device must return and the word ids stay
     within the table's id width. Every host-served counter must read 0 and
-    no rebuild may run, the final sync included; returns the tile launches
-    of the phase."""
+    no rebuild may run, the final sync included; returns the tile and
+    extraction launches of the phase."""
     import asyncio
     import collections
 
     import numpy as np
 
     from vernemq_tpu_torch.models.matcher import BatchCollector
-    from vernemq_tpu_torch.ops import tile_match as TM
 
     l0, l1, _ = pools
     crng = random.Random(SEED + 2)
@@ -820,9 +892,9 @@ def phase_churn(view, m, trie, reg, rng, pools, card: str) -> int:
             stop.set()
             await task
 
-    TM.launches = 0
+    reset_counts()
     served = asyncio.run(run())
-    launches = TM.launches
+    launches, ex_launches = forward_counts("churn")
     settle_sync(m)  # the deltas after the last flush
     for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
         check_rows(trie, topics, rows, f"churn round {r}")
@@ -845,9 +917,10 @@ def phase_churn(view, m, trie, reg, rng, pools, card: str) -> int:
           f"p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms, {col.super_batches} "
           f"super-batches; parity exact, released in submission order, "
-          f"tile launches {launches}, busy_host_pubs 0 and every other "
-          f"host-served counter 0", flush=True)
-    return launches
+          f"tile / extraction launches {launches} / {ex_launches}, "
+          f"busy_host_pubs 0 and every other host-served counter 0",
+          flush=True)
+    return launches, ex_launches
 
 
 def phase_many(view, m, rng, pools, card: str) -> None:
@@ -1440,7 +1513,6 @@ def phase_broker(card: str, path_S: int) -> dict:
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
     from vernemq_tpu_torch.observability import histogram as hist
     from vernemq_tpu_torch.observability.profiler import profiler
-    from vernemq_tpu_torch.ops import tile_match as TM
     from vernemq_tpu_torch.protocol import fastpath
     from vernemq_tpu_torch.protocol.types import SubOpts
 
@@ -1541,10 +1613,10 @@ def phase_broker(card: str, path_S: int) -> dict:
             col = b.batch_collector()
             hist.reset_all()
             profiler().reset()
-            TM.launches = 0
+            reset_counts()
             conn.send("go")
             got, acks, wall, polls = await recv()
-            launches = TM.launches
+            launches, ex_launches = forward_counts("broker")
         finally:
             proc.join(30)
             if proc.is_alive():
@@ -1573,7 +1645,8 @@ def phase_broker(card: str, path_S: int) -> dict:
                     if top < len(hist.BUCKET_BOUNDS_MS) else float("inf"))
         eng = b.filter_engine
         res = live_numbers(got, acks, wall)
-        res.update(launches=launches, load_s=t_load)
+        res.update(launches=launches, extract_launches=ex_launches,
+                   load_s=t_load)
         print(f"[broker] {card} | {BROKER_PUBS} publishes "
               f"({sum(qos)} at QoS 1) from {BROKER_PUBLISHERS} MQTT "
               f"publishers to {BROKER_LIVE} MQTT subscribers (v3.1.1 and "
@@ -1588,7 +1661,8 @@ def phase_broker(card: str, path_S: int) -> dict:
               f"({col.super_batches} super-batches carrying "
               f"{col.super_batch_pubs} publishes), {m.match_batches} device "
               f"batches for {m.match_publishes} publishes; host-served "
-              f"counters {hs}; tile launches {launches}; native wire codec "
+              f"counters {hs}; tile / extraction launches {launches} / "
+              f"{ex_launches}; native wire codec "
               f"{'loaded' if fastpath.load_native() is not None else 'not loaded (pure-Python codec)'}; "
               f"predicate phase device dispatches {eng.dispatches} (no "
               f"predicated subscription in this load); parity exact for "
@@ -1657,6 +1731,8 @@ def cluster_node(name: str, join, conn) -> None:
                                                   register_core_commands)
     from vernemq_tpu_torch.broker.server import start_broker
     from vernemq_tpu_torch.observability import histogram as hist
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import tile_match as TM
     from vernemq_tpu_torch.protocol.types import SubOpts
 
@@ -1746,7 +1822,7 @@ def cluster_node(name: str, join, conn) -> None:
                 conn.send(want)
             elif cmd[0] == "reset":
                 hist.reset_all()
-                TM.launches = 0
+                reset_counts()
                 base = dict(pubs=m.match_publishes, batches=m.match_batches,
                             folds=folds[0],
                             remote=b.metrics.value("router_matches_remote"),
@@ -1755,7 +1831,8 @@ def cluster_node(name: str, join, conn) -> None:
                 conn.send("reset")
             elif cmd[0] == "read":
                 conn.send(dict(
-                    launches=TM.launches,
+                    launches=TM.launches, extract_launches=EX.launches,
+                    plain_extractions=TK.plain_cuda_extractions,
                     pubs=m.match_publishes - base["pubs"],
                     batches=m.match_batches - base["batches"],
                     flushes=hist.get("stage_collector_wait_ms").snapshot()[2],
@@ -1934,7 +2011,8 @@ def phase_cluster(card: str, single: dict) -> dict:
         for (name, _, _), r in zip(nodes, reads):
             print(f"[cluster] {card} | node {name}: {r['flushes']} collector "
                   f"flushes, {r['batches']} device batches for {r['pubs']} "
-                  f"publishes, tile launches {r['launches']}, queue wait at "
+                  f"publishes, tile / extraction launches {r['launches']} / "
+                  f"{r['extract_launches']}, queue wait at "
                   f"flush start p50 {r['wait'].get('p50_ms', 0):.1f} ms p99 "
                   f"{r['wait'].get('p99_ms', 0):.1f} ms; {r['forwards']} "
                   f"matches forwarded to the peer; {r['trie_folds']} "
@@ -1957,9 +2035,10 @@ def phase_cluster(card: str, single: dict) -> dict:
         if any(off.values()) or any(any(r["host"].values()) for r in reads):
             fail(f"cluster: publishes served off the card: {off}, "
                  f"{[r['host'] for r in reads]}")
-        if any(r["launches"] <= 0 for r in reads):
-            fail(f"cluster: tile launches per node "
-                 f"{[r['launches'] for r in reads]}")
+        for (name, _, _), r in zip(nodes, reads):
+            forward_counts(f"cluster node {name}", (
+                r["launches"], r["extract_launches"],
+                r["plain_extractions"]))
         if any(r["dropped"] for r in reads):
             fail(f"cluster: cluster frames dropped during the traffic "
                  f"{[r['dropped'] for r in reads]}")
@@ -2033,6 +2112,7 @@ def phase_cluster(card: str, single: dict) -> dict:
                 pr.join()
     res.update(launches=sum(r["launches"] for r in reads),
                node_launches=[r["launches"] for r in reads],
+               node_extract_launches=[r["extract_launches"] for r in reads],
                replication_s=repl_s,
                cross_node=len(lat["cross-node"]),
                trie_folds=[r["trie_folds"] for r in reads],
@@ -2359,12 +2439,15 @@ def cuda_context_pids(pids) -> set:
 def offcard(stats) -> dict:
     """The worker group's counters of work done off the card: the
     service's trie-served publishes, failed folds and device batches, and
-    each worker's trie-served publishes and missed folds."""
+    each worker's trie-served publishes and missed folds; beside them the
+    service's kernel launches and plain extractions on the card."""
     svc = stats.service_info()
     slots = stats.read_all()
+    kern = stats.service_launches()
     return dict(svc_host=svc["host_pubs"], svc_errors=svc["fold_errors"],
                 batches=svc["device_batches"], folds=svc["folds"],
-                ops=svc["ops"],
+                ops=svc["ops"], tile=kern["tile"], extract=kern["extract"],
+                plain=kern["plain"],
                 workers_host=[w["host_pubs"] for w in slots],
                 workers_failed=[w["folds_failed"] for w in slots])
 
@@ -2607,6 +2690,8 @@ def phase_workers(card: str, single: dict) -> dict:
     if folds <= 0 or batches <= 0:
         fail(f"workers: the service served {folds} folds in {batches} "
              f"device batches")
+    launches, ex_launches = forward_counts("workers service", tuple(
+        after[k] - base[k] for k in ("tile", "extract", "plain")))
     if on_card != {svc_pid}:
         fail(f"workers: processes with a CUDA context {sorted(on_card)}; "
              f"the service is {svc_pid}, workers and clients "
@@ -2617,6 +2702,7 @@ def phase_workers(card: str, single: dict) -> dict:
                  ("stage_collector_wait_ms", "stage_ring_rtt_ms"))
     res = live_numbers(got, acks, wall)
     res.update(load_s=t_load, folds=folds, device_batches=batches,
+               launches=launches, extract_launches=ex_launches,
                wait_p99=wait.get("p99_ms", 0), rtt_p50=rtt.get("p50_ms", 0))
     print(f"[workers] {card} | {BROKER_PUBS} publishes ({sum(qos)} at QoS "
           f"1) from {BROKER_PUBLISHERS} MQTT publishers to {BROKER_LIVE} "
@@ -2632,7 +2718,9 @@ def phase_workers(card: str, single: dict) -> dict:
           f"inversions across QoS levels)", flush=True)
     print(f"[workers] {card} | {folds} ring folds served in {batches} "
           f"device batches ({BROKER_PUBS / max(batches, 1):.1f} publishes "
-          f"per batch); the workers' queue wait at flush start p50 "
+          f"per batch), tile / extraction launches in the service "
+          f"{launches} / {ex_launches}; the workers' queue wait at flush "
+          f"start p50 "
           f"{wait.get('p50_ms', 0):.1f} ms p99 {wait.get('p99_ms', 0):.1f} "
           f"ms, ring round trip p50 {rtt.get('p50_ms', 0):.1f} ms p99 "
           f"{rtt.get('p99_ms', 0):.1f} ms over {int(rtt['count'])} folds "
@@ -2702,20 +2790,31 @@ def extract_diff(got, want) -> int:
     return max((int(e.max()) for e in errs if e.numel()), default=0)
 
 
-def extract_bytes(packed, counts, k: int, rows, ok) -> int:
-    """Bytes the extraction must move for this run's data: the live rows'
-    chunk counts, the words of every chunk that holds one of a row's first
-    k matches, the row selectors and liveness read once; idx, valid and
-    the count written once."""
+def extract_bytes(packed, counts, k: int, rows=None, ok=None) -> int:
+    """Bytes the extraction must move for this run's data, each input read
+    once (a row selected twice is read once): without counts every live
+    source row's words, with them those rows' chunk counts and the words of
+    every chunk that holds one of a row's first k matches; the row
+    selectors and liveness read once (None: not read); idx, valid and the
+    count written once."""
     import torch
 
-    c = counts.index_select(0, rows.long()) * ok[:, None].to(torch.int32)
+    R0, W = packed.shape
+    R = R0 if rows is None else rows.shape[0]
+    src = torch.arange(R0, device=packed.device) if rows is None \
+        else rows.long()
+    if ok is not None:
+        src = src[ok]
+    src = torch.unique(src)
+    io = (0 if rows is None else R * 4) + (0 if ok is None else R) \
+        + R * k * 5 + R * 4
+    if counts is None:
+        return src.numel() * W * 4 + io
+    c = counts.index_select(0, src)
     excl = c.cumsum(dim=1) - c
     chunks = int(((c > 0) & (excl < k)).sum())
-    R, nb = c.shape
-    wpb = packed.shape[1] // nb  # words per chunk
-    return (int(ok.sum()) * nb * 4 + chunks * wpb * 4 + R * 5
-            + R * k * 5 + R * 4)
+    nb = c.shape[1]
+    return src.numel() * nb * 4 + chunks * (W // nb) * 4 + io
 
 
 def reverse_bound(starts, seg: int, lc: int, n_queries: int):
@@ -2890,6 +2989,7 @@ def phase_retained(card: str) -> dict:
     import torch
 
     from vernemq_tpu_torch.broker.retain import RetainStore
+    from vernemq_tpu_torch.ops import extract as EX
     from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import reverse_kernel as TR
     from vernemq_tpu_torch.ops import reverse_tiles as RT
@@ -2929,7 +3029,7 @@ def phase_retained(card: str) -> dict:
     batches = [storm_filters(rng, pools, BATCH) for _ in range(RET_BATCHES)]
     fb0 = idx.host_fallback_queries
     walls, replayed = [], 0
-    RT.launches = RT.extract_launches = 0
+    RT.launches = EX.launches = TK.plain_cuda_extractions = 0
     for b, filters in enumerate(batches):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2964,11 +3064,12 @@ def phase_retained(card: str) -> dict:
     print(f"[retained] {card} | {RET_DELTA} retain deletes + {RET_DELTA} new "
           f"topics scattered in place (no rebuild); a batch after them "
           f"equal to the store", flush=True)
-    launches, ex_launches = RT.launches, RT.extract_launches
+    launches, ex_launches = RT.launches, EX.launches
     fallbacks = idx.host_fallback_queries - fb0
-    if launches <= 0 or ex_launches <= 0:
+    if launches <= 0 or ex_launches <= 0 or TK.plain_cuda_extractions:
         fail(f"retained: a reverse kernel was never launched (compare "
-             f"{launches}, extraction {ex_launches})")
+             f"{launches}, extraction {ex_launches}) or a plain extraction "
+             f"ran on the card ({TK.plain_cuda_extractions})")
     if idx.device_failures or idx.degraded_sheds:
         fail(f"retained: device failures {idx.device_failures}, degraded "
              f"sheds {idx.degraded_sheds}")
@@ -3069,6 +3170,7 @@ def phase_retained(card: str) -> dict:
         ep_ms = event_ms(lambda: RT.extract_chunks_ref(
             *got, a["k"], rows=rows, ok=ok), 3)
         e_bytes = extract_bytes(*got, a["k"], rows, ok)
+        e_split = EX.split(rows.shape[0], got[0].shape[1], True)
         del got, ex, ex_want
         nbytes, ops = reverse_bound(real_starts, kw["seg"], lc, n_real)
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / int32_rate
@@ -3098,8 +3200,11 @@ def phase_retained(card: str) -> dict:
               f"{100 * per[name]['bound_ms'] / k_ms:.1f}% of the bound; "
               f"plain {p_ms:.2f} ms; words and counts bit-equal", flush=True)
         print(f"[retained] {card} | {name} extraction: kernel {e_ms:.4f} ms "
-              f"({eg_ms:.4f} ms replayed from a CUDA graph), "
-              f"its bound {per[name]['extract_bound_ms']:.4f} ms "
+              f"({eg_ms:.4f} ms replayed from a CUDA graph; the first "
+              f"design: {EXTRACT_EARLIER_MS[name][0]} / "
+              f"{EXTRACT_EARLIER_MS[name][1]} ms, an earlier run's numbers), "
+              f"{e_split} warp(s) a row, its bound "
+              f"{per[name]['extract_bound_ms']:.4f} ms "
               f"({e_bytes / 1e6:.2f} MB by bytes), plain two-level "
               f"{ep_ms:.4f} ms; equal to the plain version", flush=True)
     launch_ms = sum(p["kernel_ms"] for p in per.values())
@@ -3233,6 +3338,8 @@ def phase_replay(card: str) -> int:
 
     from vernemq_tpu_torch.broker.reg import RetainedMsg
     from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import reverse_tiles as RT
 
     async def run():
@@ -3286,10 +3393,11 @@ def phase_replay(card: str) -> int:
 
         try:
             await recv()  # every client connected
-            RT.launches = RT.extract_launches = 0
+            RT.launches = EX.launches = TK.plain_cuda_extractions = 0
             conn.send("go")
             got, took, wall = await recv()
-            launches = (RT.launches, RT.extract_launches)
+            launches = (RT.launches, EX.launches)
+            plain = TK.plain_cuda_extractions
         finally:
             proc.join(30)
             if proc.is_alive():
@@ -3309,9 +3417,10 @@ def phase_replay(card: str) -> int:
             fail(f"replay: device filters "
                  f"{st['retained_replay_device_filters']}, host-served "
                  f"{bad}")
-        if min(launches) <= 0:
+        if min(launches) <= 0 or plain:
             fail(f"replay: a reverse kernel was never launched (compare, "
-                 f"extraction: {launches})")
+                 f"extraction: {launches}) or a plain extraction ran on "
+                 f"the card ({plain})")
         drops = b.metrics.value("queue_message_drop")
         if drops:
             fail(f"replay: {drops} queue drops")
@@ -3621,6 +3730,94 @@ def phase_predicate(card: str) -> dict:
                 max_pairs=eng.max_pairs)
 
 
+def synthetic_extract(torch, R0: int, W: int, R, seed: int):
+    """A packed mask ``[R0, W]`` made on the card: each row empty, all ones
+    or the AND of 1, 2, 7 or 11 random words (bit densities 2^-1 .. 2^-11),
+    row 0 empty and the last row all ones; and ``R`` selected rows
+    (repeats, out of order, those two first) with ~10% of them dead; every
+    row and all live when ``R`` is None."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ands = rng.choice([0, 1, 2, 7, 11, -1], R0)  # 0: empty, -1: all ones
+    ands[0], ands[-1] = 0, -1
+    n = torch.from_numpy(ands).to(DEVICE)[:, None]
+
+    def rand():
+        return torch.randint(-(1 << 31), 1 << 31, (R0, W), generator=gen,
+                             device=DEVICE, dtype=torch.int64) \
+            .to(torch.int32)
+
+    packed = rand()
+    for j in range(1, int(ands.max())):
+        packed = torch.where(n > j, packed & rand(), packed)
+    packed = torch.where(n == 0, 0, torch.where(n < 0, -1, packed))
+    if R is None:
+        return packed, None, None
+    rows = rng.integers(0, R0, R).astype(np.int32)
+    rows[:2] = [R0 - 1, 0][:R]
+    ok = rng.random(R) < 0.9
+    ok[:2] = True
+    cuda = lambda a: torch.from_numpy(a).to(DEVICE)
+    return packed, cuda(rows), cuda(ok)
+
+
+def phase_extract_kernel(compiled: bool):
+    """The extraction kernel against its plain version at every
+    EXTRACT_SHAPES entry (idx where valid, valid, count: bit for bit), each
+    timed beside its bound; with ``compiled`` (this run built the library)
+    its ptxas report. Returns ``(largest difference, {template: (registers,
+    spill stores, spill loads)} or None)``."""
+    import torch
+
+    from vernemq_tpu_torch.ops import _build
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import reverse_tiles as RT
+
+    err_max = 0
+    for i, (name, R0, W, k, with_counts, R) in enumerate(EXTRACT_SHAPES):
+        packed, rows, ok = synthetic_extract(torch, R0, W, R, SEED + 40 + i)
+        counts = RT.chunk_counts(packed) if with_counts else None
+        kw = dict(rows=rows, ok=ok, counts=counts)
+        got = EX.extract_rows(packed, k, **kw)
+        want = EX.extract_rows_ref(packed, k, **kw)
+        torch.cuda.synchronize()
+        err = extract_diff(got, want)
+        count = want[2]
+        over, empty = int((count > k).sum()), int((count == 0).sum())
+        if err or not over or (R != 1 and not empty):
+            fail(f"extraction kernel disagrees with its plain version at "
+                 f"{name} (max abs err {err})" if err else f"extraction "
+                 f"case {name} is vacuous: {over} rows past k, {empty} "
+                 f"empty")
+        err_max = max(err_max, err)
+        del got, want
+        ms = event_ms(lambda: EX.extract_rows(packed, k, **kw), 10)
+        g_ms = graph_ms(lambda: EX.extract_rows(packed, k, **kw), 10)
+        bound = extract_bytes(packed, counts, k, rows, ok) \
+            / HBM_BYTES_PER_S * 1e3
+        n = R0 if R is None else R
+        print(f"[kernel] extract {name}: {n} of {R0} rows x W {W} words, k "
+              f"{k}, {EX.split(n, W, with_counts)} warp(s) a row; rows past "
+              f"k {over}, empty or dead {empty}; idx, valid and count "
+              f"max_abs_err {err}; {ms:.4f} ms by events, {g_ms:.4f} ms "
+              f"from a CUDA graph, bound {bound:.4f} ms "
+              f"({100 * bound / g_ms:.1f}% from the graph)", flush=True)
+        del packed, rows, ok, counts
+    torch.cuda.empty_cache()
+    ptxas = None
+    if compiled:
+        ptxas = ptxas_kernels(_build.log_path("extract").read_text(),
+                              ("extract_kernelILb0E", "extract_kernelILb1E"))
+        ptxas = {("counts" if "Lb1E" in n else "no counts"): v
+                 for n, v in ptxas.items()}
+        print("[build] ptxas extract_kernel (template: registers, spill "
+              "stores, spill loads): " + ", ".join(
+                  f"{n}: {v}" for n, v in sorted(ptxas.items())), flush=True)
+    return err_max, ptxas
+
+
 def phase_reverse_kernel(compiled: bool):
     """The reverse-compare kernel against its plain version at every
     REVERSE_SHAPES entry, packed words and chunk counts bit for bit; with
@@ -3708,6 +3905,7 @@ def main() -> int:
     from vernemq_tpu_torch.models.matcher import GpuRegView
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
     from vernemq_tpu_torch.ops import _build
+    from vernemq_tpu_torch.ops import extract as EX
     from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import tile_match as TM
 
@@ -3719,7 +3917,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    libs = ["tile_match", "reverse_match", "predicate"]
+    libs = ["tile_match", "extract", "reverse_match", "predicate"]
     built = _build.build(libs)  # one nvcc per source, all at once
     print(f"[build] {', '.join(libs)}: built {built or 'none (up to date)'} "
           f"in {time.perf_counter() - t0:.1f}s "
@@ -3764,6 +3962,7 @@ def main() -> int:
         kernel_err = max(kernel_err, err)
         del x, got, want
     torch.cuda.empty_cache()
+    extract_err, extract_ptxas = phase_extract_kernel("extract" in built)
     reverse_err, reverse_ptxas = phase_reverse_kernel(
         "reverse_match" in built)
 
@@ -3816,16 +4015,15 @@ def main() -> int:
         return lat
 
     fb0 = m.host_fallbacks
-    TM.launches = 0
+    reset_counts()
     lat = drive(BATCHES, "path")
-    path_launches = TM.launches
-    if path_launches <= 0:
-        fail("the main path never launched the tile kernel")
+    path_launches, path_ex = forward_counts("path")
     if m.host_fallbacks != fb0:
         fail(f"{m.host_fallbacks - fb0} publishes fell back to the host")
     print(f"[path] {BATCHES} batches x {BATCH}: parity exact on "
-          f"{PARITY_PUBS} publishes per batch, tile launches "
-          f"{path_launches}, host fallbacks 0", flush=True)
+          f"{PARITY_PUBS} publishes per batch, tile / extraction launches "
+          f"{path_launches} / {path_ex}, plain extractions on the card 0, "
+          f"host fallbacks 0", flush=True)
 
     # --------------------------------------------------------- delta phase
     drng = random.Random(SEED + 1)
@@ -3839,13 +4037,14 @@ def main() -> int:
         reg.add(f, f"delta{i}")
         view.on_delta("add", "", f, f"delta{i}", None)
     rebuilt = settle_sync(m)  # a region may have outgrown the table
-    TM.launches = 0
+    reset_counts()
     drive(2, "delta")
-    if TM.launches <= 0 or m.host_fallbacks != fb0:
-        fail("delta phase: kernel not launched or host fallbacks")
+    delta_counts = forward_counts("delta")
+    if m.host_fallbacks != fb0:
+        fail("delta phase: host fallbacks")
     print(f"[delta] -{DELTA}/+{DELTA} subscriptions synced ({rebuilt} "
-          f"background rebuilds); parity exact, tile launches "
-          f"{TM.launches}", flush=True)
+          f"background rebuilds); parity exact, tile / extraction launches "
+          f"{delta_counts[0]} / {delta_counts[1]}", flush=True)
 
     # -------------------------------------------------------------- timing
     topics = zipf_topics(rng, pools, BATCH)
@@ -3864,9 +4063,12 @@ def main() -> int:
     pl, pd = cuda(args[1]), cuda(args[2]).to(torch.int32)
     launched_kp.add(TM.padded_k(F_t.shape[0]))
     probes = []
-    for name, sel, start, seg, wild in (
-            ("A", args[4], args[5], statics["seg_max"], False),
-            ("B", args[6], args[7], statics["seg2_max"], True)):
+    uses = []  # the batch's extractions: (name, packed mask, rows, ok)
+    for name, sel, start, seg, wild, tile, pos in (
+            ("A", args[4], args[5], statics["seg_max"], False, args[8],
+             args[9]),
+            ("B", args[6], args[7], statics["seg2_max"], True, args[10],
+             args[11])):
         if not seg:
             continue
         inputs = (F_t, t1d, eff, flags,
@@ -3878,6 +4080,10 @@ def main() -> int:
         if mask_diff(got, want):
             fail(f"kernel disagrees with its plain version on path probe "
                  f"{name}")
+        tile = cuda(tile)
+        uses.append((f"probe {name}", got.reshape(-1, got.shape[2]),
+                     tile.clamp(min=0) * sel.shape[1] + cuda(pos),
+                     tile >= 0))
         del got, want
         kernel_ms = event_ms(lambda: TM.window_tiles_packed(
             *inputs, **kw, start_host=start), 20)
@@ -3914,6 +4120,48 @@ def main() -> int:
           f"{sum(p['bmm_ms'] for p in probes):.3f} ms (the CUDA-core "
           f"kernel of the first slice, not timed here: {EARLIER_MS} ms)",
           flush=True)
+    uses.append(("dense region 0", TK._dense_region0_packed(
+        F_t, t1d, eff, hh, fw, act, cuda(args[0]), pl, cuda(args[2]),
+        id_bits=statics["id_bits"], glob_pad=statics["glob_pad"],
+        gc=statics["gc"]), None, None))
+    k = statics["k"]
+    ext = {}
+    for name, packed, rows, ok in uses:
+        kw = dict(rows=rows, ok=ok)
+        err = extract_diff(EX.extract_rows(packed, k, **kw),
+                           EX.extract_rows_ref(packed, k, **kw))
+        if err:
+            fail(f"extraction kernel disagrees with its plain version on "
+                 f"the path's {name} (max abs err {err})")
+        nbytes = extract_bytes(packed, None, k, rows, ok)
+        R = packed.shape[0] if rows is None else rows.shape[0]
+        ext[name] = dict(
+            ms=event_ms(lambda: EX.extract_rows(packed, k, **kw), 20),
+            graph_ms=graph_ms(lambda: EX.extract_rows(packed, k, **kw), 20),
+            plain_ms=event_ms(lambda: EX.extract_rows_ref(packed, k, **kw),
+                              3),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=err, rows=R, R0=packed.shape[0], W=packed.shape[1],
+            split=EX.split(R, packed.shape[1], False))
+        e = ext[name]
+        print(f"[time] {card} | extraction {name}: {R} rows of "
+              f"{tuple(packed.shape)} words, k {k}, {e['split']} warp(s) a "
+              f"row: kernel {e['ms']:.4f} ms ({e['graph_ms']:.4f} ms from a "
+              f"CUDA graph), its bound {e['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB by bytes; the graph's launch at "
+              f"{100 * e['bound_ms'] / e['graph_ms']:.1f}% of it), plain "
+              f"{e['plain_ms']:.3f} ms; idx where valid, valid and count "
+              f"bit-equal", flush=True)
+    del uses
+    torch.cuda.empty_cache()
+    ex_ms = sum(e["ms"] for e in ext.values())
+    ex_graph_ms = sum(e["graph_ms"] for e in ext.values())
+    print(f"[time] {card} | extraction per batch (probes A + B, dense region "
+          f"0): {ex_ms:.4f} ms by events, {ex_graph_ms:.4f} ms from a CUDA "
+          f"graph, bound {sum(e['bound_ms'] for e in ext.values()):.4f} ms, "
+          f"plain {sum(e['plain_ms'] for e in ext.values()):.3f} ms; "
+          f"{path_ex} launches in the {BATCHES} fold_batch batches",
+          flush=True)
     for kp in sorted(launched_kp):
         regs, st_b, ld_b = ptxas.get(kp, (None, None, None))
         print(f"[build] ptxas tile_match_kernel<KP={kp}> (launched): "
@@ -3926,7 +4174,8 @@ def main() -> int:
     flat_ms = event_ms(lambda: TK.match_extract_windowed_flat(
         F_t, t1d, eff, hh, fw, act, *host, **statics), 5)
     print(f"[time] {card} | device path per batch (dense region 0, both "
-          f"probes, extraction, flat compaction): {flat_ms:.2f} ms",
+          f"probes, extraction, flat compaction): {flat_ms:.2f} ms (with "
+          f"the plain extraction, an earlier run: {PATH_EARLIER_MS} ms)",
           flush=True)
     profile_device_path(torch, lambda: TK.match_extract_windowed_flat(
         F_t, t1d, eff, hh, fw, act, *host, **statics), card, flat_ms)
@@ -3940,8 +4189,9 @@ def main() -> int:
           f"{prep_ms:.2f} ms", flush=True)
 
     # ------------------------------------------------- the serving layer
-    burst_launches = phase_burst(view, m, trie, rng, pools, card)
-    churn_launches = phase_churn(view, m, trie, reg, rng, pools, card)
+    burst_launches, burst_ex = phase_burst(view, m, trie, rng, pools, card)
+    churn_launches, churn_ex = phase_churn(view, m, trie, reg, rng, pools,
+                                           card)
     phase_many(view, m, rng, pools, card)
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
@@ -4019,32 +4269,51 @@ def main() -> int:
                      f"retained batch; library_ms: the reference's coded "
                      f"dense product as one fp32 torch.matmul",
     }, {
-        "name": "reverse_extract",
+        "name": "extract",
         "route": "cuda",
-        "source": "vernemq_tpu_torch/csrc/reverse_match.cu",
+        "source": "vernemq_tpu_torch/csrc/extract.cu",
         "replaces": "vernemq_tpu/ops/match_kernel.py:225 (extract_indices_"
-                    "packed, as vernemq_tpu/ops/reverse_kernel.py:230 and "
-                    ":249 call it)",
-        "launches": ret["extract_launches"],
-        "replay_launches": replay_launches[1],
-        "max_abs_err": ret["extract_err"],
-        "ms": ret["extract_ms"],
-        "plain_ms": sum(p["extract_plain_ms"] for p in ret["per"].values()),
-        "bound_ms": sum(p["extract_bound_ms"] for p in ret["per"].values()),
+                    "packed, as vernemq_tpu/ops/pallas_match.py:172, "
+                    "match_kernel.py:531 and :556 and reverse_kernel.py:194, "
+                    ":224 and :269 call it)",
+        "launches": path_ex,
+        "launches_per_path": {
+            "path": path_ex, "burst": burst_ex, "churn": churn_ex,
+            "broker": broker["extract_launches"],
+            "cluster": cluster["node_extract_launches"],
+            "workers": workers["extract_launches"],
+            "retained": ret["extract_launches"],
+            "replay": replay_launches[1]},
+        "max_abs_err": max(extract_err, ret["extract_err"],
+                           max(e["max_abs_err"] for e in ext.values())),
+        "ms": ex_ms,
+        "graph_ms": ex_graph_ms,
+        "plain_ms": sum(e["plain_ms"] for e in ext.values()),
+        "bound_ms": sum(e["bound_ms"] for e in ext.values()),
         "bound_by": "bytes",
         "library_ms": None,
-        "design": "one warp per row, lane = chunk: 4 x 32 chunk counts "
-                  "in flight, a shuffle prefix, and each lane whose chunk "
-                  "holds one of the first k matches writes its bits",
-        "graph_ms": sum(p["extract_graph_ms"] for p in ret["per"].values()),
-        "per_launch": {n: {k: p[k] for k in ("extract_ms", "extract_graph_ms",
-                                             "extract_plain_ms",
-                                             "extract_bound_ms",
-                                             "extract_bytes",
-                                             "extract_err")}
-                       for n, p in ret["per"].items()},
-        "per_batch": f"probe + dense extraction of one {BATCH}-filter "
-                     f"retained batch",
+        "design": "lane = 256-column chunk, 4 groups of 32 chunks in flight "
+                  "a warp as 16-byte loads, popcounts and a shuffle scan; "
+                  "long rows split over up to 8 warps of a block with the "
+                  "spans' totals scanned in shared memory; the first k "
+                  "positions emitted in parallel (binary search over the "
+                  "group's word ranks, popcount select) and written "
+                  "coalesced; counts optional",
+        "per_use": {**{n: {k: e[k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bytes", "rows", "W",
+            "split", "max_abs_err")} for n, e in ext.items()},
+            **{f"retained {n}": {
+                "ms": p["extract_ms"], "graph_ms": p["extract_graph_ms"],
+                "plain_ms": p["extract_plain_ms"],
+                "bound_ms": p["extract_bound_ms"],
+                "bytes": p["extract_bytes"],
+                "max_abs_err": p["extract_err"]}
+               for n, p in ret["per"].items()}},
+        "ptxas": extract_ptxas,
+        "per_batch": f"probe A + probe B + dense region 0 extractions of one "
+                     f"{BATCH}-publish batch; per_use adds the retained "
+                     f"probe and dense extractions of one {BATCH}-filter "
+                     f"batch",
     }, {
         "name": "predicate_phase",
         "route": "cuda",

@@ -2,9 +2,11 @@
 and the device paths that only a card can show: match_many equal to K
 match_batch dispatches with no host sync between its launches, a kernel
 library that fails to build raising from the matcher, a kernel that faults
-on the card failing the collector's futures, the retained reverse match on
-the card equal to its plain path (both of its kernels: the compare and the
-two-level extraction), a refused reverse kernel failing the replay futures,
+on the card failing the collector's futures, the extraction kernel against
+its plain version at the main path's shapes and its edges, the forward
+windowed path equal to the same call with the plain extraction, the
+retained reverse match on the card equal to its plain path (the compare
+kernel and the extraction over its chunk counts), a refused reverse kernel failing the replay futures,
 and the retained index's warm first build.
 
 Marked ``cuda``: without a card every test skips (a kernel has no CPU
@@ -31,6 +33,7 @@ from _torch_port import (EDGE_IDS, UNKNOWN_ID, bucket_corpus, bucket_topics,
 from vernemq_tpu_torch.models import matcher as GM
 from vernemq_tpu_torch.models.trie import SubscriptionTrie
 from vernemq_tpu_torch.ops import _build
+from vernemq_tpu_torch.ops import extract as EX
 from vernemq_tpu_torch.ops import match_kernel as TK
 from vernemq_tpu_torch.ops import reverse_kernel as TR
 from vernemq_tpu_torch.ops import reverse_tiles as RT
@@ -667,7 +670,7 @@ def test_extraction_kernel_matches_plain_version(k):
         0, len(m), 300)]).astype(np.int32))
     ok = _cuda(rng.random(rows.shape[0]) < 0.9)
     RT.extract_chunks(packed, counts, k, rows=rows, ok=ok)  # build
-    before = RT.extract_launches
+    before = EX.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         gi, gv, gc = RT.extract_chunks(packed, counts, k, rows=rows, ok=ok)
@@ -675,7 +678,7 @@ def test_extraction_kernel_matches_plain_version(k):
         torch.cuda.set_sync_debug_mode("default")
     wi, wv, wc = RT.extract_chunks_ref(packed, counts, k, rows=rows, ok=ok)
     torch.cuda.synchronize()
-    assert RT.extract_launches == before + 1
+    assert EX.launches == before + 1
     assert torch.equal(gc, wc) and torch.equal(gv, wv)
     assert torch.equal(gi[gv], wi[wv]) and not gi[~gv].any()
     r, o = rows.cpu().numpy(), ok.cpu().numpy()
@@ -697,6 +700,118 @@ def test_extraction_kernel_rejects_what_it_cannot_take():
         RT.extract_chunks(packed, counts, 8, rows=rows, ok=ok.int())
     with pytest.raises(TM.KernelInputError, match="chunks of the packed"):
         RT.extract_chunks(packed, counts[:, :3], 8, rows=rows, ok=ok)
+
+
+# (label, R0, W, k, with counts, R): the headline's forward probes A / B
+# and dense region 0 (rows cut, widths kept; probe A split over warps and
+# one warp a row), the retained dense (4,136 chunks a row) and probe
+# launches, then the edges — a row too long to split, ragged widths (a last
+# chunk under 8 words), one row, k = 1
+EXTRACT_SHAPES = [
+    ("probe A", 96, 8192, 256, False, 300),
+    ("probe A, one warp a row", 96, 8192, 256, False, 2100),
+    ("long row", 8, 16384, 256, False, 8),
+    ("probe B", 256, 1024, 256, False, 300),
+    ("dense region 0", 512, 64, 256, False, None),
+    ("retained dense", 24, 4136 * 8, 256, True, 24),
+    ("retained probe", 256, 64, 64, True, 300),
+    ("ragged", 40, 61, 16, False, 50),
+    ("ragged, one word", 8, 1, 8, False, 8),
+    ("one row", 4, 8192, 256, False, 1),
+    ("one row, counts", 4, 8192, 256, True, 1),
+    ("k = 1", 64, 1024, 1, False, 64),
+    ("k = 1, counts", 64, 1024, 1, True, 64),
+]
+
+
+def _extract_case(seed, R0, W, R):
+    """A packed mask of R0 rows at mixed densities with an empty row and an
+    all-ones row, and R selected rows (repeats, out of order, the two edge
+    rows first) with about a tenth of them dead; None selects every row."""
+    rng = np.random.default_rng(seed)
+    dens = rng.choice([0.0, 0.0005, 0.01, 0.3, 1.0], R0)
+    keep = rng.random((R0, W * 32)) < dens[:, None]
+    words = (keep.reshape(R0, W, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    words[0] = 0
+    words[-1] = 0xFFFFFFFF
+    packed = _cuda(words.astype(np.uint32).view(np.int32))
+    if R is None:
+        return packed, None, None
+    rows = rng.integers(0, R0, R).astype(np.int32)
+    rows[:2] = [R0 - 1, 0][:R]
+    ok = rng.random(R) < 0.9
+    ok[:2] = True
+    return packed, _cuda(rows), _cuda(ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,R0,W,k,with_counts,R", EXTRACT_SHAPES,
+                         ids=[e[0] for e in EXTRACT_SHAPES])
+def test_extract_kernel_matches_plain_version(label, R0, W, k, with_counts,
+                                              R):
+    """The extraction kernel equals its plain version bit for bit (idx,
+    0 past the count, valid, count), launches once and waits for nothing
+    on the host."""
+    _card()
+    packed, rows, ok = _extract_case(len(label), R0, W, R)
+    counts = RT.chunk_counts(packed) if with_counts else None
+    kw = dict(rows=rows, ok=ok, counts=counts)
+    EX.extract_rows(packed, k, **kw)  # build
+    before = EX.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = EX.extract_rows(packed, k, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = EX.extract_rows_ref(packed, k, **kw)
+    torch.cuda.synchronize()
+    assert EX.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), label
+    count = got[2]
+    assert (count > k).any() and (R == 1 or (count == 0).any())
+
+
+@pytest.mark.cuda
+def test_extract_rows_rejects_what_it_cannot_take():
+    _card()
+    packed, rows, ok = _extract_case(3, 16, 64, 16)
+    with pytest.raises(TM.KernelInputError, match="contiguous 2-D int32"):
+        EX.extract_rows(packed.t(), 8, rows=rows, ok=ok)
+    with pytest.raises(TM.KernelInputError, match="rows must be"):
+        EX.extract_rows(packed, 8, rows=rows.cpu(), ok=ok)
+    with pytest.raises(TM.KernelInputError, match="one length"):
+        EX.extract_rows(packed, 8, rows=rows, ok=ok[:3])
+    with pytest.raises(TM.KernelInputError, match="k > 0"):
+        EX.extract_rows(packed, 0, rows=rows, ok=ok)
+    with pytest.raises(TM.KernelInputError, match="chunks of the packed"):
+        EX.extract_rows(packed[:, :60].contiguous(), 8,
+                        counts=RT.chunk_counts(packed))
+
+
+@pytest.mark.cuda
+def test_windowed_flat_on_card_equals_the_plain_extraction(monkeypatch):
+    """The forward device path (dense region 0, probes A and B, flat
+    compaction) through the extraction kernel equals, element for
+    element, the same call with the plain extraction; it launched the
+    kernel once per zone."""
+    _card()
+    m, _, args, statics, table = _many_inputs(K=1, n=256)
+    a = args[0]
+    host = [_cuda(x) for x in a[:3]] + [int(a[3]), _cuda(a[4]), a[5],
+                                        _cuda(a[6]), a[7]] \
+        + [_cuda(x) for x in a[8:]]
+    before = EX.launches
+    got = TK.match_extract_windowed_flat(*table, *host, **statics)
+    launched = EX.launches - before
+    monkeypatch.setattr(EX, "extract_rows", EX.extract_rows_ref)
+    want = TK.match_extract_windowed_flat(*table, *host, **statics)
+    assert launched == (3 if statics["seg2_max"] else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) > 100  # not vacuous
 
 
 @pytest.mark.cuda
@@ -727,11 +842,11 @@ def test_reverse_match_on_card_equals_the_plain_path(TP):
     cpu = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     want = TR.reverse_match(*map(cpu, arrs), t_start, *map(cpu, tail),
                             k=64, seg=seg, lc=4)
-    before, ex_before = RT.launches, RT.extract_launches
+    before, ex_before = RT.launches, EX.launches
     got = TR.reverse_match(*map(_cuda, arrs), t_start, *map(_cuda, tail),
                            k=64, seg=seg, lc=4)
     assert RT.launches == before + 2  # the probe and the dense phase
-    assert RT.extract_launches == ex_before + 2
+    assert EX.launches == ex_before + 2
     got = [g.cpu().numpy() for g in got]
     want = [w.numpy() for w in want]
     for (gi, gv, gc), (wi, wv, wc) in ((got[:3], want[:3]),

@@ -82,20 +82,23 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
 def test_engine_kernel_libraries_bind_in_a_fresh_process():
     """The match and retained engines' ``load_kernels(KERNEL_LIBS)`` finds
     each library's ``ctypes`` binder in a process that has imported only
-    the engine (a broker process starting on the card loads them at
-    boot): in a fresh interpreter, no binder before the import, each
-    engine library's after it."""
-    code = (
-        "import sys\n"
-        f"sys.path.insert(0, {str(ROOT)!r})\n"
-        "from vernemq_tpu_torch.ops import _build as B\n"
-        "assert not B._binders, B._binders\n"
-        "from vernemq_tpu_torch.models import matcher\n"
-        "from vernemq_tpu_torch.retained import index\n"
-        "libs = matcher.KERNEL_LIBS + index.KERNEL_LIBS\n"
-        "assert all(n in B._binders for n in libs), (libs, B._binders)\n"
-        "print(' '.join(sorted(libs)))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["reverse_match", "tile_match"]
+    that engine (a broker process starting on the card loads them at
+    boot): in a fresh interpreter per engine, no binder before the import,
+    each of the engine's libraries after it — the extraction kernel's from
+    either engine alone."""
+    libs = {}
+    for engine in ("models.matcher", "retained.index"):
+        code = (
+            "import sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "from vernemq_tpu_torch.ops import _build as B\n"
+            "assert not B._binders, B._binders\n"
+            f"from vernemq_tpu_torch.{engine} import KERNEL_LIBS as libs\n"
+            "assert all(n in B._binders for n in libs), (libs, B._binders)\n"
+            "print(' '.join(sorted(libs)))\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        libs[engine] = out.stdout.split()
+    assert libs == {"models.matcher": ["extract", "tile_match"],
+                    "retained.index": ["extract", "reverse_match"]}

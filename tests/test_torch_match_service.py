@@ -219,6 +219,30 @@ def test_stats_block_slots_roundtrip():
         stats.unlink()
 
 
+def test_stats_block_carries_the_service_kernel_launches():
+    """The port's service header fields beside the reference's layout: the
+    service's tile and extraction launches and plain extractions on the
+    card, written by one aligned store and read back, with the service
+    info and the hist/event widths untouched."""
+    stats = WorkerStatsBlock.create(_name("sl"), 2)
+    try:
+        assert stats.service_launches() == {"tile": 0, "extract": 0,
+                                            "plain": 0}
+        stats.set_service(5, 99)
+        stats.set_service_device(1, 2, 3)
+        widths = stats._buf[120:128].tobytes()
+        stats.set_service_launches(2 ** 40, 7, 0)
+        assert stats.service_launches() == {"tile": 2 ** 40, "extract": 7,
+                                            "plain": 0}
+        svc = stats.service_info()
+        assert (svc["epoch"], svc["pid"], svc["host_pubs"],
+                svc["fold_errors"], svc["device_batches"]) == (5, 99, 1, 2, 3)
+        assert stats._buf[120:128].tobytes() == widths
+    finally:
+        stats.close()
+        stats.unlink()
+
+
 def test_peer_pressure_ignores_self_and_stale():
     stats = WorkerStatsBlock.create(_name("pp"), 3)
     try:

@@ -38,6 +38,7 @@ from vernemq_tpu.robustness import faults as JF
 from vernemq_tpu.robustness.breaker import CircuitBreaker as RefBreaker
 from vernemq_tpu_torch.broker.retain import RetainStore
 from vernemq_tpu_torch.models import matcher as GM
+from vernemq_tpu_torch.ops import extract as EX
 from vernemq_tpu_torch.ops import reverse_kernel as TR
 from vernemq_tpu_torch.ops import reverse_tiles as RT
 from vernemq_tpu_torch.ops.tile_match import KernelError
@@ -270,10 +271,10 @@ def test_two_level_extraction_equals_both_references(k):
     assert (got[2] > k).any() and got[2][8] == 0 and got[1][9, 0]
     rows = torch.tensor([11, 3, 9, 3, 0], dtype=torch.int32)
     ok = torch.tensor([True, True, False, True, True])
-    before = RT.extract_launches
+    before = EX.launches
     idx, valid, cnt = [n(x) for x in RT.extract_chunks(pt, counts, k,
                                                         rows=rows, ok=ok)]
-    assert RT.extract_launches == before  # the CPU takes the plain version
+    assert EX.launches == before  # the CPU takes the plain version
     for i, (r, live) in enumerate(zip(rows.tolist(), ok.tolist())):
         if not live:
             assert cnt[i] == 0 and not valid[i].any()

@@ -67,6 +67,9 @@ from typing import Any, Deque, Dict, Iterable, List, Optional, Sequence, \
 
 from ..models.trie import SubscriptionTrie
 from ..models.matcher import DeviceDegraded
+from ..ops import extract as EX
+from ..ops import match_kernel as MK
+from ..ops import tile_match as TM
 from ..ops.tile_match import KernelError
 from ..observability import events as _events
 from ..observability import histogram as obs
@@ -399,6 +402,8 @@ class MatchService:
                    if self._view is not None else 0)
         self.stats.set_service_device(self.host_served(), self.fold_errors,
                                       batches)
+        self.stats.set_service_launches(TM.launches, EX.launches,
+                                        MK.plain_cuda_extractions)
         # the device-side stage histograms (dispatch/delta/rebuild/
         # collector wait) live in THIS process; publishing the packed
         # block is the only way they reach a worker's scrape endpoint

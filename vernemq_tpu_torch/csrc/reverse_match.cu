@@ -50,28 +50,11 @@
 //   a 16-byte shared load for the length words: ~9 instructions.
 // - Each lane ORs its verdicts into its own word (32 rows), counts the word
 //   into its chunk count, and parks both in shared memory; the span leaves
-//   as 128-byte rows of words per slot and 16-byte rows of counts.
+//   as 128-byte rows of words per slot and 16-byte rows of counts, which
+//   the extraction kernel (csrc/extract.cu) reads as its chunk counts.
 // - Bounds: the wrapper checks start + seg <= N on the host starts; rows
 //   past N still read as inactive here and selectors >= B are clamped into
 //   the query block, so a bad argument cannot read outside its arrays.
-//
-// Second kernel: the two-level extraction over those counts
-// (reverse_extract_kernel; plain version reverse_tiles.extract_chunks_ref).
-// It replaces the reference's extract_indices_packed (vernemq_tpu/ops/
-// match_kernel.py:225, as reverse_kernel.py:230 and :249 call it). In plain
-// PyTorch the two levels take 11-14 ms per storm batch on one H100, over 50
-// times the compare launches: a gather of k chunks of words per row and a
-// few dozen small launches.
-// What bounds it: bytes, a few MB (the rows' counts, the words of the
-// chunks that hold each row's first k matches, the [R, k] outputs), and
-// the latency of the loads that depend on the counts. One warp per output
-// row, lane = chunk: the warp loads 4 x 32 chunk counts at once, takes
-// their exclusive prefix sums by shuffles, then each lane that owns a chunk
-// holding one of the first k matches loads its 8 words (two 16-byte loads,
-// all groups' loads in flight together) and writes their set bits'
-// positions from its chunk's offset on. Past the first k matches only a
-// sum of the remaining counts is left. Positions past the count are
-// written 0 and not valid.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -268,121 +251,7 @@ int launch(const void* row_words, const void* meta, const void* q_words,
     return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-    }
-    return x;
-}
-
-constexpr int kWordsPerChunk = kChunk / 32;   // 8: two 16-byte loads
-constexpr int kGroups = 4;                     // 32-chunk groups in flight
-
-__global__ void __launch_bounds__(256)
-reverse_extract_kernel(const int* __restrict__ packed,
-                       const int* __restrict__ counts,
-                       const int* __restrict__ rows,
-                       const unsigned char* __restrict__ ok,
-                       int* __restrict__ idx,
-                       unsigned char* __restrict__ valid,
-                       int* __restrict__ cnt,
-                       int R, int R0, int W, int nb, int k) {
-    const int r = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-    const int lane = threadIdx.x & 31;
-    if (r >= R) return;   // whole warps: R rows of 32 lanes
-    int src = rows[r];
-    src = src < 0 ? 0 : (src >= R0 ? R0 - 1 : src);
-    const int* crow = counts + (size_t)src * nb;
-    const int* prow = packed + (size_t)src * W;
-    int* irow = idx + (size_t)r * k;
-    int total = 0;   // matches in the chunks before b0
-    int b0 = 0;
-    if (ok[r]) {
-        // kGroups groups of 32 chunks at a time: their counts and the
-        // words of every chunk that holds one of the first k matches are
-        // loaded before any is used, so one load latency serves them all
-        for (; b0 < nb && total < k; b0 += 32 * kGroups) {
-            int c[kGroups], ex[kGroups];
-#pragma unroll
-            for (int g = 0; g < kGroups; ++g) {
-                const int b = b0 + 32 * g + lane;
-                c[g] = b < nb ? __ldg(crow + b) : 0;
-            }
-#pragma unroll
-            for (int g = 0; g < kGroups; ++g) {
-                const int incl = warp_inclusive_sum(c[g], lane);
-                ex[g] = total + incl - c[g];
-                total += __shfl_sync(0xffffffffu, incl, 31);
-            }
-            int4 wv[kGroups][2];
-#pragma unroll
-            for (int g = 0; g < kGroups; ++g) {
-                wv[g][0] = wv[g][1] = make_int4(0, 0, 0, 0);
-                if (c[g] > 0 && ex[g] < k) {
-                    const int4* src4 = reinterpret_cast<const int4*>(
-                        prow + (size_t)(b0 + 32 * g + lane) * kWordsPerChunk);
-                    wv[g][0] = __ldg(src4);
-                    wv[g][1] = __ldg(src4 + 1);
-                }
-            }
-#pragma unroll
-            for (int g = 0; g < kGroups; ++g) {
-                if (!(c[g] > 0 && ex[g] < k)) continue;
-                const int w[kWordsPerChunk] = {
-                    wv[g][0].x, wv[g][0].y, wv[g][0].z, wv[g][0].w,
-                    wv[g][1].x, wv[g][1].y, wv[g][1].z, wv[g][1].w};
-                int p = ex[g];
-                const int base = (b0 + 32 * g + lane) * kChunk;
-#pragma unroll
-                for (int i = 0; i < kWordsPerChunk; ++i) {
-                    unsigned word = (unsigned)w[i];
-                    while (word && p < k) {
-                        irow[p++] = base + i * 32 + __ffs(word) - 1;
-                        word &= word - 1;
-                    }
-                }
-            }
-        }
-        // past the first k matches only the count is left: a sum
-        int rest = 0;
-        for (int b = b0 + lane; b < nb; b += 32) rest += __ldg(crow + b);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            rest += __shfl_xor_sync(0xffffffffu, rest, o);
-        total += rest;
-    }
-    if (lane == 0) cnt[r] = total;
-    unsigned char* vrow = valid + (size_t)r * k;
-    for (int j = lane; j < k; j += 32) {
-        vrow[j] = j < total;
-        if (j >= total) irow[j] = 0;
-    }
-}
-
 }  // namespace
-
-extern "C" int reverse_extract_launch(const void* packed, const void* counts,
-                                      const void* rows, const void* ok,
-                                      void* idx, void* valid, void* cnt,
-                                      int R, int R0, int W, int nb, int k,
-                                      void* stream) {
-    if (R <= 0 || R0 <= 0 || nb <= 0 || W != nb * kWordsPerChunk || k <= 0
-        || reinterpret_cast<uintptr_t>(packed) % 16)
-        return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    const long long blocks = ((long long)R * 32 + threads - 1) / threads;
-    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-    reverse_extract_kernel<<<(unsigned)blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(packed), static_cast<const int*>(counts),
-        static_cast<const int*>(rows),
-        static_cast<const unsigned char*>(ok), static_cast<int*>(idx),
-        static_cast<unsigned char*>(valid), static_cast<int*>(cnt), R, R0, W,
-        nb, k);
-    return (int)cudaGetLastError();
-}
 
 // Dynamic shared memory of one compare block: the lc template's staged
 // rows, their length words, and the words and counts of TP slots.

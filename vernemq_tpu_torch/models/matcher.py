@@ -46,6 +46,8 @@ from ..device import DeviceLike, resolve_device
 from ..observability import histogram as obs
 from ..observability.profiler import record_dispatch
 from ..ops import _build
+# imported for its binder: load_kernels(KERNEL_LIBS) loads its library
+from ..ops import extract  # noqa: F401
 from ..ops import match_kernel as K
 from ..ops import tile_match as TM
 from ..robustness import faults
@@ -69,7 +71,7 @@ FAIR_MULT = 2    # window width vs per-tile fair share of the zone
 
 #: the kernel libraries (``ops/_build.py`` names) the CUDA match path
 #: launches
-KERNEL_LIBS = ("tile_match",)
+KERNEL_LIBS = ("tile_match", "extract")
 
 
 def load_kernels(device: torch.device, names=KERNEL_LIBS) -> None:

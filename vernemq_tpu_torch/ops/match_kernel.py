@@ -12,9 +12,10 @@ eff_len`` without ``#``, ``>= eff_len`` with it) and the ``$``-rule holds —
 The windowed production path (:func:`match_extract_windowed_flat`) matches
 three zones: region 0 densely (:func:`_dense_region0`, a float32
 ``torch.matmul``), and the probe-A / probe-B windows through the hand
-kernel in ``ops/tile_match.py``. Results are compacted on the device into
-one flat buffer. Every function here runs on whatever device its tensors
-are on; nothing falls back to another device.
+kernel in ``ops/tile_match.py``. Each zone's first k matches per publish
+come from the extraction kernel (``ops/extract.py``), and the results are
+compacted on the device into one flat buffer. Every function here runs on
+whatever device its tensors are on; nothing falls back to another device.
 """
 
 from __future__ import annotations
@@ -119,6 +120,13 @@ def _select_bit(word: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+#: calls of a plain extraction (:func:`extract_indices_packed`,
+#: ``reverse_tiles.extract_chunks_ref``) on CUDA tensors: every device path
+#: extracts through the kernel (``ops/extract.py``), so a run that resets it
+#: reads 0 unless something compared the kernel with its plain version
+plain_cuda_extractions = 0
+
+
 def extract_indices_packed(packed: torch.Tensor, k: int) -> Parts:
     """Sort-free compaction of a bit-packed mask (``[R, W]`` int32) into
     the first ``k`` set positions of each row.
@@ -130,6 +138,8 @@ def extract_indices_packed(packed: torch.Tensor, k: int) -> Parts:
     Returns ``(idx [R, k] int32, valid [R, k] bool, count [R] int32)``;
     ``idx`` is meaningful only where ``valid``, and ``count`` may exceed k.
     """
+    global plain_cuda_extractions
+    plain_cuda_extractions += packed.is_cuda
     R, W = packed.shape
     dev = packed.device
     cum = _popcount(packed).cumsum(dim=1, dtype=torch.int32)  # inclusive
@@ -185,11 +195,12 @@ def _epilogue(pub_len, pub_dollar, eff, hh, fw, act) -> torch.Tensor:
     return len_ok & ~(pub_dollar[:, None] & fw[None, :]) & act[None, :]
 
 
-def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
-                   pub_words, pub_len, pub_dollar, *, id_bits, k, glob_pad,
-                   gc) -> Parts:
-    """Every publish against region 0 (filters whose first two levels are
-    wildcards), in ``gc`` publish chunks.
+def _dense_region0_packed(F_t, t1, sub_eff_len, has_hash, first_wild,
+                          active, pub_words, pub_len, pub_dollar, *, id_bits,
+                          glob_pad, gc) -> torch.Tensor:
+    """The packed mask ``int32 [B, glob_pad/32]`` of every publish against
+    region 0 (filters whose first two levels are wildcards), made in
+    ``gc`` publish chunks.
 
     The product runs in float32 on operands upcast from bf16: a bf16
     ``matmul`` returns bf16, which would round ``G@F`` before ``t1`` is
@@ -201,26 +212,27 @@ def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
     t10 = t1[:glob_pad]
     ep = (sub_eff_len[:glob_pad], has_hash[:glob_pad],
           first_wild[:glob_pad], active[:glob_pad])
-    outs = []
+    packs = []
     for c in range(0, B, gc):
         sl = slice(c, c + gc)
         G = build_pub_operand(pub_words[sl], id_bits).to(torch.float32)
         mm = G @ F0 + t10
         m = (mm == 0.0) & _epilogue(pub_len[sl], pub_dollar[sl], *ep)
-        outs.append(extract_indices_packed(_pack_mask(m), k))
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+        packs.append(_pack_mask(m))
+    return packs[0] if len(packs) == 1 else torch.cat(packs)
 
 
-def _gather_parts(tidx, tvalid, tcount, tile, pos) -> Parts:
-    """Tile results back to publish order: publish i's probe result is tile
-    ``tile[i]`` slot ``pos[i]`` (``tile < 0``: no window in this probe)."""
-    ok = tile >= 0
-    tt = tile.clamp(min=0).long()
-    pp = pos.long()
-    idx = tidx[tt, pp]
-    valid = tvalid[tt, pp] & ok[:, None]
-    cnt = torch.where(ok, tcount[tt, pp], 0)
-    return idx, valid, cnt
+def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                   pub_words, pub_len, pub_dollar, *, id_bits, k, glob_pad,
+                   gc) -> Parts:
+    """Every publish against region 0: its packed mask
+    (:func:`_dense_region0_packed`), then one extraction of the first ``k``
+    matches of every row (``extract.extract_rows``)."""
+    from .extract import extract_rows
+
+    return extract_rows(_dense_region0_packed(
+        F_t, t1, sub_eff_len, has_hash, first_wild, active, pub_words,
+        pub_len, pub_dollar, id_bits=id_bits, glob_pad=glob_pad, gc=gc), k)
 
 
 def _flat_combine(real, k, C, g: Parts, a: Parts, b: Parts):
@@ -285,17 +297,13 @@ def match_extract_windowed_flat(
     pd = pub_dollar.to(torch.int32)
     probe = dict(k=k, glob_pad=glob_pad)
     a_dev, b_dev = starts_dev if starts_dev is not None else (None, None)
-    a = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
-                                    pub_len, pd, t_sel, t_start,
-                                    seg_max=seg_max, wild_rows=False,
-                                    start_dev=a_dev, **probe),
-                      a_tile, a_pos)
+    a = _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pd, t_sel,
+                     t_start, a_tile, a_pos, seg_max=seg_max,
+                     wild_rows=False, start_dev=a_dev, **probe)
     if seg2_max:
-        b = _gather_parts(*_probe_tiles(F_t, t1, sub_eff_len, flags, G_all,
-                                        pub_len, pd, t2_sel, t2_start,
-                                        seg_max=seg2_max, wild_rows=True,
-                                        start_dev=b_dev, **probe),
-                          b_tile, b_pos)
+        b = _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pd,
+                         t2_sel, t2_start, b_tile, b_pos, seg_max=seg2_max,
+                         wild_rows=True, start_dev=b_dev, **probe)
     else:
         dev = pub_words.device
         b = (torch.zeros((B, k), dtype=torch.int32, device=dev),

@@ -29,9 +29,9 @@ keeps no ``G_t`` on the device. The reference's own tests hold the two
 dense variants bit-identical.
 
 Extraction is two-level over the kernel's chunk counts, as the reference's
-``extract_indices_packed`` works over its block counts, and is the second
-hand kernel of the same source (``reverse_tiles.extract_chunks``): no pass
-over the full-width packed mask.
+``extract_indices_packed`` works over its block counts, through the one
+extraction kernel (``reverse_tiles.extract_chunks`` → ``ops/extract.py``,
+``csrc/extract.cu``): no pass over the full-width packed mask.
 """
 
 from __future__ import annotations
@@ -207,7 +207,7 @@ def reverse_match(row_words, meta, q_words, q_eff, q_hh, q_fw, t_sel,
     """One reverse-match dispatch: the probe tiles and the dense phase, both
     through the compare kernel (``reverse_tiles.reverse_tiles_packed``),
     each extracted in two levels over the kernel's chunk counts
-    (``reverse_tiles.extract_chunks``).
+    (``reverse_tiles.extract_chunks``, the extraction kernel).
 
     ``t_sel [T, TP]`` selects each probe tile's queries (negative: an empty
     slot). ``t_start`` holds the probe windows' start rows on the HOST

@@ -27,12 +27,12 @@ of the whole table.
 - :func:`reverse_tiles_packed_ref` is the plain version; the wrapper takes
   it for tensors on the CPU only.
 
-The same source holds the second kernel, the two-level extraction over
-the chunk counts (:func:`extract_chunks`, plain version
-:func:`extract_chunks_ref`).
+The extraction over those counts is :func:`extract_chunks`, a call of the
+one extraction kernel (``ops/extract.py``, ``csrc/extract.cu``) with the
+counts; :func:`extract_chunks_ref` is its plain version.
 
-``launches`` counts compare-kernel launches and ``extract_launches``
-extraction-kernel launches (reset them to read one run's count).
+``launches`` counts compare-kernel launches (reset it to read one run's
+count); the extraction kernel counts its own in ``extract.launches``.
 """
 
 from __future__ import annotations
@@ -43,13 +43,14 @@ import numpy as np
 import torch
 
 from . import _build
+from . import match_kernel as MK
+from .extract import extract_rows
 from .match_kernel import _pack_mask, _popcount, _select_bit
 from .reverse_kernel import (CHUNK, MAX_TILE, TILE_QUERIES, _tile_masks,
                              _unpack_row_meta)
 from .tile_match import KernelError, KernelInputError
 
 launches = 0
-extract_launches = 0
 
 MAX_LC = 32  # deepest level compare compiled
 
@@ -177,6 +178,7 @@ def extract_chunks_ref(packed: torch.Tensor, counts: torch.Tensor, k: int,
     nb = counts.shape[1]
     wpb = W // nb
     dev = packed.device
+    MK.plain_cuda_extractions += packed.is_cuda
     rows = rows.long()
     R = rows.shape[0]
     cnt = counts.index_select(0, rows) * ok[:, None].to(torch.int32)
@@ -204,59 +206,15 @@ def extract_chunks(packed, counts, k: int, *, rows, ok):
     packed mask ``[R0, W]``) with liveness ``ok`` (bool ``[R]``) over the
     chunk counts ``[R0, nb]``: ``(idx [R, k] int32, valid [R, k] bool,
     count [R] int32)``, as :func:`extract_chunks_ref`. On CUDA it launches
-    the extraction kernel (``idx`` is 0 where not valid) and raises on what
-    it cannot take; on the CPU it takes the plain version."""
-    global extract_launches
-    dev = packed.device
-    R0, W = packed.shape
-    nb = counts.shape[1] if counts.dim() == 2 else 0
-    R = rows.shape[0]
-    if tuple(counts.shape) != (R0, nb) or nb <= 0 or W != nb * CHUNK // 32 \
-            or k <= 0:
-        raise KernelInputError(
-            f"extract_chunks: counts {tuple(counts.shape)} are not the "
-            f"{CHUNK}-row chunks of the packed mask {tuple(packed.shape)} "
-            f"(k={k})")
-    if dev.type == "cpu":
-        return extract_chunks_ref(packed, counts, k, rows=rows, ok=ok)
-    if dev.type != "cuda":
-        raise KernelInputError(f"extract_chunks: unsupported device {dev}")
-    _check("packed", packed, (R0, W), dev)
-    _check("counts", counts, (R0, nb), dev)
-    _check("rows", rows, (R,), dev)
-    if packed.data_ptr() % 16:
-        raise KernelInputError("extract_chunks: packed must be 16-byte "
-                               "aligned")
-    if ok.device != dev or ok.dtype != torch.bool or tuple(ok.shape) != (R,) \
-            or not ok.is_contiguous() or R <= 0:
-        raise KernelInputError(
-            f"extract_chunks: ok must be a contiguous bool tensor of shape "
-            f"({R},) on {dev}; got {ok.dtype} {tuple(ok.shape)} on "
-            f"{ok.device}")
-    idx = torch.empty((R, k), dtype=torch.int32, device=dev)
-    valid = torch.empty((R, k), dtype=torch.bool, device=dev)
-    count = torch.empty(R, dtype=torch.int32, device=dev)
-    lib = _build.load("reverse_match")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.reverse_extract_launch(
-            packed.data_ptr(), counts.data_ptr(), rows.data_ptr(),
-            ok.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-            count.data_ptr(), R, R0, W, nb, k, stream)
-    if rc != 0:
-        raise KernelError(
-            f"reverse_extract kernel launch failed: CUDA error {rc}")
-    extract_launches += 1
-    return idx, valid, count
+    the extraction kernel with the counts (``idx`` is 0 where not valid)
+    and raises on what it cannot take; on the CPU it takes the plain
+    version."""
+    return extract_rows(packed, k, rows=rows, ok=ok, counts=counts)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.reverse_match_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.reverse_extract_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.reverse_match_smem_bytes

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .match_kernel import _pack_mask, extract_indices_packed
+from .match_kernel import _pack_mask
 
 launches = 0
 
@@ -229,16 +229,21 @@ def tile_operands(G_all, pub_len, pub_dollar, t_sel):
 
 
 def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
-                 t_sel, start_host, *, k: int, seg_max: int, glob_pad: int,
-                 wild_rows: bool, start_dev=None):
+                 t_sel, start_host, tile, pos, *, k: int, seg_max: int,
+                 glob_pad: int, wild_rows: bool, start_dev=None):
     """One probe (A or B): gather the tile publishes' operands, run the
-    tile matcher, extract the first ``k`` matches of every tile row and
-    make them absolute slot ids. ``start_host`` holds the window starts on
-    the host (numpy or a CPU tensor): the bounds are checked there.
-    ``start_dev`` is the same starts already on the device (a view of a
-    staged block); without it the host copy is uploaded, without waiting.
-    Returns ``(tidx [T, TP, k], tvalid, tcount [T, TP])`` — the contract
-    of the reference's ``_probe_pallas`` / ``_window_tiles_sel``."""
+    tile matcher, extract the first ``k`` matches of each publish's own
+    tile row and make them absolute slot ids. Publish i's row is tile
+    ``tile[i]`` slot ``pos[i]`` (``tile < 0``: no window in this probe, a
+    dead row). ``start_host`` holds the window starts on the host (numpy
+    or a CPU tensor): the bounds are checked there. ``start_dev`` is the
+    same starts already on the device (a view of a staged block); without
+    it the host copy is uploaded, without waiting.
+    Returns ``(idx [B, k], valid, count [B])`` in publish order — the
+    reference's ``_probe_pallas`` / ``_window_tiles_sel`` results gathered
+    by ``_gather_parts`` (it extracts every tile row, then gathers)."""
+    from .extract import extract_rows
+
     T, TP = t_sel.shape
     t_start = start_dev if start_dev is not None else torch.as_tensor(
         np.asarray(start_host, np.int32)).to(F_t.device, non_blocking=True)
@@ -246,6 +251,8 @@ def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
     packed = window_tiles_packed(F_t, t1, sub_eff_len, flags, Gt, plt, pdt,
                                  t_start, seg_max=seg_max, glob_pad=glob_pad,
                                  wild_rows=wild_rows, start_host=start_host)
-    idx, valid, cnt = extract_indices_packed(packed.reshape(T * TP, -1), k)
-    idx = idx.reshape(T, TP, k) + t_start[:, None, None]
-    return idx, valid.reshape(T, TP, k), cnt.reshape(T, TP)
+    tt = tile.clamp(min=0).to(torch.int32)
+    idx, valid, cnt = extract_rows(
+        packed.reshape(T * TP, -1), k, rows=tt * TP + pos.to(torch.int32),
+        ok=tile >= 0)
+    return idx + t_start.index_select(0, tt)[:, None], valid, cnt

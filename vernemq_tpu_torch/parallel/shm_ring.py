@@ -436,6 +436,18 @@ class WorkerStatsBlock:
         served off the device, folds that failed, device match batches."""
         _store(self._buf, 64, "Q", (host_pubs, fold_errors, device_batches))
 
+    def set_service_launches(self, tile: int, extract: int,
+                             plain: int) -> None:
+        """The port's addition (header bytes 88-111, unused by the
+        reference's layout): the service process's kernel launches — tile
+        matcher and extraction — and its plain extractions on the card
+        (``match_kernel.plain_cuda_extractions``)."""
+        _store(self._buf, 88, "Q", (tile, extract, plain))
+
+    def service_launches(self) -> Dict[str, int]:
+        tile, extract, plain = struct.unpack_from("3Q", self._buf, 88)
+        return {"tile": tile, "extract": extract, "plain": plain}
+
     def service_info(self) -> Dict[str, Any]:
         epoch, gen, pid = struct.unpack_from("QQQ", self._buf, 8)
         (hb,) = struct.unpack_from("d", self._buf, 32)

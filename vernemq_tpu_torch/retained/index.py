@@ -54,8 +54,8 @@ from ..models.matcher import (
     load_kernels, prepare_windows,
 )
 from ..ops import reverse_kernel as RK
-# imported for its binder: load_kernels(KERNEL_LIBS) loads its library
-from ..ops import reverse_tiles  # noqa: F401
+# imported for their binders: load_kernels(KERNEL_LIBS) loads the libraries
+from ..ops import extract, reverse_tiles  # noqa: F401
 from ..ops.tile_match import KernelError
 from ..protocol.topic import match_dollar_aware
 from ..robustness import faults
@@ -70,7 +70,7 @@ Match = Tuple[Tuple[str, ...], Any]
 #: the kernel libraries (``ops/_build.py`` names) the reverse match
 #: launches, built and loaded when an index or engine is created on CUDA (a
 #: build error raises there)
-KERNEL_LIBS = ("reverse_match",)
+KERNEL_LIBS = ("reverse_match", "extract")
 
 
 def _probe_tile(per_region_max: int) -> int:
