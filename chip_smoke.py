@@ -277,17 +277,27 @@ RET_WAIT_S = 300
 # batches. PRED_MAX_PAIRS: the bench builds its engine with the default
 # max_pairs 65,536, below a batch's 1,048,576 verdict pairs, so there every
 # batch goes to the host evaluator; here every pair rides the device.
+# PRED_REPS is a cut of depth (24 before): each dispatch's ~4 s is host
+# pair build, and the script must stay inside its time limit.
 PRED_SENSORS = 64
 PRED_GT = 512
 PRED_AGG = 128
 PRED_CONJ = 32
 PRED_BATCH = 2048
 PRED_BATCHES = 6
-PRED_REPS = 24
+PRED_REPS = 12
 PRED_HOST_REPS = 2
 PRED_WINDOW_CAP = 1 << 14
 PRED_MAX_PAIRS = 1 << 20
 PRED_DRILL = 16  # publishes per batch of the outage drill
+PREDICATE_DESIGN = (
+    "one wave of blocks split by role: pair blocks take four pairs a thread "
+    "(16-byte loads, one 32-bit store of the verdicts, the next group's "
+    "loads in flight) against the predicate table staged in shared memory; "
+    "fold blocks reduce into a held zeroed scratch with one float2 atomic "
+    "add of (count, value) and min/max atomics only where the value moves "
+    "them; the merge, a programmatic dependent launch, writes the partials, "
+    "updates acc in place and zeroes the scratch (no memset)")
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate. The
 # reverse kernel's integer compares run on the INT32 lanes, 64 per SM per
 # clock (the Hopper architecture white paper): int32_ops_per_s() takes that
@@ -304,20 +314,26 @@ DEVICE = "cuda"
 # per batch, measured by this script's first version on one H100 80GB HBM3 at
 # 700 W; printed for reference beside this run's time, never as this run's
 EARLIER_MS = 7.32
-# kernel phase: (label, id bits, L, S, T, TP, seg_max, wild_rows, options of
-# synthetic_probe) — the headline geometry (1M subs, L=8, B=4096: S rows,
-# K=40, probe A 24 x 256 x 262144, probe B 24 x 256 x 32768), a 24-bit-id
+# kernel phase: (label, id bits, L, S, T, TP, seg_max, row mode, options of
+# synthetic_probe, glob_pad) — the headline geometry (1M subs, L=8, B=4096:
+# S rows, K=40, probe A 24 x 256 x 262144, probe B 24 x 256 x 32768, dense
+# region 0 as 32 tiles of 128 publishes x 2048 rows from row 0), a 24-bit-id
 # shape (K=48), K=96 at the largest partial sums (every id 2^24-1 or 65535,
-# every level weighted), and publishes longer than L (and than the kernel's
-# key clamp of 31) with $ publishes on wildcard-first rows
+# every level weighted), publishes longer than L (and than the kernel's key
+# clamp of 31) with $ publishes on wildcard-first rows, and the dense mode
+# at a glob_pad that is not a multiple of 256 with tiles of 16
 KERNEL_SHAPES = [
-    ("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, False, {}),
-    ("probe B K=40", 16, 8, 1_613_824, 24, 256, 32_768, True, {}),
-    ("24-bit K=48", 24, 8, 1 << 20, 8, 256, 65_536, False, {}),
-    ("K=96 max ids", 24, 16, 1 << 20, 8, 256, 65_536, False,
-     dict(vocab=[(1 << 24) - 1, 65535], eff_lo=15)),
-    ("plen>L $ wild", 16, 8, 1 << 20, 8, 256, 65_536, True,
-     dict(long_pubs=0.3)),
+    ("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, "a", {}, 2048),
+    ("probe B K=40", 16, 8, 1_613_824, 24, 256, 32_768, "b", {}, 2048),
+    ("dense K=40", 16, 8, 1_613_824, 32, 128, 2048, "dense",
+     dict(zero_starts=True), 2048),
+    ("24-bit K=48", 24, 8, 1 << 20, 8, 256, 65_536, "a", {}, 2048),
+    ("K=96 max ids", 24, 16, 1 << 20, 8, 256, 65_536, "a",
+     dict(vocab=[(1 << 24) - 1, 65535], eff_lo=15), 2048),
+    ("plen>L $ wild", 16, 8, 1 << 20, 8, 256, 65_536, "b",
+     dict(long_pubs=0.3), 2048),
+    ("dense ragged", 24, 8, 1 << 20, 5, 16, 2304, "dense",
+     dict(zero_starts=True, long_pubs=0.3), 2080),
 ]
 # the reverse kernel's first design (32 queries x 256 rows a block, a
 # ballot per query and row word), probe and dense launch of one storm batch,
@@ -352,6 +368,14 @@ REVERSE_SHAPES = [
 # beside this run's times, never as this run's
 EXTRACT_EARLIER_MS = {"probe": (0.0593, 0.0100), "dense": (0.0388, 0.0313)}
 PATH_EARLIER_MS = 11.03
+# dense region 0 while plain PyTorch packed it (fp32 matmul, compare,
+# epilogue, _pack_mask): its profiled operations per 4096-publish batch
+# (the pack's sum / mul / copy_ 0.148 ms, the product's mm / add / where /
+# eq 0.097 ms) and the device path per batch, measured by an earlier
+# version of this script on one H100 80GB HBM3 at 700 W; printed beside
+# this run's times, never as this run's
+DENSE_EARLIER_MS = 0.245
+PATH_EARLIER_MS_PLAIN_DENSE = 3.28
 # the extraction kernel against its plain version: (label, R0 rows, W
 # words, k, with chunk counts, R selected rows or None for every row) — the
 # forward probe A width split over warps and one warp a row, the retained
@@ -502,38 +526,44 @@ def mask_diff(x, y) -> int:
 
 
 def reset_counts() -> None:
-    """Zero the forward path's counters: tile-matcher and extraction kernel
-    launches, and plain extractions of tensors on the card."""
+    """Zero the forward path's counters: tile-matcher launches (probes and
+    dense mode), extraction kernel launches, and plain extractions and
+    bit-packs of tensors on the card."""
     from vernemq_tpu_torch.ops import extract as EX
     from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import tile_match as TM
 
-    TM.launches = EX.launches = TK.plain_cuda_extractions = 0
+    TM.launches = TM.dense_launches = EX.launches = 0
+    TK.plain_cuda_extractions = TK.plain_cuda_packs = 0
 
 
 def forward_counts(label: str, counts=None):
-    """``(tile, extraction)`` launches since :func:`reset_counts` in this
-    process, or ``counts = (tile, extraction, plain)`` read from another.
-    Fails unless the tile kernel ran and every dispatch's zones went
+    """``(tile, extraction, dense)`` launches since :func:`reset_counts` in
+    this process, or ``counts = (tile, extraction, plain, dense,
+    plain_packs)`` read from another. Fails unless the tile kernel ran in
+    both its probe and its dense mode and every dispatch's zones went
     through the extraction kernel: a dispatch launches one extraction per
-    tile launch and one for dense region 0, so more extraction than tile
-    launches, and no plain extraction touched the card."""
+    probe launch and one for dense region 0, so more extraction than probe
+    launches, and no plain extraction or plain bit-pack touched the
+    card."""
     from vernemq_tpu_torch.ops import extract as EX
     from vernemq_tpu_torch.ops import match_kernel as TK
     from vernemq_tpu_torch.ops import tile_match as TM
 
-    tile, ex, plain = counts if counts is not None else (
-        TM.launches, EX.launches, TK.plain_cuda_extractions)
-    if tile <= 0 or ex <= tile or plain:
-        fail(f"{label}: tile launches {tile}, extraction launches {ex}, "
-             f"plain extractions on the card {plain}: a dispatch ran "
+    tile, ex, plain, dense, packs = counts if counts is not None else (
+        TM.launches, EX.launches, TK.plain_cuda_extractions,
+        TM.dense_launches, TK.plain_cuda_packs)
+    if tile <= 0 or ex <= tile or plain or dense <= 0 or packs:
+        fail(f"{label}: tile launches {tile}, dense-mode launches {dense}, "
+             f"extraction launches {ex}, plain extractions on the card "
+             f"{plain}, plain bit-packs on the card {packs}: a dispatch ran "
              f"without its kernels")
-    return tile, ex
+    return tile, ex, dense
 
 
 def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
                     seg: int, seed: int, vocab=None, eff_lo: int = 1,
-                    long_pubs: float = 0.0):
+                    long_pubs: float = 0.0, zero_starts: bool = False):
     """Random tile-matcher operands on the card and the host copy of the
     window starts. By default a corpus-like vocabulary plus byte-plane edge
     ids, 20% ``+`` levels, eff 1..3, tile publishes copied from rows of
@@ -541,7 +571,8 @@ def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
     random lengths 1..3. With ``vocab`` every id is drawn from it (no ``+``,
     no unknown words), eff from ``eff_lo``..L, and half the publishes take
     their source row's length; ``long_pubs`` of them get a length in
-    L+1..L+39."""
+    L+1..L+39. ``zero_starts``: every window starts at row 0 (the dense
+    mode's)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -559,6 +590,8 @@ def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
     flags = ((rng.random(S) < 0.1) * 1 | (rng.random(S) < 0.3) * 2
              | (rng.random(S) < 0.95) * 4).astype(np.int32)
     start = rng.integers(0, S - seg + 1, T).astype(np.int32)
+    if zero_starts:
+        start[:] = 0
     src = start[:, None] + rng.integers(0, seg, (T, TP))
     pw = words[src]
     pw[pw == TK.PLUS_ID] = vocab[0]
@@ -644,6 +677,70 @@ def probe_bound(inputs, seg: int):
     nbytes = (rows * (2 * K + 12) + T * TP * (2 * K + 8) + T * 4
               + T * TP * seg // 8)
     return nbytes, 2.0 * T * TP * seg * K
+
+
+def time_dense_region0(card: str, F_t, t1, eff, hh, fw, act, flags, pw,
+                       G_all, pl, pd, statics) -> dict:
+    """Dense region 0 of one path batch: the tile kernel's dense mode
+    (``tile_match.dense_region0_packed``, the path's one launch) held bit
+    for bit against its plain version ``match_kernel._dense_region0_packed``
+    (the kernel's words past glob_pad/32 all 0), then timed by CUDA events
+    and from a CUDA graph beside its bound and the plain version. Returns
+    the numbers and the kernel's packed mask (``packed``)."""
+    import torch
+
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import tile_match as TM
+
+    gp = statics["glob_pad"]
+    B, K = G_all.shape
+
+    def run():
+        return TM.dense_region0_packed(F_t, t1, eff, flags, G_all, pl, pd,
+                                       glob_pad=gp)
+
+    def plain():
+        return TK._dense_region0_packed(
+            F_t, t1, eff, hh, fw, act, pw, pl, pd > 0,
+            id_bits=statics["id_bits"], glob_pad=gp, gc=statics["gc"])
+
+    d0 = TM.dense_launches
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    W0 = want.shape[1]
+    err = mask_diff(got[:, :W0].contiguous(), want) \
+        or int(bool((got[:, W0:] != 0).any()))
+    if err or TM.dense_launches != d0 + 1:
+        fail(f"dense region 0: the dense mode disagrees with "
+             f"_dense_region0_packed (max_abs_err {err}) or did not launch "
+             f"({TM.dense_launches - d0} launches)")
+    T, TP, seg = TM.dense_geometry(B, gp, F_t.shape[1])
+    ms = event_ms(run, 20)
+    gms = graph_ms(run, 20)
+    plain_ms = event_ms(plain, 3)
+    # region 0's rows read once (K bf16 operands, t1, eff, flags), the
+    # publishes' operands read once, the [B, seg/32] words written once;
+    # 2·K FLOP per (publish, region-0 row)
+    nbytes = gp * (2 * K + 12) + B * (2 * K + 8) + T * 4 + B * seg // 8
+    flop = 2.0 * B * gp * K
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+    bound_ms = max(t_b, t_o) * 1e3
+    ones = int(TK._popcount(want).sum())
+    print(f"[time] {card} | dense region 0 ({B} publishes x glob_pad {gp}): "
+          f"one tile launch in dense mode (T={T} TP={TP} seg={seg}), "
+          f"{ones} set bits, bit-equal to _dense_region0_packed; kernel "
+          f"{ms:.4f} ms by CUDA events, {gms:.4f} ms from a CUDA graph, its "
+          f"bound {bound_ms:.4f} ms ({'bytes' if t_b >= t_o else 'operations'}"
+          f": {nbytes / 1e6:.2f} MB, {flop / 1e9:.2f} GFLOP; the graph's "
+          f"launch at {100 * bound_ms / gms:.1f}% of it), plain version "
+          f"{plain_ms:.3f} ms (its operations profiled in an earlier run: "
+          f"{DENSE_EARLIER_MS} ms a batch)", flush=True)
+    return dict(packed=got, ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, flop=flop, max_abs_err=err, T=T, TP=TP,
+                seg=seg, set_bits=ones)
 
 
 def profile_device_path(torch, fn, card: str, path_ms: float,
@@ -786,7 +883,7 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> tuple:
     profiler().reset()
     reset_counts()
     served = asyncio.run(measured())
-    launches, ex_launches = forward_counts("burst")
+    launches, ex_launches, dense = forward_counts("burst")
     for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
         check_rows(trie, topics, rows, f"burst round {r}")
         if order != list(range(len(topics))):
@@ -817,8 +914,9 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> tuple:
           f"of {per_super:.2f} windows each ({supers} match_many "
           f"dispatches), saturated merges {col.saturated_merges}; parity "
           f"exact on {PARITY_PUBS} publishes per window, released in "
-          f"submission order, tile / extraction launches {launches} / "
-          f"{ex_launches}, host-served counters all 0", flush=True)
+          f"submission order, tile / dense-mode / extraction launches "
+          f"{launches} / {dense} / {ex_launches}, plain bit-packs on the "
+          f"card 0, host-served counters all 0", flush=True)
     # the dispatch records (encode, window prep, device, download; no row
     # resolve) of the measured rounds, by windows per dispatch
     recs = profiler().snapshot(kind="match")
@@ -836,7 +934,7 @@ def phase_burst(view, m, trie, rng, pools, card: str) -> tuple:
           f"p50 {wait.get('p50_ms', 0):.1f} ms p99 "
           f"{wait.get('p99_ms', 0):.1f} ms over {int(wait['count'])} "
           f"flushes", flush=True)
-    return launches, ex_launches
+    return launches, ex_launches, dense
 
 
 def phase_churn(view, m, trie, reg, rng, pools, card: str) -> tuple:
@@ -894,7 +992,7 @@ def phase_churn(view, m, trie, reg, rng, pools, card: str) -> tuple:
 
     reset_counts()
     served = asyncio.run(run())
-    launches, ex_launches = forward_counts("churn")
+    launches, ex_launches, dense = forward_counts("churn")
     settle_sync(m)  # the deltas after the last flush
     for r, (topics, (rows, order, *_)) in enumerate(zip(rounds, served)):
         check_rows(trie, topics, rows, f"churn round {r}")
@@ -917,10 +1015,10 @@ def phase_churn(view, m, trie, reg, rng, pools, card: str) -> tuple:
           f"p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms, {col.super_batches} "
           f"super-batches; parity exact, released in submission order, "
-          f"tile / extraction launches {launches} / {ex_launches}, "
-          f"busy_host_pubs 0 and every other host-served counter 0",
-          flush=True)
-    return launches, ex_launches
+          f"tile / dense-mode / extraction launches {launches} / {dense} / "
+          f"{ex_launches}, busy_host_pubs 0 and every other host-served "
+          f"counter 0", flush=True)
+    return launches, ex_launches, dense
 
 
 def phase_many(view, m, rng, pools, card: str) -> None:
@@ -1616,7 +1714,7 @@ def phase_broker(card: str, path_S: int) -> dict:
             reset_counts()
             conn.send("go")
             got, acks, wall, polls = await recv()
-            launches, ex_launches = forward_counts("broker")
+            launches, ex_launches, dense = forward_counts("broker")
         finally:
             proc.join(30)
             if proc.is_alive():
@@ -1646,7 +1744,7 @@ def phase_broker(card: str, path_S: int) -> dict:
         eng = b.filter_engine
         res = live_numbers(got, acks, wall)
         res.update(launches=launches, extract_launches=ex_launches,
-                   load_s=t_load)
+                   dense_launches=dense, load_s=t_load)
         print(f"[broker] {card} | {BROKER_PUBS} publishes "
               f"({sum(qos)} at QoS 1) from {BROKER_PUBLISHERS} MQTT "
               f"publishers to {BROKER_LIVE} MQTT subscribers (v3.1.1 and "
@@ -1661,8 +1759,9 @@ def phase_broker(card: str, path_S: int) -> dict:
               f"({col.super_batches} super-batches carrying "
               f"{col.super_batch_pubs} publishes), {m.match_batches} device "
               f"batches for {m.match_publishes} publishes; host-served "
-              f"counters {hs}; tile / extraction launches {launches} / "
-              f"{ex_launches}; native wire codec "
+              f"counters {hs}; tile / dense-mode / extraction launches "
+              f"{launches} / {dense} / {ex_launches}, plain bit-packs on "
+              f"the card 0; native wire codec "
               f"{'loaded' if fastpath.load_native() is not None else 'not loaded (pure-Python codec)'}; "
               f"predicate phase device dispatches {eng.dispatches} (no "
               f"predicated subscription in this load); parity exact for "
@@ -1833,6 +1932,8 @@ def cluster_node(name: str, join, conn) -> None:
                 conn.send(dict(
                     launches=TM.launches, extract_launches=EX.launches,
                     plain_extractions=TK.plain_cuda_extractions,
+                    dense_launches=TM.dense_launches,
+                    plain_packs=TK.plain_cuda_packs,
                     pubs=m.match_publishes - base["pubs"],
                     batches=m.match_batches - base["batches"],
                     flushes=hist.get("stage_collector_wait_ms").snapshot()[2],
@@ -1893,9 +1994,12 @@ def phase_cluster(card: str, single: dict) -> dict:
     from vernemq_tpu_torch.ops import _build
 
     t_phase = time.perf_counter()
-    # the kernel libraries are built here, before the nodes spawn: two
-    # processes never run nvcc into the build directory at once
-    _build.build(["tile_match", "reverse_match", "predicate"])
+    from vernemq_tpu_torch.models import matcher as GM
+    from vernemq_tpu_torch.retained import index as RI
+
+    # every library a node loads is built here, before the nodes spawn:
+    # two processes never run nvcc into the build directory at once
+    _build.build(sorted({*GM.KERNEL_LIBS, *RI.KERNEL_LIBS, "predicate"}))
     pools = build_corpus(random.Random(SEED), 0, None)
     rng = random.Random(SEED + 4)
     live, topics, qos, pubs, expect = live_load(rng, pools, "cluster")
@@ -2011,8 +2115,10 @@ def phase_cluster(card: str, single: dict) -> dict:
         for (name, _, _), r in zip(nodes, reads):
             print(f"[cluster] {card} | node {name}: {r['flushes']} collector "
                   f"flushes, {r['batches']} device batches for {r['pubs']} "
-                  f"publishes, tile / extraction launches {r['launches']} / "
-                  f"{r['extract_launches']}, queue wait at "
+                  f"publishes, tile / dense-mode / extraction launches "
+                  f"{r['launches']} / {r['dense_launches']} / "
+                  f"{r['extract_launches']}, plain bit-packs on the card "
+                  f"{r['plain_packs']}, queue wait at "
                   f"flush start p50 {r['wait'].get('p50_ms', 0):.1f} ms p99 "
                   f"{r['wait'].get('p99_ms', 0):.1f} ms; {r['forwards']} "
                   f"matches forwarded to the peer; {r['trie_folds']} "
@@ -2038,7 +2144,8 @@ def phase_cluster(card: str, single: dict) -> dict:
         for (name, _, _), r in zip(nodes, reads):
             forward_counts(f"cluster node {name}", (
                 r["launches"], r["extract_launches"],
-                r["plain_extractions"]))
+                r["plain_extractions"], r["dense_launches"],
+                r["plain_packs"]))
         if any(r["dropped"] for r in reads):
             fail(f"cluster: cluster frames dropped during the traffic "
                  f"{[r['dropped'] for r in reads]}")
@@ -2112,6 +2219,7 @@ def phase_cluster(card: str, single: dict) -> dict:
                 pr.join()
     res.update(launches=sum(r["launches"] for r in reads),
                node_launches=[r["launches"] for r in reads],
+               node_dense_launches=[r["dense_launches"] for r in reads],
                node_extract_launches=[r["extract_launches"] for r in reads],
                replication_s=repl_s,
                cross_node=len(lat["cross-node"]),
@@ -2440,14 +2548,17 @@ def offcard(stats) -> dict:
     """The worker group's counters of work done off the card: the
     service's trie-served publishes, failed folds and device batches, and
     each worker's trie-served publishes and missed folds; beside them the
-    service's kernel launches and plain extractions on the card."""
+    service's kernel launches (dense mode apart) and plain extractions and
+    bit-packs on the card."""
     svc = stats.service_info()
     slots = stats.read_all()
     kern = stats.service_launches()
+    dense = stats.service_dense()
     return dict(svc_host=svc["host_pubs"], svc_errors=svc["fold_errors"],
                 batches=svc["device_batches"], folds=svc["folds"],
                 ops=svc["ops"], tile=kern["tile"], extract=kern["extract"],
-                plain=kern["plain"],
+                plain=kern["plain"], dense=dense["dense"],
+                packs=dense["plain_packs"],
                 workers_host=[w["host_pubs"] for w in slots],
                 workers_failed=[w["folds_failed"] for w in slots])
 
@@ -2690,8 +2801,11 @@ def phase_workers(card: str, single: dict) -> dict:
     if folds <= 0 or batches <= 0:
         fail(f"workers: the service served {folds} folds in {batches} "
              f"device batches")
-    launches, ex_launches = forward_counts("workers service", tuple(
-        after[k] - base[k] for k in ("tile", "extract", "plain")))
+    # dense and packs are uint32 in the stats block: differences mod 2^32
+    launches, ex_launches, dense = forward_counts("workers service", tuple(
+        (after[k] - base[k]) % (1 << 32) if k in ("dense", "packs")
+        else after[k] - base[k]
+        for k in ("tile", "extract", "plain", "dense", "packs")))
     if on_card != {svc_pid}:
         fail(f"workers: processes with a CUDA context {sorted(on_card)}; "
              f"the service is {svc_pid}, workers and clients "
@@ -2703,6 +2817,7 @@ def phase_workers(card: str, single: dict) -> dict:
     res = live_numbers(got, acks, wall)
     res.update(load_s=t_load, folds=folds, device_batches=batches,
                launches=launches, extract_launches=ex_launches,
+               dense_launches=dense,
                wait_p99=wait.get("p99_ms", 0), rtt_p50=rtt.get("p50_ms", 0))
     print(f"[workers] {card} | {BROKER_PUBS} publishes ({sum(qos)} at QoS "
           f"1) from {BROKER_PUBLISHERS} MQTT publishers to {BROKER_LIVE} "
@@ -2718,8 +2833,9 @@ def phase_workers(card: str, single: dict) -> dict:
           f"inversions across QoS levels)", flush=True)
     print(f"[workers] {card} | {folds} ring folds served in {batches} "
           f"device batches ({BROKER_PUBS / max(batches, 1):.1f} publishes "
-          f"per batch), tile / extraction launches in the service "
-          f"{launches} / {ex_launches}; the workers' queue wait at flush "
+          f"per batch), tile / dense-mode / extraction launches in the "
+          f"service {launches} / {dense} / {ex_launches}, plain bit-packs "
+          f"0; the workers' queue wait at flush "
           f"start p50 "
           f"{wait.get('p50_ms', 0):.1f} ms p99 {wait.get('p99_ms', 0):.1f} "
           f"ms, ring round trip p50 {rtt.get('p50_ms', 0):.1f} ms p99 "
@@ -3640,6 +3756,27 @@ def phase_predicate(card: str) -> dict:
         *table, scratch, feats, pp, pr, *agg, W=W), 3)
     nbytes = predicate_bytes(table, acc, feats, pp, agg)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the split, each part from a CUDA graph beside its own byte bound:
+    # the verdict pairs alone (eval_pairs: no folds, no partials), the
+    # folds alone (no pair) and both (the dispatch's call)
+    fixed = feats.numel() * 4 + sum(t.numel() * 4 for t in table)
+    none = pp[:0]
+    split = {}
+    for part, fn, nb in (
+            ("pairs", lambda: PK.eval_pairs(*table, feats, pp, pr),
+             9 * P + fixed),
+            ("folds", lambda: PK.predicate_phase(
+                *table, scratch, feats, none, none, *agg, W=W),
+             17 * A + fixed + 3 * 16 * W),
+            ("both", run, nbytes)):
+        g = graph_ms(fn, 20)
+        split[part] = dict(graph_ms=g, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+                           bytes=nb)
+    print(f"[predicate] {card} | split from a CUDA graph: " + "; ".join(
+        f"{part} {v['graph_ms']:.4f} ms against its bound "
+        f"{v['bound_ms']:.4f} ms ({v['bytes'] / 1e6:.2f} MB, "
+        f"{100 * v['bound_ms'] / v['graph_ms']:.0f}%)"
+        for part, v in split.items()), flush=True)
     # the dispatch's host-side pieces, replayed on the same arrays
     idx_np = torch.cat([pp, pr, *agg[:4]]).cpu().numpy()
     f_np = feats.cpu().numpy()
@@ -3669,8 +3806,9 @@ def phase_predicate(card: str) -> dict:
           f"{down_ms:.3f} ms, the rest host staging of the index arrays "
           f"and the window commit; kernel bound "
           f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {100 * bound_ms / k_ms:.0f}% "
-          f"of it reached), plain version {plain_ms:.3f} ms", flush=True)
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {100 * bound_ms / k_ms:.0f}% "
+          f"of it reached by events, {100 * bound_ms / k_graph:.0f}% from "
+          f"the graph), plain version {plain_ms:.3f} ms", flush=True)
 
     # ---------------------------------------- parity and the drill
     pb = mk_batch()
@@ -3724,7 +3862,7 @@ def phase_predicate(card: str) -> dict:
     return dict(launches=launches, max_abs_err=err, ms=k_ms,
                 graph_ms=k_graph, plain_ms=plain_ms, bound_ms=bound_ms,
                 bytes=nbytes, pairs_per_s=dev_rate,
-                host_pairs_per_s=host_rate, dispatches=n_disp,
+                host_pairs_per_s=host_rate, dispatches=n_disp, split=split,
                 dispatch_ms=disp_ms, filter_batch_ms=wall_ms,
                 upload_ms=up_ms, download_ms=down_ms,
                 max_pairs=eng.max_pairs)
@@ -3931,18 +4069,19 @@ def main() -> int:
         print("[build] ptxas predicate (registers, spill stores, spill "
               "loads): " + ", ".join(f"{k}: {v}" for k, v in ptxas_kernels(
                   _build.log_path("predicate").read_text(),
-                  ("predicate_pass_kernel", "predicate_merge_kernel")
+                  ("predicate_pass_kernelILb1E", "predicate_pass_kernelILb0E",
+                   "predicate_merge_kernel")
               ).items()), flush=True)
     phase_cold(card)
 
     # ------------------------------------------------------- kernel phase
     kernel_err = 0
     launched_kp = set()  # compiled widths KP the run launched
-    for i, (name, bits, L, S, T, TP, seg, wild, opts) in \
+    for i, (name, bits, L, S, T, TP, seg, mode, opts, gp) in \
             enumerate(KERNEL_SHAPES):
         x, start_host = synthetic_probe(torch, TK, bits, L, S, T, TP, seg,
                                         SEED + i, **opts)
-        kw = dict(seg_max=seg, glob_pad=2048, wild_rows=wild)
+        kw = dict(seg_max=seg, glob_pad=gp, mode=mode)
         got = TM.window_tiles_packed(*x, **kw, start_host=start_host)
         want = TM.window_tiles_packed_ref(*x, **kw)
         torch.cuda.synchronize()
@@ -3951,9 +4090,9 @@ def main() -> int:
         ones = int(hits.sum())
         long_hits = int(hits[x[5] > L].sum())
         launched_kp.add(TM.padded_k(x[0].shape[0]))
-        print(f"[kernel] {name}: T={T} TP={TP} seg={seg} K={x[0].shape[0]} "
-              f"set bits {ones} (publishes longer than L: {long_hits}) "
-              f"max_abs_err {err}", flush=True)
+        print(f"[kernel] {name}: mode {mode} T={T} TP={TP} seg={seg} "
+              f"glob_pad={gp} K={x[0].shape[0]} set bits {ones} (publishes "
+              f"longer than L: {long_hits}) max_abs_err {err}", flush=True)
         if err or not ones:
             fail(f"kernel disagrees with its plain version at {name}"
                  if err else f"no matches at {name}: comparison is vacuous")
@@ -4017,13 +4156,14 @@ def main() -> int:
     fb0 = m.host_fallbacks
     reset_counts()
     lat = drive(BATCHES, "path")
-    path_launches, path_ex = forward_counts("path")
+    path_launches, path_ex, path_dense = forward_counts("path")
     if m.host_fallbacks != fb0:
         fail(f"{m.host_fallbacks - fb0} publishes fell back to the host")
     print(f"[path] {BATCHES} batches x {BATCH}: parity exact on "
-          f"{PARITY_PUBS} publishes per batch, tile / extraction launches "
-          f"{path_launches} / {path_ex}, plain extractions on the card 0, "
-          f"host fallbacks 0", flush=True)
+          f"{PARITY_PUBS} publishes per batch, tile / dense-mode / "
+          f"extraction launches {path_launches} / {path_dense} / {path_ex}, "
+          f"plain extractions and bit-packs on the card 0, host fallbacks "
+          f"0", flush=True)
 
     # --------------------------------------------------------- delta phase
     drng = random.Random(SEED + 1)
@@ -4043,8 +4183,9 @@ def main() -> int:
     if m.host_fallbacks != fb0:
         fail("delta phase: host fallbacks")
     print(f"[delta] -{DELTA}/+{DELTA} subscriptions synced ({rebuilt} "
-          f"background rebuilds); parity exact, tile / extraction launches "
-          f"{delta_counts[0]} / {delta_counts[1]}", flush=True)
+          f"background rebuilds); parity exact, tile / dense-mode / "
+          f"extraction launches {delta_counts[0]} / {delta_counts[2]} / "
+          f"{delta_counts[1]}", flush=True)
 
     # -------------------------------------------------------------- timing
     topics = zipf_topics(rng, pools, BATCH)
@@ -4064,16 +4205,16 @@ def main() -> int:
     launched_kp.add(TM.padded_k(F_t.shape[0]))
     probes = []
     uses = []  # the batch's extractions: (name, packed mask, rows, ok)
-    for name, sel, start, seg, wild, tile, pos in (
-            ("A", args[4], args[5], statics["seg_max"], False, args[8],
+    for name, sel, start, seg, mode, tile, pos in (
+            ("A", args[4], args[5], statics["seg_max"], "a", args[8],
              args[9]),
-            ("B", args[6], args[7], statics["seg2_max"], True, args[10],
+            ("B", args[6], args[7], statics["seg2_max"], "b", args[10],
              args[11])):
         if not seg:
             continue
         inputs = (F_t, t1d, eff, flags,
                   *TM.tile_operands(G_all, pl, pd, cuda(sel)), cuda(start))
-        kw = dict(seg_max=seg, glob_pad=statics["glob_pad"], wild_rows=wild)
+        kw = dict(seg_max=seg, glob_pad=statics["glob_pad"], mode=mode)
         got = TM.window_tiles_packed(*inputs, **kw, start_host=start)
         want = TM.window_tiles_packed_ref(*inputs, **kw)
         torch.cuda.synchronize()
@@ -4120,10 +4261,9 @@ def main() -> int:
           f"{sum(p['bmm_ms'] for p in probes):.3f} ms (the CUDA-core "
           f"kernel of the first slice, not timed here: {EARLIER_MS} ms)",
           flush=True)
-    uses.append(("dense region 0", TK._dense_region0_packed(
-        F_t, t1d, eff, hh, fw, act, cuda(args[0]), pl, cuda(args[2]),
-        id_bits=statics["id_bits"], glob_pad=statics["glob_pad"],
-        gc=statics["gc"]), None, None))
+    dense = time_dense_region0(card, F_t, t1d, eff, hh, fw, act, flags,
+                               cuda(args[0]), G_all, pl, pd, statics)
+    uses.append(("dense region 0", dense.pop("packed"), None, None))
     k = statics["k"]
     ext = {}
     for name, packed, rows, ok in uses:
@@ -4171,14 +4311,23 @@ def main() -> int:
     host = [cuda(a) for a in args[:3]] + [int(args[3]), cuda(args[4]),
                                           args[5], cuda(args[6]), args[7]] \
         + [cuda(a) for a in args[8:]]
+    packs0, dense0 = TK.plain_cuda_packs, TM.dense_launches
     flat_ms = event_ms(lambda: TK.match_extract_windowed_flat(
         F_t, t1d, eff, hh, fw, act, *host, **statics), 5)
     print(f"[time] {card} | device path per batch (dense region 0, both "
-          f"probes, extraction, flat compaction): {flat_ms:.2f} ms (with "
-          f"the plain extraction, an earlier run: {PATH_EARLIER_MS} ms)",
-          flush=True)
+          f"probes, extraction, flat compaction): {flat_ms:.2f} ms (dense "
+          f"region 0 packed by plain PyTorch and extracted by the kernel, an "
+          f"earlier run: {PATH_EARLIER_MS_PLAIN_DENSE} ms; with the plain "
+          f"extraction too: {PATH_EARLIER_MS} ms)", flush=True)
     profile_device_path(torch, lambda: TK.match_extract_windowed_flat(
         F_t, t1d, eff, hh, fw, act, *host, **statics), card, flat_ms)
+    if TK.plain_cuda_packs != packs0 or TM.dense_launches == dense0:
+        fail(f"device path: {TK.plain_cuda_packs - packs0} plain bit-packs "
+             f"on the card, {TM.dense_launches - dense0} dense-mode "
+             f"launches")
+    print(f"[profile] {card} | the device path ran dense region 0 in "
+          f"{TM.dense_launches - dense0} dense-mode tile launches and no "
+          f"plain bit-pack (_pack_mask) on the card", flush=True)
     lat_s = sorted(lat)
     p50 = float(np.percentile(lat_s, 50))
     p99 = float(np.percentile(lat_s, 99))
@@ -4189,9 +4338,10 @@ def main() -> int:
           f"{prep_ms:.2f} ms", flush=True)
 
     # ------------------------------------------------- the serving layer
-    burst_launches, burst_ex = phase_burst(view, m, trie, rng, pools, card)
-    churn_launches, churn_ex = phase_churn(view, m, trie, reg, rng, pools,
-                                           card)
+    burst_launches, burst_ex, burst_dense = phase_burst(view, m, trie, rng,
+                                                        pools, card)
+    churn_launches, churn_ex, churn_dense = phase_churn(view, m, trie, reg,
+                                                        rng, pools, card)
     phase_many(view, m, rng, pools, card)
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
@@ -4213,7 +4363,16 @@ def main() -> int:
         "broker_launches": broker["launches"],
         "admin_drill_launches": broker["admin"]["drill_launches"],
         "cluster_launches": cluster["node_launches"],
-        "max_abs_err": kernel_err,
+        "dense_launches": path_dense,
+        "dense_launches_per_path": {
+            "path": path_dense, "burst": burst_dense, "churn": churn_dense,
+            "broker": broker["dense_launches"],
+            "cluster": cluster["node_dense_launches"],
+            "workers": workers["dense_launches"]},
+        "dense_region0": {k: dense[k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "flop", "max_abs_err", "T", "TP", "seg")},
+        "max_abs_err": max(kernel_err, dense["max_abs_err"]),
         "ms": k_ms,
         "plain_ms": sum(p["plain_ms"] for p in probes),
         "bound_ms": batch_bound_ms,
@@ -4227,7 +4386,9 @@ def main() -> int:
             "kernel_ms", "bound_ms", "plain_ms", "bmm_ms")} for p in probes},
         "ptxas": {str(kp): ptxas.get(kp) for kp in sorted(launched_kp)}
         if "tile_match" in built else None,
-        "per_batch": f"probe A + probe B launches of one {BATCH}-publish batch",
+        "per_batch": f"probe A + probe B launches of one {BATCH}-publish "
+                     f"batch; dense_region0: the dense-mode launch of the "
+                     f"same batch",
         "admin": broker["admin"],
         "cluster": {k: cluster[k] for k in (
             "pubs_per_s", "lat_local_p50", "lat_cross_p50", "lat_p99",
@@ -4327,11 +4488,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "graph_ms": pred["graph_ms"],
-        "design": "one thread per verdict pair and per fold, the gate by "
-                  "the same device function; folds reduced by atomics "
-                  "(count exact, min/max over an order-preserving key of "
-                  "the float bits) into a memset scratch, then one thread "
-                  "per slot writes the partials and updates acc in place",
+        "split": pred["split"],
+        "design": PREDICATE_DESIGN,
         "pairs_per_s": pred["pairs_per_s"],
         "host_pairs_per_s": pred["host_pairs_per_s"],
         "dispatches": pred["dispatches"],

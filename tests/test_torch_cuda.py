@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card,
-and the device paths that only a card can show: match_many equal to K
+"""The port's CUDA kernels against their plain PyTorch versions, on a card
+(the tile matcher's probe and dense modes, the predicate kernel at its
+edges, over dispatches in a row and after a failure), and the device paths
+that only a card can show: match_many equal to K
 match_batch dispatches with no host sync between its launches, a kernel
 library that fails to build raising from the matcher, a kernel that faults
 on the card failing the collector's futures, the extraction kernel against
@@ -89,15 +91,16 @@ def _tile_inputs(seed, bits, L=8, TP=256, seg=8192, S=32768, starts=None,
 def test_tile_match_kernel_matches_plain_version(bits, wild_rows):
     _card()
     x, kw = _tile_inputs(5 + bits, bits)
-    TM.window_tiles_packed(*x, wild_rows=wild_rows, **kw)  # build, allocate
+    mode = "b" if wild_rows else "a"
+    TM.window_tiles_packed(*x, mode=mode, **kw)  # build, allocate
     before = TM.launches
     torch.cuda.set_sync_debug_mode("error")  # a device→host copy raises
     try:
-        got = TM.window_tiles_packed(*x, wild_rows=wild_rows, **kw)
+        got = TM.window_tiles_packed(*x, mode=mode, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     kw.pop("start_host")
-    want = TM.window_tiles_packed_ref(*x, wild_rows=wild_rows, **kw)
+    want = TM.window_tiles_packed_ref(*x, mode=mode, **kw)
     torch.cuda.synchronize()
     assert TM.launches == before + 1
     assert torch.equal(got, want)
@@ -126,9 +129,10 @@ EDGES = [
 def test_tile_match_kernel_at_its_edges(label, kw, wild_rows):
     _card()
     x, kw = _tile_inputs(7, **kw)
-    got = TM.window_tiles_packed(*x, wild_rows=wild_rows, **kw)
+    mode = "b" if wild_rows else "a"
+    got = TM.window_tiles_packed(*x, mode=mode, **kw)
     kw.pop("start_host")
-    want = TM.window_tiles_packed_ref(*x, wild_rows=wild_rows, **kw)
+    want = TM.window_tiles_packed_ref(*x, mode=mode, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), label
     hits = TK._popcount(want).sum(dim=2)
@@ -143,18 +147,97 @@ def test_tile_match_rejects_what_it_cannot_take():
     x, kw = _tile_inputs(1, 16)
     with pytest.raises(ValueError, match="leave the table"):
         bad = x[:7] + (x[7] + 30_000,)
-        TM.window_tiles_packed(*bad, wild_rows=False,
+        TM.window_tiles_packed(*bad, mode="a",
                                **{**kw, "start_host": kw["start_host"] + 30_000})
     with pytest.raises(ValueError, match="leave the table"):  # wrong T
-        TM.window_tiles_packed(*x, wild_rows=False,
+        TM.window_tiles_packed(*x, mode="a",
                                **{**kw, "start_host": kw["start_host"][:2]})
     with pytest.raises(ValueError, match="F_t must be"):
-        TM.window_tiles_packed(x[0].float(), *x[1:], wild_rows=False, **kw)
+        TM.window_tiles_packed(x[0].float(), *x[1:], mode="a", **kw)
     with pytest.raises(ValueError, match="multiple of 16"):
         TM.window_tiles_packed(*x[:4], x[4][:, :24].contiguous(),
                                x[5][:, :24].contiguous(),
                                x[6][:, :24].contiguous(), x[7],
-                               wild_rows=False, **kw)
+                               mode="a", **kw)
+
+
+# (label, id bits, B publishes, glob_pad, S rows): the headline's class
+# (4096 publishes against region 0 of 2048 rows of a large table), a batch
+# that is not a multiple of 16 (padded to whole tiles), a glob_pad that is
+# not a multiple of 256 with 24-bit ids, a batch smaller than one tile
+DENSE_SHAPES = [
+    ("headline", 16, 4096, 2048, 1_613_824),
+    ("B=1000", 16, 1000, 2048, 1 << 20),
+    ("gp=2080-24bit", 24, 512, 2080, 65536),
+    ("B=8", 16, 8, 4096, 8192),
+]
+
+
+def _dense_operands(seed, bits, B, glob_pad, S, L=8):
+    """Random table and publish operands on the card with many region-0
+    matches: publishes copied from region-0 rows (byte-plane edge ids,
+    ~5% unknown words, a tenth longer than the key clamp, a quarter $)."""
+    rng = np.random.default_rng(seed)
+    vocab = np.concatenate([np.arange(3, 9), EDGE_IDS[3:]]).astype(np.int32)
+    words = rng.choice(vocab, (S, L)).astype(np.int32)
+    words[rng.random((S, L)) < 0.25] = TK.PLUS_ID
+    eff = rng.integers(1, 4, S, dtype=np.int32)
+    src = rng.integers(0, glob_pad, B)
+    pw = words[src]
+    pw[pw == TK.PLUS_ID] = vocab[0]
+    pw[rng.random(pw.shape) < 0.05] = UNKNOWN_ID
+    pl = np.where(rng.random(B) < 0.6, eff[src],
+                  rng.integers(1, 4, B)).astype(np.int32)
+    pl[rng.random(B) < 0.1] = 40
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    F_t, t1 = TK.build_operands(c(words), c(eff), bits)
+    return (F_t, t1, c(eff), c(rng.random(S) < 0.2), c(rng.random(S) < 0.5),
+            c(rng.random(S) < 0.9), c(pw), c(pl), c(rng.random(B) < 0.25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,bits,B,gp,S", DENSE_SHAPES,
+                         ids=[d[0] for d in DENSE_SHAPES])
+def test_dense_mode_is_bit_equal_to_the_plain_dense_region0(label, bits, B,
+                                                            gp, S):
+    """Dense region 0 by one tile launch in dense mode equals the plain
+    compare-and-pack (``match_kernel._dense_region0_packed``) word for word,
+    its words past glob_pad/32 are 0, and it counted one dense launch and
+    no probe launch."""
+    _card()
+    F_t, t1, eff, hh, fw, act, pw, pl, pd = _dense_operands(3, bits, B, gp, S)
+    flags = TM.row_flags(hh, fw, act)
+    G = TK.build_pub_operand(pw, bits)
+    before = TM.launches, TM.dense_launches
+    got = TM.dense_region0_packed(F_t, t1, eff, flags, G, pl, pd,
+                                  glob_pad=gp)
+    torch.cuda.synchronize()
+    assert (TM.launches, TM.dense_launches) == (before[0], before[1] + 1)
+    want = TK._dense_region0_packed(F_t, t1, eff, hh, fw, act, pw, pl, pd,
+                                    id_bits=bits, glob_pad=gp, gc=1024)
+    W0 = want.shape[1]
+    assert got.shape == (B, TM.dense_geometry(B, gp, S)[2] // 32), label
+    assert torch.equal(got[:, :W0], want), label
+    assert not bool(got[:, W0:].any())
+    assert int(TK._popcount(want).sum()) > 50  # not vacuous
+
+
+@pytest.mark.cuda
+def test_forward_dispatch_runs_dense_region0_on_the_tile_kernel():
+    """One forward dispatch launches the tile kernel once in dense mode and
+    packs nothing in plain PyTorch on the card."""
+    _card()
+    m, _, args, statics, table = _many_inputs(K=1, n=256)
+    a = args[0]
+    host = [_cuda(x) for x in a[:3]] + [int(a[3]), _cuda(a[4]), a[5],
+                                        _cuda(a[6]), a[7]] \
+        + [_cuda(x) for x in a[8:]]
+    dense, packs = TM.dense_launches, TK.plain_cuda_packs
+    got = TK.match_extract_windowed_flat(*table, *host, **statics)
+    torch.cuda.synchronize()
+    assert TM.dense_launches == dense + 1
+    assert TK.plain_cuda_packs == packs
+    assert int(got[2].sum()) > 100  # not vacuous
 
 
 def _many_inputs(K=4, n=256):
@@ -997,6 +1080,185 @@ def test_predicate_kernel_matches_plain(shape):
     table, _, feats, pp, pr, _ = _pred_tensors(inp, "cuda")
     ek = PK.eval_pairs(*table, feats, pp, pr).cpu().numpy()
     np.testing.assert_array_equal(ek, want[0])
+
+
+def _pred_check(got, want, label=""):
+    """Kernel against plain: verdicts, count, min, max and acc's count /
+    min / max bit for bit, sums allclose (atomic float adds in another
+    order)."""
+    keep, acc, cnt, sm, mn, mx = [x.cpu().numpy() for x in got]
+    w = [x.cpu().numpy() for x in want]
+    np.testing.assert_array_equal(keep, w[0], err_msg=label)
+    for g, x in ((cnt, w[2]), (mn, w[4]), (mx, w[5]),
+                 (acc[:, [0, 2, 3]], w[1][:, [0, 2, 3]])):
+        np.testing.assert_array_equal(g.view(np.int32), x.view(np.int32),
+                                      err_msg=label)
+    np.testing.assert_allclose(sm, w[3], rtol=1e-5, atol=1e-5, err_msg=label)
+    np.testing.assert_allclose(acc[:, 1], w[1][:, 1], rtol=1e-5, atol=1e-5,
+                               err_msg=label)
+
+
+# (label, NP, B, F, P, A, W, offset of the pair arrays in one int32 block):
+# P = 1, 2, 3 (mod 4) with 16-byte aligned arrays and with pair_pred one
+# entry off alignment (the kernel's one-pair-at-a-time path), no pair, no
+# fold, and a table larger than the kernel stages in shared memory
+PRED_EDGES = [
+    ("P%4=1", 40, 24, 4, 4097, 300, 16, 0),
+    ("P%4=2", 40, 24, 4, 4098, 300, 16, 0),
+    ("P%4=3", 40, 24, 4, 4099, 300, 16, 0),
+    ("P%4=3-unaligned", 40, 24, 4, 4099, 300, 16, 1),
+    ("P=0", 40, 24, 4, 0, 3000, 64, 0),
+    ("A=0", 40, 24, 4, 5000, 0, 16, 0),
+    ("table>smem", 5000, 64, 6, 1 << 16, 1 << 14, 512, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,NP,B,F,P,A,W,off", PRED_EDGES,
+                         ids=[e[0] for e in PRED_EDGES])
+def test_predicate_kernel_at_its_edges(label, NP, B, F, P, A, W, off):
+    """The redesigned kernel against its plain version where its design
+    branches: the four-pair vector path and its scalar tail, misaligned
+    pair arrays, an empty pair or fold stream (the merge still writes the
+    partials and leaves acc's empty slots as they were), and a predicate
+    table read from global memory."""
+    from _torch_port import predicate_inputs
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+
+    _card()
+    inp = predicate_inputs(11, NP, B, F, max(P, 1), max(A, 1), W)
+    table, acc, feats, pp, pr, agg = _pred_tensors(inp, "cuda")
+    pp, pr = pp[:P], pr[:P]
+    if off:  # pair_pred at an odd entry of one block
+        blk = torch.empty(2 * P + off, dtype=torch.int32, device="cuda")
+        blk[:P] = pp
+        blk[P + off:] = pr
+        pp, pr = blk[:P], blk[P + off:]
+    agg = [x[:A] for x in agg]
+    before = PK.launches
+    got = PK.predicate_phase(*table, acc.clone(), feats, pp, pr, *agg, W=W)
+    torch.cuda.synchronize()
+    assert PK.launches == before + 1
+    want = PK.predicate_phase_ref(*table, acc.clone(), feats, pp, pr, *agg,
+                                  W=W)
+    _pred_check(got, want, label)
+    if P:
+        assert torch.equal(PK.eval_pairs(*table, feats, pp, pr), want[0])
+
+
+@pytest.mark.cuda
+def test_predicate_count_stays_exact_past_2_to_the_24_folds():
+    """2^24 + 3 folds into one slot: past 2^24 folds a dispatch keeps the
+    count as an unsigned add (a float count would stop at 2^24), so count,
+    min and max still equal the plain version's bit for bit (both round
+    the count to float32 once, in the partials and in acc)."""
+    from vernemq_tpu_torch.filters.predicate import OP_PAD, OP_TRUE
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+
+    _card()
+    A, W = (1 << 24) + 3, 2
+    i32 = dict(dtype=torch.int32, device="cuda")
+    table = (torch.tensor([OP_PAD, OP_TRUE], **i32), torch.zeros(2, **i32),
+             torch.zeros(2, dtype=torch.float32, device="cuda"),
+             torch.zeros(2, dtype=torch.float32, device="cuda"),
+             torch.zeros(2, **i32), torch.zeros(2, **i32))
+    feats = torch.tensor([[1.5], [-2.0]], device="cuda")
+    acc = torch.zeros((W, 4), device="cuda")
+    acc[:, 2], acc[:, 3] = float("inf"), float("-inf")
+    pub = (torch.arange(A, **i32) % 2)
+    agg = (torch.zeros(A, **i32), pub, torch.full((A,), -1, **i32),
+           torch.ones(A, **i32), torch.ones(A, dtype=torch.bool,
+                                            device="cuda"))
+    agg[2][:5] = 0  # a few folds of the value itself, the rest $COUNT
+    none = torch.zeros(0, **i32)
+    got = PK.predicate_phase(*table, acc.clone(), feats, none, none, *agg,
+                             W=W)
+    want = PK.predicate_phase_ref(*table, acc.clone(), feats, none, none,
+                                  *agg, W=W)
+    _pred_check(got, want, "wide")
+    # float32 partials round A once; a float count would stop at 2^24
+    assert float(got[2][0]) == float(np.float32(A)) > float(1 << 24)
+
+
+@pytest.mark.cuda
+def test_predicate_dispatches_in_a_row_share_one_zeroed_scratch():
+    """Several dispatches in a row on one held scratch, each against a
+    fresh plain run on its own acc: the scratch is made once, zero again
+    after every dispatch, and every dispatch's partials and acc are
+    right (a slot left folded would add to the next dispatch's)."""
+    from _torch_port import predicate_inputs
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+
+    _card()
+    PK.drop_scratch()
+    W = 8192
+    for i in range(4):
+        inp = predicate_inputs(20 + i, 300, 2048, 4, 1 << 18, 1 << 16, W)
+        table, acc, feats, pp, pr, agg = _pred_tensors(inp, "cuda")
+        got = PK.predicate_phase(*table, acc.clone(), feats, pp, pr, *agg,
+                                 W=W)
+        want = PK.predicate_phase_ref(*table, acc.clone(), feats, pp, pr,
+                                      *agg, W=W)
+        _pred_check(got, want, f"dispatch {i}")
+        held = list(PK._scratch.values())
+        assert len(held) == 1 and not bool(held[0].any())
+        if i == 0:
+            first = held[0]
+        assert held[0] is first
+
+
+@pytest.mark.cuda
+def test_predicate_dispatch_after_a_failure_runs_on_a_fresh_scratch():
+    """An engine dispatch that fails after a half-folded dispatch (the
+    held scratch dirtied by hand, as a launch that stopped part way would
+    leave it) drops the scratch with the device acc; the next dispatch
+    makes a zeroed one and equals the host evaluator."""
+    from vernemq_tpu_torch.cluster.metadata import MetadataStore
+    from vernemq_tpu_torch.filters.engine import FilterEngine
+    from vernemq_tpu_torch.filters.schema_registry import SchemaRegistry
+    from vernemq_tpu_torch.ops import predicate_kernel as PK
+    from vernemq_tpu_torch.protocol.types import SubOpts
+    from vernemq_tpu_torch.robustness import faults
+
+    _card()
+    reg = SchemaRegistry(MetadataStore("n1"), "n1")
+    reg.set_schema("", "s/#", "v:number")
+    eng = FilterEngine(reg, device_gate=lambda: True, host_threshold=1,
+                       device="cuda")
+    rows = []
+    for key, expr in (("c", "$gt(v,50)"), ("a", "$avg(v,2)"),
+                      ("m", "$max(v,3)")):
+        o = SubOpts()
+        o.filter_expr = expr
+        eng.on_sub_delta("add", "", o)
+        rows.append((("s", "#"), ("", key), o))
+    items = [(("s", "x"), eng.encode("", ("s", "x"), b'{"v": %d}' % v))
+             for v in (10, 90, 55, 70)]
+
+    def batch():
+        return [[r[1] for r in x] for x in eng.filter_batch(
+            "", items, [list(rows) for _ in items])]
+
+    PK.drop_scratch()
+    batch()
+    W = eng._win.cap
+    (held,) = [v for k, v in PK._scratch.items() if k[2] == W]
+    held.fill_(12345)  # half folded
+    faults.install(faults.FaultPlan(
+        [faults.FaultRule("device.predicate", kind="error")]))
+    try:
+        batch()  # fails on the device, served by the host evaluator
+    finally:
+        faults.clear()
+    assert not PK._scratch and eng._win.dev is None
+    d0 = eng.dispatches
+    got = batch()
+    assert eng.dispatches == d0 + 1
+    assert got == [[r[1] for r in x] for x in eng.filter_batch_host(
+        "", items, [list(rows) for _ in items])]
+    (fresh,) = [v for k, v in PK._scratch.items() if k[2] == W]
+    torch.cuda.synchronize()
+    assert fresh is not held and not bool(fresh.any())
 
 
 PRED_FAULT_SCRIPT = r"""

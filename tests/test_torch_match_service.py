@@ -243,6 +243,26 @@ def test_stats_block_carries_the_service_kernel_launches():
         stats.unlink()
 
 
+def test_stats_block_carries_the_service_dense_launches_and_plain_packs():
+    """The port's second service field pair (header bytes 112-119): the
+    service's dense-mode tile launches and plain bit-packs on the card, two
+    uint32 kept modulo 2^32, beside the launch counters and the hist/event
+    widths, which stay untouched."""
+    stats = WorkerStatsBlock.create(_name("sd"), 2)
+    try:
+        assert stats.service_dense() == {"dense": 0, "plain_packs": 0}
+        widths = stats._buf[120:128].tobytes()
+        stats.set_service_launches(11, 22, 0)
+        stats.set_service_dense(2 ** 32 + 5, 3)
+        assert stats.service_dense() == {"dense": 5, "plain_packs": 3}
+        assert stats.service_launches() == {"tile": 11, "extract": 22,
+                                            "plain": 0}
+        assert stats._buf[120:128].tobytes() == widths
+    finally:
+        stats.close()
+        stats.unlink()
+
+
 def test_peer_pressure_ignores_self_and_stale():
     stats = WorkerStatsBlock.create(_name("pp"), 3)
     try:

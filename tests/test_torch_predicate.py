@@ -458,3 +458,100 @@ def test_no_device_means_host_only():
     assert [[r[1] for r in x] for x in out] == [[], [("", "c")]]
     assert eng.dispatches == 0 and eng.pairs_host == 2
     assert ENG.ROW_PAD == 0 and ENG.ROW_TRUE == 1
+
+
+# ------------------------------------------------ the held fold scratch
+
+
+def test_held_scratch_is_made_zeroed_once_and_dropped():
+    """The wrapper's fold scratch: zeroed int32 [W, 4] made once per
+    (device, stream, W) and handed out again; drop_scratch forgets a
+    device's (every device's with no argument) so the next is made
+    anew."""
+    dev = torch.device("cpu")
+    PK.drop_scratch()
+    s = PK.held_scratch(dev, 12, 0)
+    assert s.dtype == torch.int32 and s.shape == (12, 4) and not s.any()
+    assert PK.held_scratch(dev, 12, 0) is s
+    assert PK.held_scratch(dev, 12, 1) is not s  # another stream
+    assert PK.held_scratch(dev, 16, 0) is not s  # another W
+    s.fill_(7)  # as a dispatch that failed half way would leave it
+    PK.drop_scratch(dev)
+    t = PK.held_scratch(dev, 12, 0)
+    assert t is not s and not t.any()
+    PK.drop_scratch()
+    assert not PK._scratch
+
+
+@pytest.mark.parametrize("fault", ["injected", "kernel"])
+def test_failed_dispatch_drops_the_held_scratch(monkeypatch, fault):
+    """Any failure of a dispatch with folds — an injected device fault fed
+    to the breaker, or a KernelError raised to the caller — drops the
+    kernel's held fold scratch with the device acc, so a half-folded
+    scratch never reaches the next dispatch; the next dispatch serves
+    exactly."""
+    pair = Pair("s/#", "v:number")
+    pair.sub("c", "$gt(v,50)", ("s", "#"))
+    pair.sub("a", "$avg(v,2)", ("s", "#"))
+    eng = pair.port
+    payload = [json.dumps({"v": v}).encode() for v in (70, 20, 90)]
+    pair.run(("s", "x"), payload)  # healthy: acc lives on the device
+    dropped = []
+    real_drop = PK.drop_scratch
+    monkeypatch.setattr(PK, "drop_scratch",
+                        lambda dev=None: (dropped.append(dev),
+                                          real_drop(dev)))
+    items = [(("s", "x"), eng.encode("", ("s", "x"), p)) for p in payload]
+    rows = pair.rows[1]
+    if fault == "injected":
+        faults.install(FaultPlan([FaultRule("device.predicate",
+                                            kind="error")]))
+        try:
+            eng.filter_batch("", items, [list(rows) for _ in payload])
+        finally:
+            faults.clear()
+        assert eng.device_failures == 1
+    else:
+        real = PK.predicate_phase
+
+        def broken(*a, **kw):
+            raise KernelError("predicate kernel launch failed: CUDA error 9")
+
+        monkeypatch.setattr(PK, "predicate_phase", broken)
+        with pytest.raises(KernelError):
+            eng.filter_batch("", items, [list(rows) for _ in payload])
+        monkeypatch.setattr(PK, "predicate_phase", real)
+    assert dropped == [eng._device]
+    assert eng._win.dev is None and eng._win.dev_stale
+    got, want = pair.run(("s", "y"), payload)[::-1]
+    assert got == want
+
+
+@pytest.mark.parametrize("n_pubs", [1, 2, 3, 4])
+def test_engine_places_each_index_array_at_a_16_byte_offset(monkeypatch,
+                                                            n_pubs):
+    """The engine's one int32 index block holds the pair publishes, the
+    pair predicates and the fold rows each at a multiple of 4 entries (16
+    bytes: the kernel's vector loads) whatever P % 4 is; the kernel sees
+    exactly the batch's pairs."""
+    pair = Pair("s/#", "v:number")
+    pair.sub("c", "$gt(v,50)", ("s", "#"))
+    pair.sub("a", "$avg(v,2)", ("s", "#"))
+    seen = []
+    real = PK.predicate_phase
+
+    def spy(*a, **kw):
+        seen.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(PK, "predicate_phase", spy)
+    payload = [json.dumps({"v": 40 + 20 * i}).encode()
+               for i in range(n_pubs)]
+    got, want = pair.run(("s", "x"), payload)[::-1]
+    assert got == want
+    (a,) = seen
+    pp, pr, slot = a[8], a[9], a[10]
+    assert pp.numel() == pr.numel() == n_pubs
+    for x in (pp, pr, slot):
+        assert x.storage_offset() % 4 == 0
+    assert pp.untyped_storage().data_ptr() == pr.untyped_storage().data_ptr()

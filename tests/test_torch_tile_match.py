@@ -73,7 +73,7 @@ def test_ref_matches_pallas_kernel(wild_rows, bits):
     got = TM.window_tiles_packed_ref(
         *(t(x[k]) for k in ("F_t", "t1", "eff", "flags", "Gt", "plt", "pdt",
                             "start")),
-        seg_max=seg, glob_pad=gp, wild_rows=wild_rows)
+        seg_max=seg, glob_pad=gp, mode="b" if wild_rows else "a")
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(n(got), want)
     assert np.unpackbits(want.view(np.uint8)).sum() > 50  # not vacuous
@@ -100,7 +100,7 @@ def test_kernel_epilogue_masks_match_pallas_kernel(wild_rows):
         G = torch.cat([G, torch.ones(G.shape[0], TM.T1_COLS)], dim=1)
         mm = G @ F[:, rows]
         masks = TM.row_masks(eff, flags, rows, glob_pad=x["glob_pad"],
-                             wild_rows=wild_rows)
+                             mode="b" if wild_rows else "a")
         keys = TM.pub_keys(t(x["plt"][i]), t(x["pdt"][i]))
         bit = (masks[None, :] >> keys.clamp(max=63)[:, None]) & 1
         words.append(TK._pack_mask((mm < 0) & (bit > 0)
@@ -113,7 +113,7 @@ def test_wrapper_runs_plain_version_on_cpu_only():
     x = {k: (t(v) if isinstance(v, np.ndarray) else v)
          for k, v in tile_inputs(9, 16).items()}
     kw = dict(seg_max=x.pop("seg_max"), glob_pad=x.pop("glob_pad"),
-              wild_rows=False)
+              mode="a")
     start = n(x["start"])
     before = TM.launches
     got = TM.window_tiles_packed(*x.values(), **kw, start_host=start)
@@ -133,7 +133,7 @@ def test_wrapper_checks_window_bounds_on_host_starts(bad):
     x = {k: (t(v) if isinstance(v, np.ndarray) else v)
          for k, v in tile_inputs(9, 16).items()}
     kw = dict(seg_max=x.pop("seg_max"), glob_pad=x.pop("glob_pad"),
-              wild_rows=False)
+              mode="a")
     start = n(x["start"])
     start = start + 2048 if bad == "past-the-end" else start[:2]
     with pytest.raises(ValueError, match="leave the table"):

@@ -404,6 +404,7 @@ class MatchService:
                                       batches)
         self.stats.set_service_launches(TM.launches, EX.launches,
                                         MK.plain_cuda_extractions)
+        self.stats.set_service_dense(TM.dense_launches, MK.plain_cuda_packs)
         # the device-side stage histograms (dispatch/delta/rebuild/
         # collector wait) live in THIS process; publishing the packed
         # block is the only way they reach a worker's scrape endpoint

@@ -8,10 +8,15 @@
 //   G[t,p,:] . F_t[:,r] + t1[r] == 0        (every concrete level matches)
 //   has_hash[r] ? plen[p] >= eff[r] : plen[p] == eff[r]
 //   !(pd[p] && first_wild[r])               ($-topics skip root wildcards)
-//   active[r] && r >= glob_pad              (region 0 is the dense phase's)
-//   wild_rows ? first_wild[r] : !first_wild[r]   (probe B / probe A split)
+//   active[r] and the row mode's guard:
+//     probe A (mode 0)   r >= glob_pad && !first_wild[r]
+//     probe B (mode 1)   r >= glob_pad &&  first_wild[r]
+//     dense   (mode 2)   r <  glob_pad   (region 0, every row of it)
 //
 // and out[t, p, j / 32] holds that verdict in bit j % 32 (int32 words).
+// The dense mode is the forward path's dense region 0 (the reference's
+// vernemq_tpu/ops/match_kernel.py:_dense_region0, fused by XLA): tiles of
+// consecutive publishes, every window starting at row 0.
 //
 // What bounds it. At the headline (1M subscriptions, K = 40, T = 24 tiles of
 // TP = 256 publishes, seg_max = 262,144) a tile does 2·40 = 80 FLOP per
@@ -57,8 +62,8 @@
 //   into bytes of 0x00/0xFF, one AND picks bit 2(l%4) (+1) of each byte, and
 //   two xor-shuffles (1, 2) OR the quad into whole 32-bit words, bit j = row
 //   j: about two integer operations per (publish, row) pair of a lane.
-//   Every per-row condition (length rule, $ rule, liveness, region-0 guard,
-//   probe split) is folded into one 64-bit row mask indexed by the publish
+//   Every per-row condition (length rule, $ rule, liveness, the row mode's
+//   guard) is folded into one 64-bit row mask indexed by the publish
 //   key min(plen, 31) + 32·(pd > 0); the warp transposes its 32 rows' masks
 //   (a 5-step shuffle transpose) into a 64-word table in shared memory, word
 //   k = the rows whose mask has bit k, and a publish's word is (sign bits) &
@@ -93,9 +98,15 @@ constexpr int kChunk = kWarps * 32;     // window rows per chunk: a word per war
 constexpr int kWords = kChunk / 32;     // output words per publish per chunk
 constexpr int kChunkPad = kChunk + 8;   // staged from the aligned row below
 constexpr int kChunksPerBlock = 8;      // 2048 rows per block share one G load
+// The dense mode's windows are short (region 0, 2048 rows at the headline)
+// and its tiles many and small: one chunk a block, so the chunks of a tile
+// run side by side instead of one after another (its G is TP x KP, a few KB)
+constexpr int kDenseChunksPerBlock = 1;
 constexpr int kT1Cols = 3;              // K columns carrying t1 - 1
 constexpr int kMaskWords = 65;          // a warp's key table; key 64: no bit
 constexpr uint16_t kBf16One = 0x3F80;
+constexpr int kProbeB = 1;              // row modes (probe A is 0)
+constexpr int kDense = 2;
 
 template <int KP>
 struct Layout {
@@ -244,7 +255,7 @@ tile_match_kernel(const uint16_t* __restrict__ F_t,   // [K, S] bf16 bits
                   const int32_t* __restrict__ start,  // [T]
                   int32_t* __restrict__ out,          // [T, TP, seg_max/32]
                   int K, int S, int TP, int seg_max, int glob_pad,
-                  int wild_rows) {
+                  int mode) {
     using Lay = Layout<KP>;
     constexpr int GS = Lay::GS;
     constexpr int NKS = KP / 16;  // k-steps of one mma
@@ -262,8 +273,10 @@ tile_match_kernel(const uint16_t* __restrict__ F_t,   // [K, S] bf16 bits
     const int g = lane >> 2;  // mma group: publish (A/C row), row (B column)
     const int q = lane & 3;   // thread in group
     const int nchunks = seg_max / kChunk;
-    const int c_begin = blockIdx.y * kChunksPerBlock;
-    const int c_end = min(nchunks, c_begin + kChunksPerBlock);
+    const int per_block = mode == kDense ? kDenseChunksPerBlock
+                                         : kChunksPerBlock;
+    const int c_begin = blockIdx.y * per_block;
+    const int c_end = min(nchunks, c_begin + per_block);
     if (c_begin >= c_end) return;
     // the wrapper guarantees 0 <= start[t] and start[t] + seg_max <= S
     const int st = start[t];
@@ -344,8 +357,11 @@ tile_match_kernel(const uint16_t* __restrict__ F_t,   // [K, S] bf16 bits
             const int fl = sFl[r];
             const int e = sEff[r];
             const bool fw = (fl & 2) != 0;
-            const bool row_ok = (fl & 4) != 0 && row >= glob_pad
-                                && (wild_rows ? fw : !fw);
+            const bool row_ok =
+                (fl & 4) != 0
+                && (mode == kDense ? row < glob_pad
+                                   : row >= glob_pad
+                                     && (mode == kProbeB ? fw : !fw));
             uint32_t len;
             if (fl & 1)
                 len = e <= 0 ? 0xffffffffu : e < 32 ? 0xffffffffu << e : 0u;
@@ -433,7 +449,7 @@ template <int KP>
 int launch(const void* F_t, const void* t1, const void* eff,
            const void* flags, const void* Gt, const void* plt,
            const void* pdt, const void* start, void* out, int T, int TP,
-           int K, int S, int seg_max, int glob_pad, int wild_rows,
+           int K, int S, int seg_max, int glob_pad, int mode,
            cudaStream_t stream) {
     const size_t smem = Layout<KP>::bytes(TP);
     if (smem > 48 * 1024) {
@@ -443,13 +459,15 @@ int launch(const void* F_t, const void* t1, const void* eff,
         if (e != cudaSuccess) return (int)e;
     }
     const int nchunks = seg_max / kChunk;
-    const dim3 grid(T, (nchunks + kChunksPerBlock - 1) / kChunksPerBlock);
+    const int per_block = mode == kDense ? kDenseChunksPerBlock
+                                         : kChunksPerBlock;
+    const dim3 grid(T, (nchunks + per_block - 1) / per_block);
     tile_match_kernel<KP><<<grid, kThreads, smem, stream>>>(
         static_cast<const uint16_t*>(F_t), static_cast<const float*>(t1),
         static_cast<const int32_t*>(eff), static_cast<const int32_t*>(flags),
         static_cast<const uint16_t*>(Gt), static_cast<const int32_t*>(plt),
         static_cast<const int32_t*>(pdt), static_cast<const int32_t*>(start),
-        static_cast<int32_t*>(out), K, S, TP, seg_max, glob_pad, wild_rows);
+        static_cast<int32_t*>(out), K, S, TP, seg_max, glob_pad, mode);
     return (int)cudaGetLastError();
 }
 
@@ -474,19 +492,21 @@ int with_kp(int K, int bad, Fn fn) {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
 // The caller checks shapes, types, alignment, window bounds, K <= 96,
-// S % 8 == 0, TP % 16 == 0 and seg_max % 256 == 0.
+// S % 8 == 0, TP % 16 == 0 and seg_max % 256 == 0. mode: 0 probe A, 1
+// probe B, 2 dense (see the top of this file).
 extern "C" int tile_match_launch(const void* F_t, const void* t1,
                                  const void* eff, const void* flags,
                                  const void* Gt, const void* plt,
                                  const void* pdt, const void* start,
                                  void* out, int T, int TP, int K, int S,
-                                 int seg_max, int glob_pad, int wild_rows,
+                                 int seg_max, int glob_pad, int mode,
                                  void* stream) {
-    if (TP <= 0 || TP % 16 || S % 8 || seg_max <= 0 || seg_max % kChunk)
+    if (TP <= 0 || TP % 16 || S % 8 || seg_max <= 0 || seg_max % kChunk
+        || mode < 0 || mode > kDense)
         return (int)cudaErrorInvalidValue;
     return with_kp(K, (int)cudaErrorInvalidValue, [&](auto kp) {
         return launch<decltype(kp)::value>(
             F_t, t1, eff, flags, Gt, plt, pdt, start, out, T, TP, K, S,
-            seg_max, glob_pad, wild_rows, static_cast<cudaStream_t>(stream));
+            seg_max, glob_pad, mode, static_cast<cudaStream_t>(stream));
     });
 }

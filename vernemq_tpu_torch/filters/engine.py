@@ -758,18 +758,20 @@ class FilterEngine:
                     acc_dev = put(acc_host)
                 # no padding: the pair and fold counts are the batch's own
                 # (the reference pads both to powers of two to bound its
-                # XLA compiles); one int32 block carries every index array
+                # XLA compiles); one int32 block carries every index array,
+                # each at a 16-byte offset (the kernel's vector loads)
                 P, A = len(pair_pub), len(agg_norm)
-                idx = np.empty(2 * P + 4 * A, np.int32)
+                P4 = -(-P // 4) * 4
+                idx = np.empty(2 * P4 + 4 * A, np.int32)
                 idx[:P] = pair_pub
-                idx[P:2 * P] = pair_pred
+                idx[P4:P4 + P] = pair_pred
                 if A:  # rows: slot, pub, field, gate
-                    idx[2 * P:] = np.asarray(agg_norm, np.int32).T.ravel()
+                    idx[2 * P4:] = np.asarray(agg_norm, np.int32).T.ravel()
                 idx_dev = put(idx)
-                pp, pr = idx_dev[:P], idx_dev[P:2 * P]
+                pp, pr = idx_dev[:P], idx_dev[P4:P4 + P]
                 f_dev = put(feats)
                 if agg_norm:
-                    agg = idx_dev[2 * P:].view(4, A)
+                    agg = idx_dev[2 * P4:].view(4, A)
                     keep, new_acc, cnt, sm, mn, mx = PK.predicate_phase(
                         *dev_table, acc_dev, f_dev, pp, pr, *agg,
                         torch.ones(A, dtype=torch.bool, device=dev), W=W)
@@ -784,10 +786,12 @@ class FilterEngine:
                 if agg_norm:
                     # the acc table is updated in place: a failed call may
                     # have left it half folded — invalidate so the next
-                    # dispatch re-uploads from the authoritative host mirror
+                    # dispatch re-uploads from the authoritative host
+                    # mirror; the kernel's held fold scratch likewise goes
                     with self._lock:
                         self._win.dev = None
                         self._win.dev_stale = True
+                    PK.drop_scratch(dev)
                 if isinstance(e, KernelError):
                     raise
                 if _is_cuda_fault(e):
@@ -818,6 +822,7 @@ class FilterEngine:
                 with self._lock:
                     self._win.dev = None
                     self._win.dev_stale = True
+                PK.drop_scratch(dev)
                 raise PredicateDegraded("abandoned dispatch discarded")
             if br is not None:
                 br.record_success()

@@ -10,9 +10,9 @@ eff_len`` without ``#``, ``>= eff_len`` with it) and the ``$``-rule holds —
 ``vmq_topic.erl:53-66`` + ``vmq_reg_trie.erl:283-288`` over a batch.
 
 The windowed production path (:func:`match_extract_windowed_flat`) matches
-three zones: region 0 densely (:func:`_dense_region0`, a float32
-``torch.matmul``), and the probe-A / probe-B windows through the hand
-kernel in ``ops/tile_match.py``. Each zone's first k matches per publish
+three zones, all through the hand kernel in ``ops/tile_match.py``: region 0
+densely (:func:`_dense_region0`, the kernel's dense mode), and the probe-A /
+probe-B windows. Each zone's first k matches per publish
 come from the extraction kernel (``ops/extract.py``), and the results are
 compacted on the device into one flat buffer. Every function here runs on
 whatever device its tensors are on; nothing falls back to another device.
@@ -90,9 +90,19 @@ def _popcount(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
 
 
+#: calls of the plain bit-pack (:func:`_pack_mask`, which the plain
+#: compare-and-pack versions — :func:`_dense_region0_packed`,
+#: ``tile_match.window_tiles_packed_ref`` — call) on CUDA tensors: every
+#: device path packs in a kernel, so a run that resets it reads 0 unless
+#: something compared a kernel with its plain version
+plain_cuda_packs = 0
+
+
 def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
     """``[B, S]`` bool → ``[B, S/32]`` int32 words, bit j of word w being
     column 32w + j (the reference's uint32 words, same bits, as int32)."""
+    global plain_cuda_packs
+    plain_cuda_packs += mask.is_cuda
     B, S = mask.shape
     bits = mask.reshape(B, S // 32, 32).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
@@ -200,7 +210,9 @@ def _dense_region0_packed(F_t, t1, sub_eff_len, has_hash, first_wild,
                           glob_pad, gc) -> torch.Tensor:
     """The packed mask ``int32 [B, glob_pad/32]`` of every publish against
     region 0 (filters whose first two levels are wildcards), made in
-    ``gc`` publish chunks.
+    ``gc`` publish chunks: the plain version of the tile kernel's dense
+    mode (``tile_match.dense_region0_packed``), which the forward path
+    runs; it is what that mode is held against on the card.
 
     The product runs in float32 on operands upcast from bf16: a bf16
     ``matmul`` returns bf16, which would round ``G@F`` before ``t1`` is
@@ -224,15 +236,24 @@ def _dense_region0_packed(F_t, t1, sub_eff_len, has_hash, first_wild,
 
 def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
                    pub_words, pub_len, pub_dollar, *, id_bits, k, glob_pad,
-                   gc) -> Parts:
-    """Every publish against region 0: its packed mask
-    (:func:`_dense_region0_packed`), then one extraction of the first ``k``
-    matches of every row (``extract.extract_rows``)."""
+                   gc, flags=None, G_all=None) -> Parts:
+    """Every publish against region 0: its packed mask from one launch of
+    the tile kernel in dense mode (``tile_match.dense_region0_packed``; on
+    the CPU its plain version), then one extraction of the first ``k``
+    matches of every row (``extract.extract_rows``). ``gc`` is the
+    reference's publish chunk of the ``[B, glob_pad]`` mask; the kernel
+    never forms that mask, so it is unused. ``flags`` / ``G_all`` pass the
+    row flags and publish operand when the caller has them already."""
     from .extract import extract_rows
+    from .tile_match import dense_region0_packed, row_flags
 
-    return extract_rows(_dense_region0_packed(
-        F_t, t1, sub_eff_len, has_hash, first_wild, active, pub_words,
-        pub_len, pub_dollar, id_bits=id_bits, glob_pad=glob_pad, gc=gc), k)
+    if flags is None:
+        flags = row_flags(has_hash, first_wild, active)
+    if G_all is None:
+        G_all = build_pub_operand(pub_words, id_bits)
+    return extract_rows(dense_region0_packed(
+        F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
+        glob_pad=glob_pad), k)
 
 
 def _flat_combine(real, k, C, g: Parts, a: Parts, b: Parts):
@@ -289,21 +310,21 @@ def match_extract_windowed_flat(
 
     B = pub_words.shape[0]
     real = torch.arange(B, device=pub_words.device) < n_real
-    g = _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
-                       pub_words, pub_len, pub_dollar, id_bits=id_bits, k=k,
-                       glob_pad=glob_pad, gc=gc)
     flags = row_flags(has_hash, first_wild, active)
     G_all = build_pub_operand(pub_words, id_bits)
     pd = pub_dollar.to(torch.int32)
+    g = _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                       pub_words, pub_len, pd, id_bits=id_bits, k=k,
+                       glob_pad=glob_pad, gc=gc, flags=flags, G_all=G_all)
     probe = dict(k=k, glob_pad=glob_pad)
     a_dev, b_dev = starts_dev if starts_dev is not None else (None, None)
     a = _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pd, t_sel,
                      t_start, a_tile, a_pos, seg_max=seg_max,
-                     wild_rows=False, start_dev=a_dev, **probe)
+                     mode="a", start_dev=a_dev, **probe)
     if seg2_max:
         b = _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pd,
                          t2_sel, t2_start, b_tile, b_pos, seg_max=seg2_max,
-                         wild_rows=True, start_dev=b_dev, **probe)
+                         mode="b", start_dev=b_dev, **probe)
     else:
         dev = pub_words.device
         b = (torch.zeros((B, k), dtype=torch.int32, device=dev),

@@ -24,6 +24,13 @@ float's bits, in the kernel and here); count is exact; the kernel's sums
 are atomic float adds whose order changes from run to run, so sums agree up
 to rounding. ``launches`` counts kernel dispatches (reset it to read one
 run's count).
+
+The kernel folds into a scratch of ``[W, 4]`` words that it leaves zeroed
+at the end of every dispatch, so the wrapper allocates it (zeroed) once per
+device, stream and ``W`` and keeps it (:func:`held_scratch`). A dispatch
+that fails may leave it half folded: the wrapper drops it when a launch
+fails, and the caller drops it (:func:`drop_scratch`) with its device
+``acc`` after any failure it sees later.
 """
 
 from __future__ import annotations
@@ -41,6 +48,34 @@ from .tile_match import KernelError, KernelInputError
 launches = 0
 
 _INT_MAX = 0x7FFFFFFF
+
+#: (device, stream handle, W) -> the kernel's fold scratch, int32 [W, 4],
+#: zero between dispatches
+_scratch = {}
+
+
+def held_scratch(dev, W: int, stream: int) -> torch.Tensor:
+    """The fold scratch of dispatches on ``stream`` of ``dev`` with ``W``
+    slots: zeroed when it is made, and left zeroed by every dispatch that
+    completes. Dispatches on one stream run in order, so they share it."""
+    key = (dev, stream, W)
+    s = _scratch.get(key)
+    if s is None:
+        s = _scratch[key] = torch.zeros((W, 4), dtype=torch.int32,
+                                        device=dev)
+    return s
+
+
+def drop_scratch(dev=None) -> None:
+    """Forget the held scratch of ``dev`` (of every device of its type when
+    it names no index, of every device when None): the next dispatch
+    allocates a zeroed one. Call it after any failure of a dispatch, beside
+    dropping the device ``acc`` — a half-folded scratch must never reach
+    the next dispatch."""
+    d = None if dev is None else torch.device(dev)
+    for key in [k for k in _scratch if d is None or (
+            k[0].type == d.type and d.index in (None, k[0].index))]:
+        del _scratch[key]
 
 
 def _gather(x, idx):
@@ -160,7 +195,8 @@ def _check(name, x, dtype, n, dev, ndim=1):
 
 def _launch(table, feats, pair_pub, pair_pred, agg, acc, W: int):
     """The CUDA dispatch behind both wrappers: ``(keep, partials [4, W] or
-    None)``."""
+    None)``. Only the outputs are allocated per call; the fold scratch is
+    held (:func:`held_scratch`)."""
     global launches
     dev = feats.device
     p_op, p_field, p_a, p_b, p_mlo, p_mhi = table
@@ -200,16 +236,19 @@ def _launch(table, feats, pair_pub, pair_pred, agg, acc, W: int):
                 f"table with W > 0; got {tuple(acc.shape)}")
         a_ptrs = [ptr(x) for x in agg]
         part = torch.empty((4, W), dtype=torch.float32, device=dev)
-        scratch = torch.empty((4, W), dtype=torch.int32, device=dev)
     lib = _build.load("predicate")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if agg is not None:
+            scratch = held_scratch(dev, W, stream)
         rc = lib.predicate_phase_launch(
             *[ptr(x) for x in table], NP, ptr(feats), B, F, ptr(pair_pub),
             ptr(pair_pred), ptr(keep), P, *a_ptrs, A,
             ptr(acc) if agg is not None else None, W if agg is not None
             else 0, ptr(scratch), ptr(part), stream)
     if rc != 0:
+        if agg is not None:  # the pass may have folded into it
+            _scratch.pop((dev, stream, W), None)
         raise KernelError(f"predicate kernel launch failed: CUDA error {rc}")
     if P + A > 0 or agg is not None:
         launches += 1

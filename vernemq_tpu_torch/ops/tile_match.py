@@ -1,13 +1,18 @@
 """Probe-window tile matcher: the port of ``vernemq_tpu/ops/pallas_match.py``.
 
-For each probe tile t — TP publishes against a window of ``seg_max``
-contiguous table rows starting at ``start[t]`` — it computes the coded
-mismatch ``G[TP, K] @ F_t[K, rows] + t1`` (0 exactly when every concrete
-level matches, see ``match_kernel.build_operands``), the length / ``$`` /
-liveness epilogue, the region-0 guard ``row >= glob_pad``, the probe split
-(probe A keeps concrete-first rows, probe B wildcard-first rows) and packs
-the boolean mask 32 rows to an int32 word: bit j of word w is window row
-32·w + j, layout ``[T, TP, seg_max/32]``.
+For each tile t — TP publishes against a window of ``seg_max`` contiguous
+table rows starting at ``start[t]`` — it computes the coded mismatch
+``G[TP, K] @ F_t[K, rows] + t1`` (0 exactly when every concrete level
+matches, see ``match_kernel.build_operands``), the length / ``$`` /
+liveness epilogue and the row mode's guard, and packs the boolean mask 32
+rows to an int32 word: bit j of word w is window row 32·w + j, layout
+``[T, TP, seg_max/32]``. The row modes (``mode``):
+
+- ``"a"``, probe A: rows past region 0 (``row >= glob_pad``) whose first
+  level is concrete;
+- ``"b"``, probe B: rows past region 0 whose first level is a wildcard;
+- ``"dense"``: the rows of region 0 (``row < glob_pad``), all of them —
+  the forward path's dense region 0 (:func:`dense_region0_packed`).
 
 Two versions of the one function:
 
@@ -20,8 +25,9 @@ Two versions of the one function:
 
 The window bounds are checked on the host copy of the starts
 (``start_host``, the array the caller made ``start`` from), so a launch on
-the card costs no device→host copy. ``launches`` counts kernel launches (reset it to
-read one run's count).
+the card costs no device→host copy. ``launches`` counts the probes' kernel
+launches and ``dense_launches`` the dense mode's (reset them to read one
+run's counts).
 """
 
 from __future__ import annotations
@@ -35,12 +41,15 @@ from . import _build
 from .match_kernel import _pack_mask
 
 launches = 0
+dense_launches = 0
 
 ROW_CHUNK = 256  # window rows per kernel chunk: 8 warps of 32 rows
 PUB_TILE = 16    # publishes per tensor-core tile (the mma's M)
 MAX_K = 96       # 6 planes x 16 levels: the widest operand compiled
 KEY_CLAMP = 31   # publish lengths clamp here in the kernel's row masks
 T1_COLS = 3      # K columns in which the kernel carries t1 - 1
+DENSE_TP = 128   # publishes per dense-mode tile
+MODES = {"a": 0, "b": 1, "dense": 2}  # the kernel's row modes
 
 
 class KernelError(RuntimeError):
@@ -60,9 +69,23 @@ def padded_k(K: int) -> int:
     return (K + T1_COLS + 15) // 16 * 16
 
 
+def _mode(mode: str) -> int:
+    if mode not in MODES:
+        raise KernelInputError(
+            f"tile_match: mode {mode!r} is none of {sorted(MODES)}")
+    return MODES[mode]
+
+
+def _row_ok(rows, fw, glob_pad: int, mode: str):
+    """The row mode's guard (see the module docstring)."""
+    if _mode(mode) == MODES["dense"]:
+        return rows < glob_pad
+    return (rows >= glob_pad) & (fw if mode == "b" else ~fw)
+
+
 def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
                             seg_max: int, glob_pad: int,
-                            wild_rows: bool) -> torch.Tensor:
+                            mode: str) -> torch.Tensor:
     """Plain PyTorch version of the tile matcher (one tile at a time)."""
     T = Gt.shape[0]
     j = torch.arange(seg_max, device=F_t.device)
@@ -79,17 +102,17 @@ def window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
         e = eff[win]
         len_ok = torch.where(hh, plen >= e, plen == e)
         m = (mm == 0.0) & len_ok & ~((pdt[t][:, None] > 0) & fw) & act
-        m &= (rows >= glob_pad) & (fw if wild_rows else ~fw)
+        m &= _row_ok(rows, fw, glob_pad, mode)
         out.append(_pack_mask(m))
     return torch.stack(out)
 
 
 def row_masks(eff, flags, rows, *, glob_pad: int,
-              wild_rows: bool) -> torch.Tensor:
+              mode: str) -> torch.Tensor:
     """The kernel's per-row epilogue as one int64 mask per row: bit
     ``key`` (see :func:`pub_keys`) is set iff a publish of that key may
     match the row — the length rule, the ``$`` rule (bits 32..63 are the
-    ``$`` publishes'), liveness, the region-0 guard and the probe split.
+    ``$`` publishes'), liveness and the row mode's guard.
     Exact for ``eff <= KEY_CLAMP - 1`` (the table's eff is at most L)."""
     e = eff[rows].to(torch.int64)
     fl = flags[rows]
@@ -98,7 +121,7 @@ def row_masks(eff, flags, rows, *, glob_pad: int,
     ok = torch.where(hh[:, None], b[None, :] >= e[:, None],
                      b[None, :] == e[:, None])
     lo = (ok.to(torch.int64) << b).sum(dim=1)
-    row_ok = act & (rows >= glob_pad) & (fw if wild_rows else ~fw)
+    row_ok = act & _row_ok(rows, fw, glob_pad, mode)
     return torch.where(row_ok, lo | torch.where(fw, 0, lo << 32), 0)
 
 
@@ -135,9 +158,10 @@ def _check(name, x, dtype, shape, dev, align=16):
 
 
 def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
-                        seg_max: int, glob_pad: int, wild_rows: bool,
+                        seg_max: int, glob_pad: int, mode: str,
                         start_host) -> torch.Tensor:
     """Run the tile matcher: ``int32 [T, TP, seg_max/32]`` packed mask.
+    ``mode`` is the row mode, ``"a"``, ``"b"`` or ``"dense"``.
 
     Inputs: ``F_t`` bf16 [K, S], ``t1`` f32 [S], ``eff`` / ``flags`` int32
     [S] (flags: bit 0 has_hash, bit 1 first_wild, bit 2 active), ``Gt``
@@ -147,9 +171,10 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     table. On CUDA the kernel also needs ``S % 8 == 0``, ``TP % 16 == 0``
     and ``seg_max % 256 == 0``.
     """
-    global launches
+    global launches, dense_launches
     dev = F_t.device
     S = F_t.shape[1]
+    code = _mode(mode)
     s = np.asarray(start_host).reshape(-1)
     if s.shape != (Gt.shape[0],) or (
             s.size and (int(s.min()) < 0 or int(s.max()) + seg_max > S)):
@@ -159,7 +184,7 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
     if dev.type == "cpu":
         return window_tiles_packed_ref(F_t, t1, eff, flags, Gt, plt, pdt,
                                        start, seg_max=seg_max,
-                                       glob_pad=glob_pad, wild_rows=wild_rows)
+                                       glob_pad=glob_pad, mode=mode)
     if dev.type != "cuda":
         raise KernelInputError(f"tile_match: unsupported device {dev}")
     K = F_t.shape[0]
@@ -193,11 +218,13 @@ def window_tiles_packed(F_t, t1, eff, flags, Gt, plt, pdt, start, *,
         rc = lib.tile_match_launch(
             F_t.data_ptr(), t1.data_ptr(), eff.data_ptr(), flags.data_ptr(),
             Gt.data_ptr(), plt.data_ptr(), pdt.data_ptr(), start.data_ptr(),
-            out.data_ptr(), T, TP, K, S, seg_max, glob_pad, int(wild_rows),
-            stream)
+            out.data_ptr(), T, TP, K, S, seg_max, glob_pad, code, stream)
     if rc != 0:
         raise KernelError(f"tile_match kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if code == MODES["dense"]:
+        dense_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -230,12 +257,12 @@ def tile_operands(G_all, pub_len, pub_dollar, t_sel):
 
 def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
                  t_sel, start_host, tile, pos, *, k: int, seg_max: int,
-                 glob_pad: int, wild_rows: bool, start_dev=None):
-    """One probe (A or B): gather the tile publishes' operands, run the
-    tile matcher, extract the first ``k`` matches of each publish's own
-    tile row and make them absolute slot ids. Publish i's row is tile
-    ``tile[i]`` slot ``pos[i]`` (``tile < 0``: no window in this probe, a
-    dead row). ``start_host`` holds the window starts on the host (numpy
+                 glob_pad: int, mode: str, start_dev=None):
+    """One probe (``mode`` "a" or "b"): gather the tile publishes'
+    operands, run the tile matcher, extract the first ``k`` matches of
+    each publish's own tile row and make them absolute slot ids. Publish
+    i's row is tile ``tile[i]`` slot ``pos[i]`` (``tile < 0``: no window
+    in this probe, a dead row). ``start_host`` holds the window starts on the host (numpy
     or a CPU tensor): the bounds are checked there. ``start_dev`` is the
     same starts already on the device (a view of a staged block); without
     it the host copy is uploaded, without waiting.
@@ -250,9 +277,69 @@ def _probe_tiles(F_t, t1, sub_eff_len, flags, G_all, pub_len, pub_dollar,
     Gt, plt, pdt = tile_operands(G_all, pub_len, pub_dollar, t_sel)
     packed = window_tiles_packed(F_t, t1, sub_eff_len, flags, Gt, plt, pdt,
                                  t_start, seg_max=seg_max, glob_pad=glob_pad,
-                                 wild_rows=wild_rows, start_host=start_host)
+                                 mode=mode, start_host=start_host)
     tt = tile.clamp(min=0).to(torch.int32)
     idx, valid, cnt = extract_rows(
         packed.reshape(T * TP, -1), k, rows=tt * TP + pos.to(torch.int32),
         ok=tile >= 0)
     return idx + t_start.index_select(0, tt)[:, None], valid, cnt
+
+
+def dense_geometry(B: int, glob_pad: int, S: int):
+    """``(T, TP, seg)`` of the dense-mode launch for a batch of ``B``: tiles
+    of ``TP`` consecutive publishes (``DENSE_TP``, or ``B`` rounded up to
+    the tensor-core step when smaller) and one window of ``glob_pad`` rows
+    (a multiple of 32) rounded up to the kernel's row chunk, clipped to
+    the table's whole words. On the windowed path the table is bucketed:
+    ``S`` and ``glob_pad`` are multiples of 2048 (``models/table.py``), so
+    the window is ``glob_pad`` itself; a window clipped to an ``S`` that
+    is not a multiple of 256 is refused on the card like any such
+    ``seg_max``."""
+    TP = min(DENSE_TP, -(-max(B, 1) // PUB_TILE) * PUB_TILE)
+    T = -(-max(B, 1) // TP)
+    seg = min(-(-glob_pad // ROW_CHUNK) * ROW_CHUNK, S - S % 32)
+    return T, TP, seg
+
+
+_zero_starts = {}  # device -> int32 zeros: the dense launch's window starts
+
+
+def _zeros(dev, T: int) -> torch.Tensor:
+    """``T`` int32 zeros on ``dev``, from a buffer made once per device
+    (no fill launch per dispatch). The buffer's fill is waited for once,
+    when it is made, so a launch on any stream reads zeros."""
+    z = _zero_starts.get(dev)
+    if z is None or z.numel() < T:
+        z = torch.zeros(max(T, 256), dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        _zero_starts[dev] = z
+    return z[:T]
+
+
+def dense_region0_packed(F_t, t1, sub_eff_len, flags, G_all, pub_len,
+                         pub_dollar, *, glob_pad: int) -> torch.Tensor:
+    """The packed mask ``int32 [B, seg/32]`` of every publish against
+    region 0 (rows ``< glob_pad``; the words past ``glob_pad/32`` are 0),
+    by one launch of the tile matcher in dense mode (:func:`dense_geometry`).
+    ``G_all`` bf16 ``[B, K]``, ``pub_len`` / ``pub_dollar`` ``[B]``. The
+    batch is padded to whole tiles with publishes that match nothing
+    (length -1), whose rows are dropped here."""
+    B, K = G_all.shape
+    dev = G_all.device
+    T, TP, seg = dense_geometry(B, glob_pad, F_t.shape[1])
+    pl = pub_len.to(torch.int32)
+    if pl.data_ptr() % 16:  # a view at any offset of a staged block
+        pl = pl.clone()
+    pd = pub_dollar.to(torch.int32)
+    pad = T * TP - B
+    if pad:
+        G_all = torch.cat([G_all, G_all.new_zeros((pad, K))])
+        pl = torch.cat([pl, pl.new_full((pad,), -1)])
+        pd = torch.cat([pd, pd.new_zeros(pad)])
+    packed = window_tiles_packed(
+        F_t, t1, sub_eff_len, flags, G_all.reshape(T, TP, K),
+        pl.reshape(T, TP), pd.reshape(T, TP),
+        _zeros(dev, T), seg_max=seg,
+        glob_pad=glob_pad, mode="dense", start_host=np.zeros(T, np.int32))
+    return packed.reshape(T * TP, seg // 32)[:B]

@@ -73,11 +73,13 @@ def _pad4(n: int) -> int:
 
 
 def _store(buf, off: int, code: str, vals) -> None:
-    """Store ``vals`` (format ``code``, ``"Q"`` or ``"d"``) from byte
-    ``off`` of ``buf``, each with one aligned store. The view is released
-    at once: a view kept would pin the mapping past its owner's close."""
-    with buf[off:off + 8 * len(vals)].cast(code) as view:
-        view[:] = array(code, vals)
+    """Store ``vals`` (format ``code``: ``"Q"``, ``"d"`` or ``"I"``) from
+    byte ``off`` of ``buf``, each with one aligned store. The view is
+    released at once: a view kept would pin the mapping past its owner's
+    close."""
+    a = array(code, vals)
+    with buf[off:off + a.itemsize * len(a)].cast(code) as view:
+        view[:] = a
 
 
 # --------------------------------------------------------------- fences
@@ -447,6 +449,19 @@ class WorkerStatsBlock:
     def service_launches(self) -> Dict[str, int]:
         tile, extract, plain = struct.unpack_from("3Q", self._buf, 88)
         return {"tile": tile, "extract": extract, "plain": plain}
+
+    def set_service_dense(self, dense: int, plain_packs: int) -> None:
+        """The port's addition (header bytes 112-119, unused by the
+        reference's layout): the service process's dense-mode tile
+        launches (``tile_match.dense_launches``) and its plain bit-packs
+        on the card (``match_kernel.plain_cuda_packs``), two uint32 kept
+        modulo 2^32 (a reader takes differences modulo 2^32)."""
+        _store(self._buf, 112, "I", (dense & 0xFFFFFFFF,
+                                     plain_packs & 0xFFFFFFFF))
+
+    def service_dense(self) -> Dict[str, int]:
+        dense, packs = struct.unpack_from("2I", self._buf, 112)
+        return {"dense": dense, "plain_packs": packs}
 
     def service_info(self) -> Dict[str, Any]:
         epoch, gen, pid = struct.unpack_from("QQQ", self._buf, 8)
