@@ -46,7 +46,21 @@ kernels are built for sm_90a). It
    version; then the device path (beside the 11.03 ms of an earlier run
    with the plain extraction) and its profile, a whole batch and the host
    encode/prep, and prints them beside the card and the ptxas register /
-   spill report of every kernel template the run launched;
+   spill report of every kernel template the run launched; then
+   ``[mesh]``, the multi-GPU matcher on the one card: the same registry
+   served by a ``GpuRegView`` on a (1, 4) mesh of the card (the
+   mesh-native seat) for 16 windows of 4096, every publish's rows equal to
+   the single-GPU view's and the trie's, nothing served off the card, the
+   tile kernel in its shard and dense modes and the extraction kernel
+   launched on every shard (launches per shard printed) with no plain
+   extraction or bit-pack; a delta round of 2,000 unsubscribes and 2,000
+   subscribes and a burst under one level-0 word, each flush written only
+   into the slices that own its rows; an adoption replayed exactly once;
+   ``match_local_slices`` of 64 topics equal to the trie; the device path
+   per window beside the single-GPU one (CUDA events, in turns); and 2
+   windows through the legacy sharded seat on a (2, 2) mesh (the tile
+   kernel's shard mode is also held against its plain version in step 2,
+   at the mesh's slice geometry);
 6. serves publish bursts through the serving layer's entry point, a
    ``BatchCollector`` over the same view (200 µs window, windows of 4096,
    super-batches of up to 8, host threshold 8, 500 ms lock bound): 4
@@ -135,9 +149,10 @@ kernels are built for sm_90a). It
    rebuild, fallback, stalled and expired replay counter 0 at the broker's
    default expiry; the reverse compare and extraction kernels launched;
 14. worker mode (``[workers]``): the broker phase's load through 4
-   SO_REUSEPORT workers and one match service on the card — the same
-   corpus subscribed over MQTT by 10,000 persistent sessions through the
-   workers (ring ops to the service), the table settled, then the same
+   SO_REUSEPORT workers and one match service on the card — the first
+   quarter of the corpus subscribed over MQTT by 2,500 persistent sessions
+   through the workers (ring ops to the service), the table settled, then
+   the same
    live clients in a second process through the shared port, at a
    queued-publish expiry of 5 s (the broker's default is 200 ms): every
    live subscriber's deliveries exact, nothing served off the card (the
@@ -191,6 +206,14 @@ CHURN_STEP = 100
 CHURN_LIVE = 2000
 MANY_K = 8
 # drills: breaker backoff (s) and the smaller view of the rebuild drill
+# mesh phase: windows of BATCH zipf publishes through the 4-slice mesh seat
+# (each held to the single-GPU view and the trie), subscribes and as many
+# unsubscribes of the delta round, windows through the legacy (2, 2) seat,
+# topics of the per-slice match
+MESH_WINDOWS = 16
+MESH_DELTA = 2000
+MESH_LEGACY_WINDOWS = 2
+MESH_LOCAL_TOPICS = 64
 DRILL_BACKOFF = 0.05
 DRILL_SUBS = 100_000
 DRILL_CAP = 1 << 17
@@ -246,6 +269,13 @@ HOST_METRICS = ("tpu_hybrid_host_pubs", "tpu_overload_shed_pubs",
 # round-robin over the workers' direct ports, WORKERS_CONNECT of them at
 # a time, never more than WORKERS_OPS_AHEAD rows ahead of the service
 WORKERS_N = 4
+# the subscriptions of the workers' load: a quarter of the broker phase's
+# corpus (its first quarter by subscription order), a cut of depth that
+# keeps the script within its time since the [mesh] phase was added; the
+# subscribe load over MQTT through the workers is the script's longest
+# step (~155 s at the whole corpus, 52.9-73.6 s at half of it, one H100
+# 80GB HBM3 at 700 W)
+WORKERS_SUBS = N_SUBS // 4
 WORKERS_CONNECT = 32
 WORKERS_OPS_AHEAD = 100_000
 WORKERS_SETTLE_S = 300
@@ -320,8 +350,15 @@ EARLIER_MS = 7.32
 # region 0 as 32 tiles of 128 publishes x 2048 rows from row 0), a 24-bit-id
 # shape (K=48), K=96 at the largest partial sums (every id 2^24-1 or 65535,
 # every level weighted), publishes longer than L (and than the kernel's key
-# clamp of 31) with $ publishes on wildcard-first rows, and the dense mode
-# at a glob_pad that is not a multiple of 256 with tiles of 16
+# clamp of 31) with $ publishes on wildcard-first rows, the dense mode
+# at a glob_pad that is not a multiple of 256 with tiles of 16, and the
+# shard mode at the [mesh] phase's geometry (a quarter of the headline
+# table, S 403,456 rows, glob_pad 174,080): slice 2, whose rows all lie
+# past glob_pad, slice 0 with windows across glob_pad, and the guard off
+# over a whole slice (match_local_slices); ``row_base`` in the options is
+# the slice's first global row
+MESH_SL = 1_613_824 // 4
+MESH_GLOB = 174_080
 KERNEL_SHAPES = [
     ("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, "a", {}, 2048),
     ("probe B K=40", 16, 8, 1_613_824, 24, 256, 32_768, "b", {}, 2048),
@@ -334,6 +371,14 @@ KERNEL_SHAPES = [
      dict(long_pubs=0.3), 2048),
     ("dense ragged", 24, 8, 1 << 20, 5, 16, 2304, "dense",
      dict(zero_starts=True, long_pubs=0.3), 2080),
+    ("shard past glob", 16, 8, MESH_SL, 25, 256, 65_536, "shard",
+     dict(row_base=2 * MESH_SL), MESH_GLOB),
+    ("shard across glob", 16, 8, MESH_SL, 8, 256, 65_536, "shard",
+     dict(starts=[MESH_GLOB - 65_536 + 777, MESH_GLOB - 100, 0,
+                  MESH_GLOB - 30_000, 150_000, 120_003, MESH_GLOB - 65_536,
+                  MESH_GLOB - 1]), MESH_GLOB),
+    ("shard guard off", 16, 8, MESH_SL, 1, 64, MESH_SL, "shard",
+     dict(zero_starts=True, row_base=MESH_SL), 0),
 ]
 # the reverse kernel's first design (32 queries x 256 rows a block, a
 # ballot per query and row word), probe and dense launch of one storm batch,
@@ -563,7 +608,8 @@ def forward_counts(label: str, counts=None):
 
 def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
                     seg: int, seed: int, vocab=None, eff_lo: int = 1,
-                    long_pubs: float = 0.0, zero_starts: bool = False):
+                    long_pubs: float = 0.0, zero_starts: bool = False,
+                    starts=None):
     """Random tile-matcher operands on the card and the host copy of the
     window starts. By default a corpus-like vocabulary plus byte-plane edge
     ids, 20% ``+`` levels, eff 1..3, tile publishes copied from rows of
@@ -572,7 +618,7 @@ def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
     no unknown words), eff from ``eff_lo``..L, and half the publishes take
     their source row's length; ``long_pubs`` of them get a length in
     L+1..L+39. ``zero_starts``: every window starts at row 0 (the dense
-    mode's)."""
+    mode's); ``starts``: these window starts."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -592,6 +638,8 @@ def synthetic_probe(torch, TK, bits: int, L: int, S: int, T: int, TP: int,
     start = rng.integers(0, S - seg + 1, T).astype(np.int32)
     if zero_starts:
         start[:] = 0
+    if starts is not None:
+        start = np.asarray(starts, np.int32)
     src = start[:, None] + rng.integers(0, seg, (T, TP))
     pw = words[src]
     pw[pw == TK.PLUS_ID] = vocab[0]
@@ -856,6 +904,265 @@ async def serve(col, topics):
 def collector_kw() -> dict:
     return dict(window_us=200, max_batch=BATCH, super_batch_k=SUPER_K,
                 host_threshold=8, lock_busy_shed_ms=500)
+
+
+def phase_mesh(card: str, reg, view, rng, pools) -> dict:
+    """[mesh] the multi-GPU matcher on one card: the path phase's registry
+    (nothing new loaded) served by a ``GpuRegView`` whose mesh is (1, 4)
+    of the one card (the mesh-native seat) and then (2, 2) (the legacy
+    sharded seat, ``mesh_native=False``). Every publish of every window
+    must get the single-GPU view's rows and the trie's, nothing may be
+    served off the card, and the windows' dispatches must launch the tile
+    kernel (shard and dense modes) and the extraction kernel with no plain
+    extraction or bit-pack on the card. A delta round must be written only
+    into the slices that own its rows, an adoption replayed exactly once,
+    and the per-slice match of 64 topics must union to the trie. Prints
+    the launches per shard and the device path per window beside the
+    single-GPU path's (CUDA events, in turns)."""
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.models.matcher import GpuRegView
+    from vernemq_tpu_torch.ops import extract as EX
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.ops import tile_match as TM
+    from vernemq_tpu_torch.parallel import mesh_match as MM
+    from vernemq_tpu_torch.parallel import sharded_match as SM
+    from vernemq_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    trie = reg.trie("")
+    kw = dict(max_levels=8, initial_capacity=1 << (N_SUBS - 1).bit_length(),
+              max_fanout=256, flat_avg=128)
+
+    def norm(rows):
+        return sorted((f, str(k)) for f, k, _ in rows)
+
+    def counts():
+        return (TM.launches, EX.launches, TK.plain_cuda_extractions,
+                TM.dense_launches, TK.plain_cuda_packs)
+
+    def windows(n: int, label: str, v, m):
+        """n windows through view ``v`` (seat ``m``), each publish held to
+        the single-GPU view and the trie; returns (per-window ms, the
+        seat's launches (tile, extraction, plain, dense, plain packs))."""
+        base = {k: getattr(m, k) for k in MATCHER_HOST}
+        got = [0] * 5
+        lat = []
+        for w in range(n):
+            topics = zipf_topics(rng, pools, BATCH)
+            single = view.fold_batch("", topics)
+            c0 = counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = v.fold_batch("", topics)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+            got = [g + b - a for g, a, b in zip(got, c0, counts())]
+            for tp, a, b in zip(topics, rows, single):
+                want = norm(trie.match(list(tp)))
+                if norm(a) != want or norm(b) != want:
+                    fail(f"{label} window {w}: topic {tp} got {len(a)} rows, "
+                         f"the single-GPU view {len(b)}, the trie "
+                         f"{len(want)}")
+        off = {k: getattr(m, k) - base[k] for k in MATCHER_HOST}
+        if any(off.values()):
+            fail(f"{label}: publishes served off the card: {off}")
+        forward_counts(label, tuple(got))
+        return lat, got
+
+    # ---------------------------------------------- the mesh-native seat
+    t0 = time.perf_counter()
+    mview = GpuRegView(reg, mesh=make_mesh([DEVICE] * 4, batch=1), **kw)
+    mm = mview.matcher("")
+    mview.fold_batch("", zipf_topics(rng, pools, BATCH))  # first build
+    torch.cuda.synchronize()
+    sw = mm._swm
+    nsl = sw.nslices
+    print(f"[mesh] {card} | GpuRegView on a (1, 4) mesh of {DEVICE} x 4 "
+          f"(MeshGpuMatcher): the path phase's {len(reg._rows)} "
+          f"subscriptions "
+          f"loaded and built in {time.perf_counter() - t0:.1f}s, S={sw._S} "
+          f"in {nsl} slices of {sw._S // nsl} rows, dense zone {sw._glob} "
+          f"rows ({sw._glob // nsl} a slice), warm dispatch "
+          f"{mm.warm_ms:.1f} ms", flush=True)
+    SM.shard_launches.clear()
+    lat, launched = windows(MESH_WINDOWS, "[mesh]", mview, mm)
+    per_shard = {f"{b},{s_}": dict(c)
+                 for (b, s_), c in sorted(SM.shard_launches.items())}
+    p50 = float(np.percentile(lat, 50))
+    print(f"[mesh] {card} | {MESH_WINDOWS} windows x {BATCH}: every "
+          f"publish's rows equal the single-GPU view's and the trie's, "
+          f"host-served 0, tile / dense-mode / extraction launches "
+          f"{launched[0]} / {launched[3]} / {launched[1]}, plain "
+          f"extractions and bit-packs on the card 0; per shard (batch, "
+          f"slice): {per_shard}; fold_batch p50 {p50:.2f} ms", flush=True)
+
+    # --------------------------------------------------------- delta round
+    drng = random.Random(SEED + 12)
+    l0, l1, l2 = pools
+    for f, key in drng.sample(list(reg._rows), MESH_DELTA):
+        reg.remove(f, key)
+        for v in (view, mview):
+            v.on_delta("remove", "", list(f), key, None)
+    for i in range(MESH_DELTA):
+        f = [drng.choice(l0), drng.choice(l1), drng.choice(l2)]
+        if drng.random() < 0.3:
+            f[drng.randrange(3)] = "+"
+        reg.add(f, f"mesh{i}")
+        for v in (view, mview):
+            v.on_delta("add", "", f, f"mesh{i}", None)
+    with mm.lock:
+        dirty = np.array(sorted(mm.table.dirty), dtype=np.int64)
+    owners = sorted(set(sw.slice_of_rows(dirty).tolist()))
+    snap = [(sw._dev[1].data(0, s_).clone(), sw._dev[2].data(0, s_).clone())
+            for s_ in range(nsl)]
+    flushes0, builds0 = sw.route_flushes, sw.full_scatters
+    t0 = time.perf_counter()
+    if settle_sync(mm) or sw.full_scatters != builds0:
+        fail("[mesh] the delta round rebuilt the table instead of routing")
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    written = [s_ for s_ in range(nsl) if not (
+        torch.equal(sw._dev[1].data(0, s_), snap[s_][0])
+        and torch.equal(sw._dev[2].data(0, s_), snap[s_][1]))]
+    route = dict(sw.last_route)
+    if sw.route_flushes != flushes0 + 1 or route["dirty_slices"] != owners \
+            or not set(written) <= set(owners):
+        fail(f"[mesh] delta routed to {route['dirty_slices']}, wrote "
+             f"{written}, owners {owners}, flushes "
+             f"{sw.route_flushes - flushes0}")
+    del snap
+    st = mview.mesh_status()
+    print(f"[mesh] {card} | delta round +{MESH_DELTA}/-{MESH_DELTA} "
+          f"subscriptions ({len(dirty)} dirty rows) in one slice-routed "
+          f"flush of {delta_ms:.1f} ms: route_flushes {st['route_flushes']}, "
+          f"dirty slices {route['dirty_slices']} (rows owned there), g-zone "
+          f"mirrors {'written' if route['gzone'] else 'untouched'}, slices "
+          f"whose rows changed {written}, full placements "
+          f"{st['full_scatters']}; rows per slice {st['rows_per_slice']}",
+          flush=True)
+    # a subscribe burst under one level-0 word: rows of one bucket region,
+    # so the flush lands on the slice(s) owning it and not on the g-zone
+    word = l0[5]
+    for i in range(MESH_DELTA // 10):
+        f = [word, drng.choice(l1), drng.choice(l2)]
+        reg.add(f, f"meshb{i}")
+        for v in (view, mview):
+            v.on_delta("add", "", f, f"meshb{i}", None)
+    with mm.lock:
+        dirty = np.array(sorted(mm.table.dirty), dtype=np.int64)
+    owners = sorted(set(sw.slice_of_rows(dirty).tolist()))
+    settle_sync(mm)
+    burst = dict(sw.last_route)
+    if burst["dirty_slices"] != owners or burst["gzone"] \
+            or len(owners) > 2 or sw.full_scatters != builds0:
+        fail(f"[mesh] one-word burst routed to {burst}, owners {owners}")
+    print(f"[mesh] {card} | a burst of {MESH_DELTA // 10} subscribes under "
+          f"{word!r}: one flush routed to slice(s) {owners} only, the g-zone "
+          f"mirrors untouched", flush=True)
+    windows(2, "[mesh] after the deltas", mview, mm)
+
+    # ----------------------------------------------------------- adoption
+    flushes1 = sw.route_flushes
+    token = ("chip_smoke", 1)
+    marked = mview.adopt_slices([1], token)
+    again = mview.adopt_slices([1], token)
+    settle_sync(mm)
+    adopted_route = list(sw.last_route["dirty_slices"])
+    third = mview.adopt_slices([1], token)
+    settle_sync(mm)
+    if marked <= 0 or again or third or adopted_route != [1] \
+            or sw.route_flushes != flushes1 + 1 or mm.slice_adoptions != 1:
+        fail(f"[mesh] adoption: marked {marked}, repeats {again} / {third}, "
+             f"route {adopted_route}, flushes "
+             f"{sw.route_flushes - flushes1}")
+    print(f"[mesh] {card} | adopt_slices([1]) replayed {marked} rows in one "
+          f"flush routed to slice 1; the repeated token replayed 0 rows "
+          f"twice (slice_adoptions {mm.slice_adoptions})", flush=True)
+
+    # --------------------------------------------------- per-slice match
+    topics = zipf_topics(rng, pools, MESH_LOCAL_TOPICS)
+    MM.local_launches.update(tile=0, extract=0)
+    c0 = counts()
+    ids, ranges = sw.match_local_slices(topics)
+    plain = [b - a for a, b in zip(c0, counts())]
+    ent = mm.table.entries
+    for tp, sl in zip(topics, ids):
+        rows = [ent[i] for i in sl if ent[i] is not None]
+        if norm(rows) != norm(trie.match(list(tp))):
+            fail(f"[mesh] match_local_slices: topic {tp} got {len(rows)}")
+    if plain[2] or plain[4] or MM.local_launches["tile"] != nsl:
+        fail(f"[mesh] match_local_slices launches {MM.local_launches}, "
+             f"plain extractions / bit-packs {plain[2]} / {plain[4]}")
+    print(f"[mesh] {card} | match_local_slices: {MESH_LOCAL_TOPICS} topics "
+          f"over {len(ranges)} slices, the union equal to the trie, on the "
+          f"tile kernel (shard mode, guard off) and the extraction kernel: "
+          f"launches {MM.local_launches}", flush=True)
+
+    # ----------------------------------------- device path beside single
+    m = view.matcher("")
+    topics = zipf_topics(rng, pools, BATCH)
+    with mm.lock:
+        mm.sync()
+        p = sw._prep_encoded(*mm._encode_batch_ex(topics)[:4], len(topics))
+    mesh_fn = sw._fn_for(*p["geom"], glob=p["glob"], S=p["S"],
+                         bits=p["bits"])
+    with m.lock:
+        m.sync()
+        enc = m._encode_batch_ex(topics)
+        args, statics, _ = m._flat_prep(
+            m._layout_locked(), int(m._operands[0].shape[1]), *enc,
+            len(topics))
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    host = [cuda(a) for a in args[:3]] + [int(args[3]), cuda(args[4]),
+                                          args[5], cuda(args[6]), args[7]] \
+        + [cuda(a) for a in args[8:]]
+    table = (*m._operands, *m._dev_arrays[1:])
+    single_call = lambda: TK.match_extract_windowed_flat(*table, *host,
+                                                          **statics)
+    mesh_call = lambda: mesh_fn(*p["dev"], *p["args"])
+    turns = [event_ms(f, 5) for f in (single_call, mesh_call, mesh_call,
+                                      single_call)]
+    single_ms, mesh_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"[mesh] {card} | device path per {BATCH}-publish window (CUDA "
+          f"events, 5 calls each, in turns single / mesh / mesh / single): "
+          f"4-slice mesh {turns[1]:.3f} / {turns[2]:.3f} ms, single-GPU "
+          f"{turns[0]:.3f} / {turns[3]:.3f} ms (recorded, not targeted)",
+          flush=True)
+    mview.close()
+    del mview, mm, sw, p, mesh_fn, mesh_call, ids
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- the legacy seat
+    t0 = time.perf_counter()
+    lview = GpuRegView(reg, mesh=make_mesh([DEVICE] * 4, batch=2),
+                       mesh_native=False, **kw)
+    lm = lview.matcher("")
+    lview.fold_batch("", zipf_topics(rng, pools, BATCH))
+    torch.cuda.synchronize()
+    if not isinstance(lm, SM.ShardedGpuMatcher) or not lm._swm.merge \
+            or isinstance(lm, MM.MeshGpuMatcher):
+        fail(f"[mesh] tpu_mesh_native=false seated {type(lm).__name__}")
+    load_s = time.perf_counter() - t0
+    legacy_lat, legacy = windows(MESH_LEGACY_WINDOWS, "[mesh] legacy",
+                                 lview, lm)
+    print(f"[mesh] {card} | legacy seat (ShardedGpuMatcher, merge=True) on "
+          f"a (2, 2) mesh of {DEVICE} x 4, built in {load_s:.1f}s: "
+          f"{MESH_LEGACY_WINDOWS} windows x {BATCH} equal to the single-GPU "
+          f"view and the trie, host-served 0, tile / dense-mode / "
+          f"extraction launches {legacy[0]} / {legacy[3]} / {legacy[1]}",
+          flush=True)
+    lview.close()
+    del lview, lm
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"[mesh] {card} | [mesh] took {took:.1f}s", flush=True)
+    return dict(tile=launched[0], dense=launched[3], extract=launched[1],
+                legacy_tile=legacy[0], legacy_dense=legacy[3],
+                legacy_extract=legacy[1], per_shard=per_shard,
+                local_launches=dict(MM.local_launches), ms=mesh_ms,
+                single_ms=single_ms, fold_p50_ms=p50, delta_ms=delta_ms,
+                seconds=took)
 
 
 def phase_burst(view, m, trie, rng, pools, card: str) -> tuple:
@@ -1220,6 +1527,79 @@ def phase_rebuild(trie_cls, card: str) -> None:
 #: budgets x overload_dispatch_budget_ms), which the first match of a fresh
 #: process must fit
 EXPIRY_MS = 4 * 50.0
+
+
+def release(card: str, when: str) -> None:
+    """Collect this process's garbage (a stopped broker's heap and its
+    device tables are reference cycles) and hand its cached device memory
+    back to CUDA, then print what the card has free."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[memory] {card} | {when}: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of tensors "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); the "
+          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+          flush=True)
+
+
+class FrozenHeap:
+    """The set-up's heap kept out of CPython's cyclic collector for a
+    counted load. A full collection walks every tracked object and holds
+    the interpreter lock while it does: over a broker process holding a
+    million subscriptions that pause outlasts the queued-publish expiry,
+    and the publishes queued across it are answered by the trie. The
+    set-up (the corpus load, the table build) leaves a heap that the
+    counted load does not free, so it is collected once here, timed (the
+    pause a full collection would cost during the load, with the set-up's
+    own garbage), and moved to the
+    permanent generation (``gc.freeze``); what the load allocates is
+    collected as usual, and every collection during the load is timed
+    through ``gc.callbacks``. :meth:`close` unfreezes it."""
+
+    def __init__(self) -> None:
+        import gc
+
+        t0 = time.perf_counter()
+        gc.collect()
+        self.full_ms = (time.perf_counter() - t0) * 1e3
+        gc.freeze()
+        self.frozen = gc.get_freeze_count()
+        self.pauses = {0: [], 1: [], 2: []}
+        self._t0 = 0.0
+        self._open = True
+        gc.callbacks.append(self._timed)
+
+    def _timed(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses[info["generation"]].append(
+                (time.perf_counter() - self._t0) * 1e3)
+
+    def summary(self) -> str:
+        young = self.pauses[0] + self.pauses[1]
+        return (f"set-up heap of {self.frozen} objects frozen out of the "
+                f"cyclic collector (one full collection over it took "
+                f"{self.full_ms:.1f} ms, against the {EXPIRY_MS:.0f} ms "
+                f"expiry); during the load {len(self.pauses[2])} full "
+                f"collections (longest "
+                f"{max(self.pauses[2], default=0.0):.2f} ms) and "
+                f"{len(young)} young ones (longest "
+                f"{max(young, default=0.0):.2f} ms)")
+
+    def close(self) -> str:
+        import gc
+
+        if self._open:
+            self._open = False
+            gc.callbacks.remove(self._timed)
+            gc.unfreeze()
+        return self.summary()
 
 
 def cold_start_child(conn) -> None:
@@ -1675,6 +2055,7 @@ def phase_broker(card: str, path_S: int) -> dict:
         if nodes != reg.trie("").stats()["nodes"]:
             fail(f"admin: the trie's kept node count "
                  f"{reg.trie('').stats()['nodes']} against a walk's {nodes}")
+        heap = FrozenHeap()
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=broker_clients,
@@ -1796,11 +2177,13 @@ def phase_broker(card: str, path_S: int) -> dict:
               f"alone {flush_ms:.2f} ms of stream time (CUDA events), so "
               f"the device was busy at most ~"
               f"{100 * flush_ms * m.match_batches / 1e3 / wall:.0f}% of "
-              f"the traffic's wall (estimate)", flush=True)
+              f"the traffic's wall (estimate); {heap.summary()}",
+              flush=True)
         res["admin"] = await phase_admin(card, b, m, col, port, api_key,
                                          polls, live, pools, rng,
                                          (scrape_ms, n_metrics, walk_ms,
                                           nodes))
+        heap.close()
         return res
 
     return asyncio.run(run())
@@ -1813,6 +2196,55 @@ def cluster_config():
     cfg = broker_config()
     cfg.set("metadata_plugin", "swc")
     return cfg
+
+
+def node_state(b) -> dict:
+    """A cluster node's counters read before and after the counted load:
+    overload-level entries and the level, anti-entropy rounds, cluster
+    channel bytes sent and received, spool replays, and the process's CPU
+    seconds, the device allocator's retries and the card's free memory."""
+    import torch
+
+    gov = b.overload.stats() if b.overload is not None else {}
+    return dict(enters=[int(gov.get(f"overload_level_enters_l{lv}", 0))
+                        for lv in (1, 2, 3)],
+                level=int(gov.get("overload_level", 0)),
+                exchanges=b.metadata.stats().get("swc_exchanges", 0),
+                sent=b.metrics.value("cluster_bytes_sent"),
+                received=b.metrics.value("cluster_bytes_received"),
+                replayed=b.metrics.value("cluster_spool_replayed"),
+                cpu_s=time.process_time(),
+                retries=torch.cuda.memory_stats().get("num_alloc_retries",
+                                                      0),
+                free_gib=torch.cuda.mem_get_info()[0] / 2**30)
+
+
+async def watch_node(b, seen: dict) -> None:
+    """Sample a cluster node's event loop every 10 ms during the counted
+    load: its lag past the sleep, its overload level and the largest
+    outgoing cluster buffer. Keeps the largest lag and buffer, the count
+    of lags past 50 ms, and the first 30 such lags or level changes as
+    (seconds into the load, lag ms, level, buffer bytes)."""
+    import asyncio
+
+    t0 = time.monotonic()
+    level = b.overload.level if b.overload is not None else 0
+    while True:
+        t = time.monotonic()
+        await asyncio.sleep(0.01)
+        now = time.monotonic()
+        lag = (now - t - 0.01) * 1e3
+        buf = max((getattr(w, "_buf_bytes", 0) for w in list(
+            getattr(b.cluster, "_writers", {}).values())), default=0)
+        lv = b.overload.level if b.overload is not None else 0
+        seen["max_lag_ms"] = max(seen["max_lag_ms"], lag)
+        seen["max_buf"] = max(seen["max_buf"], buf)
+        if lag > 50:
+            seen["lags"] += 1
+        if (lag > 50 or lv != level) and len(seen["events"]) < 30:
+            seen["events"].append((round(now - t0, 2), round(lag, 1), lv,
+                                   buf))
+        level = lv
 
 
 def cluster_node(name: str, join, conn) -> None:
@@ -1905,8 +2337,10 @@ def cluster_node(name: str, join, conn) -> None:
             elif cmd[0] == "build":
                 t0 = time.perf_counter()
                 settle_sync(m)
-                conn.send(("built", time.perf_counter() - t0,
-                           m.table.count, int(m.table.cap), m.warm_ms))
+                t_built = time.perf_counter() - t0
+                heap = FrozenHeap()  # frozen until the node stops
+                conn.send(("built", t_built, m.table.count,
+                           int(m.table.cap), m.warm_ms))
             elif cmd[0] == "want":
                 # each local live subscriber's deliveries as this node's
                 # trie (local rows and the peer's pointers) gives them
@@ -1927,9 +2361,15 @@ def cluster_node(name: str, join, conn) -> None:
                             remote=b.metrics.value("router_matches_remote"),
                             dropped=b.metrics.value(
                                 "cluster_frames_dropped"))
+                seen = dict(max_lag_ms=0.0, lags=0, max_buf=0, events=[],
+                            before=node_state(b))
+                watcher = loop.create_task(watch_node(b, seen))
                 conn.send("reset")
             elif cmd[0] == "read":
+                watcher.cancel()
+                seen["after"] = node_state(b)
                 conn.send(dict(
+                    watch=seen,
                     launches=TM.launches, extract_launches=EX.launches,
                     plain_extractions=TK.plain_cuda_extractions,
                     dense_launches=TM.dense_launches,
@@ -1944,7 +2384,7 @@ def cluster_node(name: str, join, conn) -> None:
                     trie_folds=folds[0] - base["folds"],
                     dropped=b.metrics.value("cluster_frames_dropped")
                     - base["dropped"],
-                    rows=m.table.count,
+                    rows=m.table.count, gc=heap.summary(),
                     host={k: getattr(col, k) for k in (
                         "degraded_host_pubs", "busy_host_pubs",
                         "rebuild_host_pubs", "overload_host_pubs",
@@ -1985,6 +2425,7 @@ def phase_cluster(card: str, single: dict) -> dict:
     them back."""
     import collections
     import multiprocessing
+    import threading
 
     import numpy as np
 
@@ -1997,6 +2438,7 @@ def phase_cluster(card: str, single: dict) -> dict:
     from vernemq_tpu_torch.models import matcher as GM
     from vernemq_tpu_torch.retained import index as RI
 
+    release(card, "before the cluster's nodes start")
     # every library a node loads is built here, before the nodes spawn:
     # two processes never run nvcc into the build directory at once
     _build.build(sorted({*GM.KERNEL_LIBS, *RI.KERNEL_LIBS, "predicate"}))
@@ -2090,11 +2532,17 @@ def phase_cluster(card: str, single: dict) -> dict:
             fail("cluster: the clients' stop counts disagree with the "
                  "nodes' tries")
         both(("reset",))
+        own_cpu = time.process_time()
+        threads = sorted(t.name for t in threading.enumerate())
         conn.send("go")
         if not conn.poll(BROKER_WAIT_S + 120):
             fail("cluster: the clients did not finish in time")
         got, acks, wall, _ = conn.recv()
         t_traffic = time.perf_counter()
+        print(f"[cluster] {card} | this script's own process during the "
+              f"load: {time.process_time() - own_cpu:.1f} CPU s, load "
+              f"average {os.getloadavg()[0]:.1f} at its end, threads "
+              f"{threads}", flush=True)
         reads = both(("read",))
         lat = {"local": [], "cross-node": []}
         for j, g in enumerate(got):
@@ -2126,7 +2574,24 @@ def phase_cluster(card: str, single: dict) -> dict:
                   f"subscribers on its host trie, as the reference does "
                   f"(Registry.publish_from_remote); host-served "
                   f"{r['host']}; cluster frames dropped during the traffic "
-                  f"{r['dropped']}", flush=True)
+                  f"{r['dropped']}; {r['gc']}", flush=True)
+            w, w0, w1 = r["watch"], r["watch"]["before"], r["watch"]["after"]
+            print(f"[cluster] {card} | node {name} during the load: "
+                  f"{w1['cpu_s'] - w0['cpu_s']:.1f} CPU s; event loop "
+                  f"sampled every 10 ms: largest lag {w['max_lag_ms']:.1f} "
+                  f"ms, {w['lags']} lags past 50 ms; largest outgoing "
+                  f"cluster buffer {w['max_buf']} bytes; cluster channel "
+                  f"{w1['sent'] - w0['sent']} bytes sent, "
+                  f"{w1['received'] - w0['received']} received, spool "
+                  f"replays {w1['replayed'] - w0['replayed']}; device "
+                  f"allocator retries {w1['retries'] - w0['retries']}, "
+                  f"card memory free {w0['free_gib']:.1f} GiB at the "
+                  f"start; overload "
+                  f"level {w0['level']} at the start, entries (1, 2, 3) "
+                  f"{w0['enters']} before, {w1['enters']} after; "
+                  f"anti-entropy rounds {w1['exchanges'] - w0['exchanges']}"
+                  f"; (s into the load, lag ms, level, buffer bytes): "
+                  f"{w['events']}", flush=True)
         inversions = check_live(got, want, "cluster")
         over_http = []
         for (name, _, _), u in zip(nodes, ups):
@@ -2632,7 +3097,7 @@ def phase_workers(card: str, single: dict) -> dict:
     corpus = collections.defaultdict(list)
     pools = build_corpus(random.Random(SEED), N_SUBS,
                          lambda f, i: corpus[i // BROKER_PER_ID].append(
-                             "/".join(f)))
+                             "/".join(f)) if i < WORKERS_SUBS else None)
     corpus = [corpus[i] for i in sorted(corpus)]
     rows = sum(len(set(fs)) for fs in corpus)
     rng = random.Random(SEED + 4)
@@ -2643,8 +3108,9 @@ def phase_workers(card: str, single: dict) -> dict:
     g = WorkerGroup(
         WORKERS_N, "127.0.0.1", port, direct_base=direct,
         match_service=True, match_view="tpu", match_device=DEVICE,
-        match_tpu_opts=dict(initial_capacity=1 << (N_SUBS - 1).bit_length(),
-                            max_fanout=256, flat_avg=128),
+        match_tpu_opts=dict(
+            initial_capacity=1 << (WORKERS_SUBS - 1).bit_length(),
+            max_fanout=256, flat_avg=128),
         allow_anonymous=True, systree_enabled=False, sysmon_enabled=False,
         tpu_host_batch_threshold=0,
         watchdog_collector_expiry_budgets=WORKERS_EXPIRY_BUDGETS)
@@ -2741,7 +3207,8 @@ def phase_workers(card: str, single: dict) -> dict:
               f"MQTT through the workers' direct ports ({WORKERS_N} client "
               f"processes) in {t_sub:.1f}s "
               f"({ops0} applied by the service by then), all {rows} ring "
-              f"ops applied after {t_load:.1f}s (single-process broker "
+              f"ops applied after {t_load:.1f}s (the first {WORKERS_SUBS} "
+              f"of the corpus; the single-process broker "
               f"phase: {single['load_s']:.1f}s through "
               f"Registry.subscribe), the loaded table settled on the "
               f"device in {t_settle:.1f}s", flush=True)
@@ -3493,6 +3960,7 @@ def phase_replay(card: str) -> int:
             want.append(c)
         expect = [sum(c.values()) for c in want]
         col = b.retained_collector()
+        heap = FrozenHeap()
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=replay_clients,
@@ -3556,7 +4024,7 @@ def phase_replay(card: str) -> int:
               f"{b._collector_expiry_ms():.0f} ms, deadline "
               f"{b._dispatch_deadline_ms():.0f} ms); compare / extraction "
               f"kernel launches {launches[0]} / {launches[1]}; no queue "
-              f"drop", flush=True)
+              f"drop; {heap.close()}", flush=True)
         return launches
 
     return asyncio.run(run())
@@ -4079,9 +4547,11 @@ def main() -> int:
     launched_kp = set()  # compiled widths KP the run launched
     for i, (name, bits, L, S, T, TP, seg, mode, opts, gp) in \
             enumerate(KERNEL_SHAPES):
+        opts = dict(opts)
+        row_base = opts.pop("row_base", 0)
         x, start_host = synthetic_probe(torch, TK, bits, L, S, T, TP, seg,
                                         SEED + i, **opts)
-        kw = dict(seg_max=seg, glob_pad=gp, mode=mode)
+        kw = dict(seg_max=seg, glob_pad=gp, mode=mode, row_base=row_base)
         got = TM.window_tiles_packed(*x, **kw, start_host=start_host)
         want = TM.window_tiles_packed_ref(*x, **kw)
         torch.cuda.synchronize()
@@ -4091,7 +4561,8 @@ def main() -> int:
         long_hits = int(hits[x[5] > L].sum())
         launched_kp.add(TM.padded_k(x[0].shape[0]))
         print(f"[kernel] {name}: mode {mode} T={T} TP={TP} seg={seg} "
-              f"glob_pad={gp} K={x[0].shape[0]} set bits {ones} (publishes "
+              f"glob_pad={gp} row_base={row_base} K={x[0].shape[0]} set "
+              f"bits {ones} (publishes "
               f"longer than L: {long_hits}) max_abs_err {err}", flush=True)
         if err or not ones:
             fail(f"kernel disagrees with its plain version at {name}"
@@ -4337,6 +4808,8 @@ def main() -> int:
     print(f"[time] {card} | host encode + window prep per batch: "
           f"{prep_ms:.2f} ms", flush=True)
 
+    mesh = phase_mesh(card, reg, view, rng, pools)
+
     # ------------------------------------------------- the serving layer
     burst_launches, burst_ex, burst_dense = phase_burst(view, m, trie, rng,
                                                         pools, card)
@@ -4345,6 +4818,13 @@ def main() -> int:
     phase_many(view, m, rng, pools, card)
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
+    # the path phases' registry, view and operands are done with: the
+    # processes and phases that follow find the card's memory and this
+    # process's heap as a run of those phases alone would
+    view.close()
+    reg = trie = view = m = corpus = topics = tab = host = lat = None
+    F_t = t1d = eff = hh = fw = act = flags = G_all = pl = pd = None
+    release(card, "after the path phases")
     broker = phase_broker(card, path_S)
     cluster = phase_cluster(card, broker)
     workers = phase_workers(card, broker)
@@ -4364,11 +4844,18 @@ def main() -> int:
         "admin_drill_launches": broker["admin"]["drill_launches"],
         "cluster_launches": cluster["node_launches"],
         "dense_launches": path_dense,
+        "launches_per_path": {
+            "path": path_launches, "mesh": mesh["tile"],
+            "mesh_legacy": mesh["legacy_tile"]},
         "dense_launches_per_path": {
             "path": path_dense, "burst": burst_dense, "churn": churn_dense,
             "broker": broker["dense_launches"],
             "cluster": cluster["node_dense_launches"],
-            "workers": workers["dense_launches"]},
+            "workers": workers["dense_launches"], "mesh": mesh["dense"],
+            "mesh_legacy": mesh["legacy_dense"]},
+        "mesh": {k: mesh[k] for k in (
+            "per_shard", "local_launches", "ms", "single_ms", "fold_p50_ms",
+            "delta_ms", "seconds")},
         "dense_region0": {k: dense[k] for k in (
             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "flop", "max_abs_err", "T", "TP", "seg")},
@@ -4444,7 +4931,8 @@ def main() -> int:
             "cluster": cluster["node_extract_launches"],
             "workers": workers["extract_launches"],
             "retained": ret["extract_launches"],
-            "replay": replay_launches[1]},
+            "replay": replay_launches[1], "mesh": mesh["extract"],
+            "mesh_legacy": mesh["legacy_extract"]},
         "max_abs_err": max(extract_err, ret["extract_err"],
                            max(e["max_abs_err"] for e in ext.values())),
         "ms": ex_ms,

@@ -53,14 +53,8 @@ TIMING = {"peer_port", "dur_ms", "age_s", "retry_in_s", "time_degraded_s",
           "heartbeat_age_s", "loop_lag_ms_p99", "started"}
 #: fields of the reference's rows the port leaves out (no XLA compiles)
 LEFT_OUT = {"compiled"}
-#: metrics of the reference the port leaves out: the mesh slice map
-#: (ROADMAP Queue 1 item 8) and the XLA warm-ups
-LEFT_OUT_METRICS = {
-    "mesh_delta_dirty_slices", "mesh_delta_flushes",
-    "mesh_delta_gzone_flushes", "mesh_delta_rows", "mesh_dispatches",
-    "mesh_full_scatters", "mesh_rows_resident", "mesh_slice_adoptions",
-    "mesh_slices_local", "mesh_slices_total", "tpu_delta_shapes_warmed",
-    "tpu_warmup_batches"}
+#: metrics of the reference the port leaves out: the XLA warm-ups
+LEFT_OUT_METRICS = {"tpu_delta_shapes_warmed", "tpu_warmup_batches"}
 #: the collector's and the matcher's host-served publish counters
 HOST_SERVED = ("tpu_hybrid_host_pubs", "tpu_overload_shed_pubs",
                "tpu_rebuild_shed_pubs", "tpu_busy_shed_pubs",

@@ -489,9 +489,9 @@ def test_gpu_view_without_a_card_raises(monkeypatch):
     assert Broker(Config()).device is None  # the trie view needs no card
 
 
-#: the configurations the port still refuses: a device mesh (ROADMAP
-#: Queue 1 item 8), bridges and the bundled plugins (item 11b)
-REFUSED = ("tpu_mesh", "bridges", "plugins")
+#: the configurations the port still refuses: bridges and the bundled
+#: plugins (ROADMAP Queue 1 item 11b)
+REFUSED = ("bridges", "plugins")
 
 
 @pytest.mark.asyncio
@@ -502,13 +502,13 @@ REFUSED = ("tpu_mesh", "bridges", "plugins")
     dict(plugins=[{"name": "vmq_acl"}]), dict(observability_enabled=False)],
     ids=lambda k: next(iter(k)))
 async def test_unported_configs_raise(knob):
-    """A device mesh (ROADMAP item 8), bridges and the bundled plugins
-    (item 11b) are not ported: asking for any of them raises, naming the
-    item, before a broker is built. The knobs items 11a and 11c ported are
-    served: the SWC metadata store, the admin HTTP API, the Graphite
-    reporter and observability off each boot a broker on the GPU view that
-    delivers a publish. (Worker mode, item 9, is served too:
-    test_torch_workers.py.)"""
+    """Bridges and the bundled plugins (ROADMAP item 11b) are not ported:
+    asking for either raises, naming the item, before a broker is built.
+    The knobs items 8, 11a and 11c ported are served: a device mesh (the
+    mesh-native seat, on the CPU repeated), the SWC metadata store, the
+    admin HTTP API, the Graphite reporter and observability off each boot
+    a broker on the GPU view that delivers a publish. (Worker mode, item
+    9, is served too: test_torch_workers.py.)"""
     from vernemq_tpu_torch.observability import histogram as hist
 
     name = next(iter(knob))
@@ -543,6 +543,11 @@ async def test_unported_configs_raise(knob):
             assert b.graphite is not None and not b.graphite._task.done()
         elif name == "observability_enabled":
             assert not hist.enabled()
+        elif name == "tpu_mesh":
+            from vernemq_tpu_torch.parallel.mesh_match import MeshGpuMatcher
+
+            assert isinstance(m, MeshGpuMatcher)
+            assert m.mesh.shape == {"batch": 2, "sub": 4}
     finally:
         await b.stop()
         await s.stop()

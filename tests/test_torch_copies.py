@@ -38,6 +38,10 @@ COPIES = {
     ],
     "admin/tracer.py": [],
     "broker/listeners.py": _loggers("listeners"),
+    "cluster/mesh_map.py": _loggers("mesh") + [
+        ("~vernemq_tpu.cluster.metadata", "~vernemq_tpu_torch.cluster.metadata"),
+        ("``MeshTpuMatcher.adopt_slices``", "``MeshGpuMatcher.adopt_slices``"),
+    ],
     "cluster/swc_db.py": [],
     "cluster/swc_kernel.py": [],
     "cluster/swc_store.py": _loggers("swc"),

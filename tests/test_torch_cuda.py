@@ -9,7 +9,9 @@ its plain version at the main path's shapes and its edges, the forward
 windowed path equal to the same call with the plain extraction, the
 retained reverse match on the card equal to its plain path (the compare
 kernel and the extraction over its chunk counts), a refused reverse kernel failing the replay futures,
-and the retained index's warm first build.
+the retained index's warm first build, the tile kernel's shard row mode, a
+2-slice mesh of one card equal to the single-GPU matcher, and match_many
+over misaligned staged pub_len views.
 
 Marked ``cuda``: without a card every test skips (a kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs
@@ -139,6 +141,156 @@ def test_tile_match_kernel_at_its_edges(label, kw, wild_rows):
     assert int(hits.sum()) > 50  # not vacuous
     if label == "plen>L":  # the long publishes do match (hash rows)
         assert int(hits[x[5] > 31].sum()) > 0
+
+
+# (label, window starts, glob_pad, row_base) of the shard mode on a table
+# slice of S = 32768 rows: a slice whose rows all lie past glob_pad, one
+# whose windows cross it (one below it entirely), and the guard off
+# (glob_pad 0, the per-slice match)
+SHARD_CASES = [
+    ("past", [0, 777, 32768 - 8192], 40_000, 65_536),
+    ("straddles", [0, 9000 - 4096, 9000 - 1, 20_000], 9000 + 98_304, 98_304),
+    ("guard off", [0, 333, 32768 - 8192], 0, 32_768),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,starts,gp,row_base", SHARD_CASES,
+                         ids=[c[0] for c in SHARD_CASES])
+def test_shard_mode_is_bit_equal_to_the_plain_version(label, starts, gp,
+                                                      row_base):
+    """The shard row mode (rows kept by their global index ``row_base`` +
+    row, no first-level split) is bit-equal to window_tiles_packed_ref,
+    and counted as a probe launch."""
+    _card()
+    x, kw = _tile_inputs(11, 16, starts=starts)
+    kw.update(glob_pad=gp, row_base=row_base, mode="shard")
+    before = TM.launches
+    got = TM.window_tiles_packed(*x, **kw)
+    kw.pop("start_host")
+    want = TM.window_tiles_packed_ref(*x, **kw)
+    torch.cuda.synchronize()
+    assert TM.launches == before + 1
+    assert torch.equal(got, want), label
+    hits = TK._popcount(want).sum(dim=(1, 2))
+    assert int(hits.sum()) > 100  # not vacuous
+    if label == "straddles":  # the tile below glob_pad keeps nothing
+        assert int(hits[0]) == 0 and int(hits[1]) > 0
+
+
+@pytest.mark.cuda
+def test_concurrent_launches_at_other_tile_widths_are_not_refused():
+    """Four host threads launch one kernel template (K = 40) at tile widths
+    whose shared memory all pass 48 KB (TP 16, 64, 128 and 256), each on
+    its own stream, 500 times, as a broker's dispatches in flight do (dense
+    tiles of small and large flushes beside a probe): no launch is refused
+    — the cap a launch needs is raised, never lowered under another
+    thread's launch — and each thread's last result equals the plain
+    version's."""
+    _card()
+    import threading
+
+    jobs = [_tile_inputs(21 + i, 16, TP=tp)
+            for i, tp in enumerate((16, 64, 128, 256))]
+    errors, last = [], [None] * len(jobs)
+
+    def run(i):
+        x, kw = jobs[i]
+        stream = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(500):
+                    last[i] = TM.window_tiles_packed(*x, mode="a", **kw)
+            stream.synchronize()
+        except Exception as e:  # a refused launch: KernelError
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+        assert not th.is_alive()
+    assert not errors, errors
+    for (x, kw), got in zip(jobs, last):
+        kw = dict(kw)
+        kw.pop("start_host")
+        assert torch.equal(got, TM.window_tiles_packed_ref(*x, mode="a",
+                                                           **kw))
+
+
+@pytest.mark.cuda
+def test_two_slice_mesh_on_the_card_equals_match_batch():
+    """A 2-slice mesh of cuda:0 (MeshGpuMatcher) serves the rows
+    GpuMatcher.match_batch serves, launching the tile kernel in dense and
+    shard mode and the extraction kernel on both shards, with no plain
+    extraction or bit-pack on the card; its per-slice match unions to the
+    same rows."""
+    _card()
+    from vernemq_tpu_torch.parallel import sharded_match as SM
+    from vernemq_tpu_torch.parallel.mesh import make_mesh
+    from vernemq_tpu_torch.parallel.mesh_match import MeshGpuMatcher
+
+    corpus = bucket_corpus()
+    single = GM.GpuMatcher(max_levels=8, initial_capacity=8192,
+                           device="cuda")
+    mesh = MeshGpuMatcher(make_mesh(["cuda:0"] * 2), max_levels=8,
+                          initial_capacity=8192)
+    for i, f in enumerate(corpus):
+        for m in (single, mesh):
+            m.table.add(f, i, None)
+    topics = bucket_topics(random.Random(9), 256)
+    single.match_batch(topics[:4])
+    mesh.match_batch(topics[:4])  # builds and warms both
+    SM.shard_launches.clear()
+    plain = TK.plain_cuda_extractions, TK.plain_cuda_packs
+    got = mesh.match_batch(topics)
+    torch.cuda.synchronize()
+    want = single.match_batch(topics)
+    key = lambda rows: sorted(k for _, k, _ in rows)
+    assert [key(r) for r in got] == [key(r) for r in want]
+    assert sum(len(r) for r in want) > 100  # not vacuous
+    assert (TK.plain_cuda_extractions, TK.plain_cuda_packs) == plain
+    assert set(SM.shard_launches) == {(0, 0), (0, 1)}
+    for c in SM.shard_launches.values():
+        assert c["dense"] == 1 and c["tile"] == 1 and c["extract"] == 2
+    assert mesh.host_fallbacks == 0 and mesh._swm.mesh_dispatches >= 2
+    ids, _ = mesh._swm.match_local_slices(topics[:32])
+    ent = mesh.table.entries
+    assert [sorted(ent[i][1] for i in sl if ent[i] is not None)
+            for sl in ids] == [key(r) for r in want[:32]]
+
+
+@pytest.mark.cuda
+def test_match_many_reads_misaligned_pub_len_views():
+    """K = 4 batches staged in one block placed 4 bytes past a 16-byte
+    boundary, so row 0's pub_len view (and any row whose start is not a
+    multiple of 16 bytes) is off the boundary the kernel reads in 16-byte
+    pieces; the dense launch copies such a view (ops/tile_match.py
+    dense_tiles_packed). Every row of the result equals that batch's
+    single dispatch (match_batch's), and match_many's rows equal K
+    match_batch calls."""
+    _card()
+    m, batches, args, statics, table = _many_inputs(K=4, n=200)
+    staged = TK.stage_many(args, "cuda")
+    K, P = staged.shape
+    buf = torch.zeros(K * P + 4, dtype=torch.int32, device="cuda")
+    shifted = buf[1:1 + K * P].view(K, P)
+    shifted.copy_(staged)
+    views = [TK._unpack_transport(shifted[i], **TK._packed_geometry(a))[1]
+             for i, a in enumerate(args)]
+    assert views[0].data_ptr() % 16
+    out = TK.match_many_staged(*table, shifted, args, statics).cpu().numpy()
+    for row, a in zip(out, args):
+        np.testing.assert_array_equal(
+            row, m._dispatch_flat(m._dev_arrays, m._operands, a, statics))
+    C, B = statics["C"], args[0][0].shape[0]
+    assert int(out[:, C + B:C + 2 * B].sum()) > 100  # not vacuous
+    got = m.match_many(batches)
+    want = [m.match_batch(b) for b in batches]
+    assert [[[(f, k) for f, k, _ in r] for r in b] for b in got] == \
+        [[[(f, k) for f, k, _ in r] for r in b] for b in want]
 
 
 @pytest.mark.cuda

@@ -102,3 +102,25 @@ def test_engine_kernel_libraries_bind_in_a_fresh_process():
         libs[engine] = out.stdout.split()
     assert libs == {"models.matcher": ["extract", "tile_match"],
                     "retained.index": ["extract", "reverse_match"]}
+
+
+@pytest.mark.parametrize("name", ["mesh", "sharded_match", "mesh_match"])
+def test_multi_gpu_modules_stand_alone(name):
+    """The multi-GPU modules are among the files checked above for jax and
+    vernemq_tpu imports, and each imports in a fresh interpreter where
+    both are blocked; the two matchers bind the kernel libraries their
+    dispatch launches (the tile matcher's and the extraction's)."""
+    path = ROOT / "vernemq_tpu_torch" / "parallel" / f"{name}.py"
+    assert path in PORT_FILES
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['vernemq_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from vernemq_tpu_torch.ops import _build as B\n"
+        f"import vernemq_tpu_torch.parallel.{name}\n"
+        "want = {'tile_match', 'extract'} if %r != 'mesh' else set()\n"
+        "assert want <= set(B._binders), B._binders\n" % name)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

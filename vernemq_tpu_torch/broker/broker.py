@@ -139,9 +139,19 @@ class Broker:
                 device=self.device,
             )
             self.filter_engine.emit = self._deliver_aggregate
-        # no mesh slice map: the port serves one GPU (tpu_mesh is refused,
-        # ROADMAP Queue 1 item 8); the cluster copies read this None
+        # mesh slice map (cluster/mesh_map.py): slice→node ownership in
+        # the replicated metadata plane, gossiped like the netsplit
+        # CAPs. Created whenever a tpu_mesh is configured — single-node
+        # deployments claim every slice at start; cluster membership
+        # changes re-run the deterministic round-robin claim.
         self.mesh_map: Optional[Any] = None
+        n_slices = self._mesh_slice_count()
+        if n_slices:
+            from ..cluster.mesh_map import MeshSliceMap
+
+            self.mesh_map = MeshSliceMap(
+                self.metadata, node_name, n_slices,
+                on_adopt=self._on_mesh_adopt, metrics=self.metrics)
         fsync = bool(self.config.get("msg_store_fsync", False))
         # fsync group-commit: one fsync per write burst at the flush-tick
         # boundary instead of per record (msg_store_fsync_coalesced)
@@ -656,6 +666,35 @@ class Broker:
                                   "not units).",
             "rebalance_cycles": "Automatic planner cycles that passed "
                                 "every safety rail and acted.",
+            # mesh-native matcher (parallel/mesh_match.py) + slice map
+            # (cluster/mesh_map.py): slice residency and delta-routing
+            # effectiveness — all zero outside mesh mode
+            "mesh_slices_total": "Mesh matcher slices in the slice map "
+                                 "(the 'sub' axis size; 0 when no mesh "
+                                 "is configured).",
+            "mesh_slices_local": "Mesh slices owned by this node per "
+                                 "the gossiped slice map.",
+            "mesh_rows_resident": "Active subscription rows resident "
+                                  "across the local mesh slices.",
+            "mesh_dispatches": "Mesh-native match dispatches pulled.",
+            "mesh_delta_flushes": "Slice-routed delta flushes applied "
+                                  "to the mesh table.",
+            "mesh_delta_dirty_slices": "Dirty slices scattered across "
+                                       "all delta flushes (flushes x "
+                                       "slices touched; the routing "
+                                       "numerator).",
+            "mesh_delta_gzone_flushes": "Delta flushes that also "
+                                        "touched the replicated dense "
+                                        "g-zone mirrors (replication "
+                                        "cost, not a routing miss).",
+            "mesh_delta_rows": "Subscription rows shipped by "
+                               "slice-routed delta flushes.",
+            "mesh_full_scatters": "Full-table mesh placements (builds "
+                                  "and growth re-partitions — never a "
+                                  "delta path).",
+            "mesh_slice_adoptions": "Slice-map adoptions replayed into "
+                                    "the device table (exactly once "
+                                    "per epoch).",
             # shared-memory ring publish ordering (parallel/shm_ring.py)
             "shm_ring_fence": "1 when the native release fence backs "
                               "ShmRing tail publishes, 0 on the "
@@ -669,6 +708,79 @@ class Broker:
                                       **_canary_help})
 
     # ------------------------------------------------------------ plumbing
+
+    def _mesh_slice_count(self) -> int:
+        """'sub'-axis size from the ``tpu_mesh`` spec via the ONE
+        shared (jax-free) parser — the slice map must exist before
+        (and regardless of whether) a backend initialises."""
+        if not bool(self.config.get("tpu_mesh_native", True)):
+            return 0
+        from ..cluster.mesh_map import parse_mesh_spec
+
+        parsed = parse_mesh_spec(self.config.get("tpu_mesh", ""))
+        return parsed[1] if parsed else 0
+
+    def _on_mesh_adopt(self, slice_ids, epoch: int) -> None:
+        """Slice-map adoption: replay the newly-owned slices' rows into
+        the mesh matcher exactly once per epoch. Touches only an
+        ALREADY-BUILT tpu view — adoption before the view exists is a
+        no-op because the first build ships every owned row anyway.
+        The replay takes the matcher lock, which a device flush can
+        hold for a long time — and this fires from metadata gossip
+        callbacks on the event-loop thread, so it is pushed to an
+        executor (the exactly-once guard lives inside adopt_slices,
+        so deferred execution stays idempotent)."""
+        view = self.registry.reg_views.get("tpu")
+        fn = getattr(view, "adopt_slices", None)
+        if fn is None:
+            return
+
+        def _adopt() -> None:
+            try:
+                fn(slice_ids, epoch)
+            except Exception:
+                log.exception("mesh slice adoption failed for %s",
+                              slice_ids)
+
+        try:
+            asyncio.get_running_loop().run_in_executor(None, _adopt)
+        except RuntimeError:
+            _adopt()  # no loop (sync/unit-test use): inline is safe
+
+    def _mesh_gauges(self) -> Dict[str, float]:
+        out = {
+            "mesh_slices_total": 0.0, "mesh_slices_local": 0.0,
+            "mesh_rows_resident": 0.0, "mesh_dispatches": 0.0,
+            "mesh_delta_flushes": 0.0, "mesh_delta_dirty_slices": 0.0,
+            "mesh_delta_gzone_flushes": 0.0, "mesh_delta_rows": 0.0,
+            "mesh_full_scatters": 0.0, "mesh_slice_adoptions": 0.0,
+        }
+        mm = self.mesh_map
+        if mm is not None:
+            out["mesh_slices_total"] = float(mm.n_slices)
+            out["mesh_slices_local"] = float(len(mm.local_slices()))
+        view = self.registry.reg_views.get("tpu")
+        st = getattr(view, "mesh_status", None)
+        st = st() if st is not None else None
+        if view is not None and st is None:
+            # tpu view built but serving single-chip (tpu_mesh degraded
+            # / mesh-native off): local residency must read zero — the
+            # configured slice count stays visible for diagnosis
+            out["mesh_slices_local"] = 0.0
+        if st:
+            out["mesh_slices_total"] = max(out["mesh_slices_total"],
+                                           float(st["slices"]))
+            out["mesh_rows_resident"] = float(sum(st["rows_per_slice"]))
+            out["mesh_dispatches"] = float(st["mesh_dispatches"])
+            out["mesh_delta_flushes"] = float(st["route_flushes"])
+            out["mesh_delta_dirty_slices"] = float(
+                st["route_dirty_slices"])
+            out["mesh_delta_gzone_flushes"] = float(
+                st["route_gzone_flushes"])
+            out["mesh_delta_rows"] = float(st["route_rows"])
+            out["mesh_full_scatters"] = float(st["full_scatters"])
+            out["mesh_slice_adoptions"] = float(st["slice_adoptions"])
+        return out
 
     def _gauges(self) -> Dict[str, float]:
         out = dict(self.registry.stats())
@@ -732,6 +844,7 @@ class Broker:
             out.update(self._resume_collector.stats())
         out.update(self.watchdog.stats())
         out.update(self.recorder.stats())
+        out.update(self._mesh_gauges())
         health = getattr(self.cluster, "health", None)
         if health is not None:
             from ..cluster.health import DOWN, SUSPECT, local_load_score
@@ -1703,6 +1816,35 @@ class Broker:
         for key, value in self.metadata.fold("retain"):
             self.retain.apply_remote(key[0], tuple(key[1:]),
                                      self._retain_term(value))
+        # mesh slice map: claim this node's slices (deterministic
+        # round-robin over the membership; a single node claims all) and
+        # re-claim whenever membership changes — the map gossips through
+        # the metadata plane like the netsplit CAPs, and newly-owned
+        # slices replay their rows exactly once (_on_mesh_adopt)
+        if self.mesh_map is not None:
+            def _mesh_reclaim(*_a) -> None:
+                try:
+                    # a built tpu view that came up WITHOUT its mesh
+                    # (tpu_mesh asked for more devices than exist — the
+                    # documented loud degrade to single-chip) must not
+                    # keep advertising slice ownership it cannot serve
+                    view = self.registry.reg_views.get("tpu")
+                    if view is not None and (
+                            getattr(view, "mesh_status", None) is None
+                            or view.mesh_status() is None):
+                        log.warning(
+                            "mesh slice claim skipped: the tpu view is "
+                            "serving single-chip (tpu_mesh degraded or "
+                            "mesh-native disabled)")
+                        return
+                    members = (self.cluster.members()
+                               if self.cluster is not None else None)
+                    self.mesh_map.claim_local(members)
+                except Exception:
+                    log.exception("mesh slice claim failed")
+
+            _mesh_reclaim()
+            self.metadata.subscribe("members", _mesh_reclaim)
         # boot-time fault plan (robustness harness): deterministic
         # injected faults per the fault_injection config — empty list =
         # nothing installed, zero overhead

@@ -89,14 +89,8 @@ class TrieRegView:
 def refuse_unported(config) -> None:
     """Configurations the port cannot serve raise ``NotImplementedError``
     naming the ROADMAP Queue 1 item that ports them, before a broker is
-    built, instead of failing later on a module that was never copied: a
-    ``tpu_mesh`` (the reference shards its table over a device mesh; the
-    port serves one GPU), bridges and the bundled plugins."""
-    spec = str(config.get("tpu_mesh", "") or "").strip()
-    if spec:
-        raise NotImplementedError(
-            f"tpu_mesh={spec!r}: the multi-GPU matcher is not ported yet "
-            f"(ROADMAP Queue 1 item 8); unset tpu_mesh to serve on one GPU")
+    built, instead of failing later on a module that was never copied:
+    bridges and the bundled plugins."""
     unported = {
         "bridges (plugins/bridge)": bool(config.get("bridges")),
         "plugins (the bundled plugins)": bool(config.get("plugins")),
@@ -192,9 +186,27 @@ class Registry:
         view = self.reg_views.get(name)
         if view is None and name == "tpu":
             view = self.reg_views["tpu"] = self._make_tpu_view()
+            self._mesh_claims_check(view)
         if view is None:
             raise KeyError(f"unknown reg view {name!r}")
         return view
+
+    def _mesh_claims_check(self, view) -> None:
+        """The tpu view just materialized: if it is serving WITHOUT its
+        mesh (tpu_mesh unsatisfiable — the documented loud single-GPU
+        degrade), retract this node's gossiped slice claims so the cluster
+        never sees it advertising slices it cannot serve (boot claims
+        happen before the lazy view exists, so this is the first point
+        the truth is known)."""
+        mm = getattr(self.broker, "mesh_map", None)
+        if mm is None:
+            return
+        try:
+            st = getattr(view, "mesh_status", None)
+            if st is None or st() is None:
+                mm.release_local()
+        except Exception:
+            log.exception("mesh slice-claim check failed")
 
     def _make_tpu_view(self):
         """The GPU reg view from the ``tpu_*`` knobs. ``tpu_use_pallas``,
@@ -203,8 +215,9 @@ class Registry:
         tile kernel, packed or per-argument transfers, XLA compile
         warm-ups); the port has one device path, the hand CUDA port of
         that tile kernel, and compiles nothing per shape, so every value
-        of them serves the same rows. ``tpu_mesh_native`` matters only
-        with a ``tpu_mesh``, which :func:`refuse_unported` refuses."""
+        of them serves the same rows. With a ``tpu_mesh`` the view seats
+        the mesh-native matcher (``tpu_mesh_native``, default) or the
+        sharded one (:meth:`_mesh_from_config`)."""
         from ..models.matcher import GpuRegView
 
         cfg = self.broker.config
@@ -223,8 +236,51 @@ class Registry:
                       if cfg.get("watchdog_enabled", True) else None),
             rebuild_deadline_s=cfg.get("watchdog_rebuild_deadline_s",
                                        120.0),
+            mesh=self._mesh_from_config(),
+            mesh_native=bool(cfg.get("tpu_mesh_native", True)),
             device=self.broker.device,
         )
+
+    def _mesh_from_config(self):
+        """Build the serving mesh from the ``tpu_mesh`` knob ("BxS" or
+        "S") over the broker's device: every card of this process
+        (``torch.cuda.device_count()``) on CUDA; on the CPU, which the port
+        runs only when asked, the one CPU device repeated (a port mesh may
+        name a device more than once). None (the single-device matcher)
+        when unset or unsatisfiable: a config asking for more cards than
+        exist degrades LOUDLY to the single-GPU path rather than refusing
+        to boot."""
+        from ..cluster.mesh_map import parse_mesh_spec
+
+        spec = str(self.broker.config.get("tpu_mesh", "") or "").strip()
+        parsed = parse_mesh_spec(spec)
+        if parsed is None:
+            if spec:
+                log.error("invalid tpu_mesh %r; serving on the "
+                          "single-device matcher", spec)
+            return None
+        batch, sub = parsed
+        try:
+            import torch
+
+            from ..parallel.mesh import make_mesh
+
+            need = batch * sub
+            dev = torch.device(self.broker.device)
+            devs = ([torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())]
+                    if dev.type == "cuda" else [dev] * need)
+            if len(devs) < need:
+                log.error(
+                    "tpu_mesh=%s wants %d devices but only %d present; "
+                    "serving on the single-device matcher", spec, need,
+                    len(devs))
+                return None
+            return make_mesh(devs[:need], batch=batch)
+        except Exception:
+            log.exception("invalid tpu_mesh %r; serving on the "
+                          "single-device matcher", spec)
+            return None
 
     def batched_view_active(self) -> bool:
         """True when sessions should publish through the BatchCollector:

@@ -530,6 +530,10 @@ def main() -> None:  # pragma: no cover
     parser.add_argument("--device", default="cuda",
                         help="device of the tpu reg view (default cuda; "
                              "cpu runs its plain PyTorch path)")
+    parser.add_argument("--tpu-mesh", default=None, metavar="BxS",
+                        help="serve matching on a device mesh (e.g. 1x4: "
+                             "batch x sub axes) over this process's cards; "
+                             "needs the tpu reg view")
     parser.add_argument("--node-name", default="node1")
     parser.add_argument("--http-port", type=int, default=None,
                         help="start the HTTP endpoint (metrics/health/"
@@ -541,6 +545,9 @@ def main() -> None:  # pragma: no cover
     parser.add_argument("--join", default=None, metavar="HOST:PORT",
                         help="join an existing cluster via this seed node")
     args = parser.parse_args()
+    if args.tpu_mesh and args.reg_view == "trie":
+        parser.error("--tpu-mesh requires the tpu reg view; drop "
+                     "--reg-view trie")
 
     def _addr(s):
         h, _, p = s.rpartition(":")
@@ -551,6 +558,8 @@ def main() -> None:  # pragma: no cover
 
         cfg = Config.from_file(args.conf) if args.conf else Config()
         cfg.set("default_reg_view", args.reg_view)
+        if args.tpu_mesh:
+            cfg.set("tpu_mesh", args.tpu_mesh)
         if args.allow_anonymous:
             cfg.set("allow_anonymous", True)
         if args.http_port is not None:

@@ -12,11 +12,17 @@
 //     probe A (mode 0)   r >= glob_pad && !first_wild[r]
 //     probe B (mode 1)   r >= glob_pad &&  first_wild[r]
 //     dense   (mode 2)   r <  glob_pad   (region 0, every row of it)
+//     shard   (mode 3)   r >= glob_pad   (no first-level split)
 //
 // and out[t, p, j / 32] holds that verdict in bit j % 32 (int32 words).
 // The dense mode is the forward path's dense region 0 (the reference's
 // vernemq_tpu/ops/match_kernel.py:_dense_region0, fused by XLA): tiles of
-// consecutive publishes, every window starting at row 0.
+// consecutive publishes, every window starting at row 0. The shard mode is
+// a mesh shard's probe A (vernemq_tpu/parallel/sharded_match.py:278, which
+// keeps a row by its global index alone): there glob_pad is the signed
+// threshold glob_pad - row_base of the shard's own rows, so it may be
+// negative, and a threshold <= 0 keeps every row (the guard off, for the
+// per-slice match of vernemq_tpu/parallel/mesh_match.py:338).
 //
 // What bounds it. At the headline (1M subscriptions, K = 40, T = 24 tiles of
 // TP = 256 publishes, seg_max = 262,144) a tile does 2·40 = 80 FLOP per
@@ -88,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -107,6 +114,7 @@ constexpr int kMaskWords = 65;          // a warp's key table; key 64: no bit
 constexpr uint16_t kBf16One = 0x3F80;
 constexpr int kProbeB = 1;              // row modes (probe A is 0)
 constexpr int kDense = 2;
+constexpr int kShard = 3;
 
 template <int KP>
 struct Layout {
@@ -360,8 +368,9 @@ tile_match_kernel(const uint16_t* __restrict__ F_t,   // [K, S] bf16 bits
             const bool row_ok =
                 (fl & 4) != 0
                 && (mode == kDense ? row < glob_pad
-                                   : row >= glob_pad
-                                     && (mode == kProbeB ? fw : !fw));
+                    : mode == kShard ? row >= glob_pad
+                                     : row >= glob_pad
+                                       && (mode == kProbeB ? fw : !fw));
             uint32_t len;
             if (fl & 1)
                 len = e <= 0 ? 0xffffffffu : e < 32 ? 0xffffffffu << e : 0u;
@@ -445,6 +454,33 @@ tile_match_kernel(const uint16_t* __restrict__ F_t,   // [K, S] bf16 bits
     }
 }
 
+// Let the template launch with `smem` bytes of dynamic shared memory on
+// the current device: the cap is raised when a launch needs more, and never
+// lowered, under a lock. Host threads launch the same template with other
+// tile widths at once (a collector keeps two dispatches in flight: a probe
+// of 256 publishes beside a dense tile of 128); a cap set to each launch's
+// own size could drop below another thread's launch between its set and
+// its launch, which the runtime then refuses (cudaErrorInvalidValue).
+template <int KP>
+int allow_smem(size_t smem) {
+    constexpr int kDevices = 64;
+    static std::mutex mu;
+    static size_t cap[kDevices];
+    if (smem <= 48 * 1024) return 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(mu);
+    if (smem <= cap[dev]) return 0;
+    e = cudaFuncSetAttribute(tile_match_kernel<KP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cap[dev] = smem;
+    return 0;
+}
+
 template <int KP>
 int launch(const void* F_t, const void* t1, const void* eff,
            const void* flags, const void* Gt, const void* plt,
@@ -452,12 +488,8 @@ int launch(const void* F_t, const void* t1, const void* eff,
            int K, int S, int seg_max, int glob_pad, int mode,
            cudaStream_t stream) {
     const size_t smem = Layout<KP>::bytes(TP);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            tile_match_kernel<KP>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const int rc = allow_smem<KP>(smem);
+    if (rc != 0) return rc;
     const int nchunks = seg_max / kChunk;
     const int per_block = mode == kDense ? kDenseChunksPerBlock
                                          : kChunksPerBlock;
@@ -493,7 +525,7 @@ int with_kp(int K, int bad, Fn fn) {
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
 // The caller checks shapes, types, alignment, window bounds, K <= 96,
 // S % 8 == 0, TP % 16 == 0 and seg_max % 256 == 0. mode: 0 probe A, 1
-// probe B, 2 dense (see the top of this file).
+// probe B, 2 dense, 3 shard (see the top of this file).
 extern "C" int tile_match_launch(const void* F_t, const void* t1,
                                  const void* eff, const void* flags,
                                  const void* Gt, const void* plt,
@@ -502,7 +534,7 @@ extern "C" int tile_match_launch(const void* F_t, const void* t1,
                                  int seg_max, int glob_pad, int mode,
                                  void* stream) {
     if (TP <= 0 || TP % 16 || S % 8 || seg_max <= 0 || seg_max % kChunk
-        || mode < 0 || mode > kDense)
+        || mode < 0 || mode > kShard)
         return (int)cudaErrorInvalidValue;
     return with_kp(K, (int)cudaErrorInvalidValue, [&](auto kp) {
         return launch<decltype(kp)::value>(

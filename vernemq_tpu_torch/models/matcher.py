@@ -19,13 +19,15 @@ concurrent PUBLISHes.
   caller and never reaches the breaker or the trie.
 - :class:`GpuRegView` is the reg-view adapter over a registry that offers
   ``fold_subscriptions(mountpoint)`` and ``trie(mountpoint)``: the
-  production seat (background rebuilds, breaker, watchdog).
+  production seat (background rebuilds, breaker, watchdog). With a
+  ``mesh`` each mountpoint's seat is a mesh-native or sharded matcher
+  (``parallel/mesh_match.py``, ``parallel/sharded_match.py``).
 - :class:`BatchCollector` coalesces concurrent publishes into device calls
   (windows, two in flight, super-batches under load) and sheds to the host
   trie whenever the device cannot answer promptly.
 
 Not yet ported (ROADMAP): the collector's match-service fold meta (worker
-mode) and the mesh seats of the view. The reference's warm-signature gate
+mode). The reference's warm-signature gate
 and warm-up ladders have no counterpart: they bound XLA compiles, and eager
 PyTorch compiles nothing per shape.
 """
@@ -1073,11 +1075,18 @@ class GpuRegView:
     of ``(filter_words, key, opts)``, the initial load) and
     ``trie(mountpoint)`` (the host trie that answers while the device
     cannot). On CUDA the kernel libraries are built and loaded when the
-    view is created."""
+    view is created.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``; the ``tpu_mesh`` knob)
+    each mountpoint gets a :class:`~..parallel.mesh_match.MeshGpuMatcher`,
+    or with ``mesh_native`` False a
+    :class:`~..parallel.sharded_match.ShardedGpuMatcher`: the serving path
+    then matches on every device of the mesh with the same delta stream,
+    rebuild shed and fallback discipline; ``device`` is then unused."""
 
     def __init__(self, registry, max_levels: int = 16,
                  initial_capacity: int = 1024, max_fanout: int = 256,
-                 flat_avg: int = 128,
+                 flat_avg: int = 128, mesh=None, mesh_native: bool = True,
                  breaker_enabled: bool = True,
                  breaker_failure_threshold: int = 3,
                  breaker_backoff_initial: float = 0.2,
@@ -1085,7 +1094,10 @@ class GpuRegView:
                  watchdog=None, rebuild_deadline_s: float = 120.0,
                  device: DeviceLike = None):
         self.registry = registry
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_native = mesh_native
+        self.device = mesh.first_device if mesh is not None \
+            else resolve_device(device)
         load_kernels(self.device)
         self.watchdog = watchdog
         self.rebuild_deadline_s = rebuild_deadline_s
@@ -1101,7 +1113,16 @@ class GpuRegView:
         self._matchers: Dict[str, GpuMatcher] = {}
 
     def _mk(self) -> GpuMatcher:
-        m = GpuMatcher(**self._kw)
+        if self.mesh is not None and self.mesh_native:
+            from ..parallel.mesh_match import MeshGpuMatcher
+
+            m: GpuMatcher = MeshGpuMatcher(self.mesh, **self._kw)
+        elif self.mesh is not None:
+            from ..parallel.sharded_match import ShardedGpuMatcher
+
+            m = ShardedGpuMatcher(self.mesh, **self._kw)
+        else:
+            m = GpuMatcher(**self._kw)
         m.async_rebuild = True
         m.breaker = (CircuitBreaker(**self._breaker_kw)
                      if self._breaker_enabled else None)
@@ -1170,6 +1191,49 @@ class GpuRegView:
         """Per-mountpoint breaker status."""
         return {mp or "(default)": m.breaker.status()
                 for mp, m in self._matchers.items()}
+
+    def mesh_status(self) -> Optional[Dict[str, Any]]:
+        """Aggregated mesh-native status across mountpoints (None when
+        this view is not mesh-native): summed routing counters and the
+        default mountpoint's slice layout — what `vmq-admin mesh show`
+        and the mesh_* gauges read."""
+        if self.mesh is None or not self.mesh_native:
+            return None
+        agg: Dict[str, Any] = {
+            "slices": int(self.mesh.shape["sub"]),
+            "slice_rows": 0, "rows_per_slice": [], "addressable": [],
+            "route_flushes": 0, "route_dirty_slices": 0,
+            "route_gzone_flushes": 0, "route_rows": 0,
+            "full_scatters": 0, "mesh_dispatches": 0,
+            "slice_adoptions": 0, "last_route": {},
+        }
+        for mp, m in self._matchers.items():
+            st = getattr(m, "mesh_status", None)
+            if st is None:
+                continue
+            st = st()
+            for k in ("route_flushes", "route_dirty_slices",
+                      "route_gzone_flushes", "route_rows",
+                      "full_scatters", "mesh_dispatches",
+                      "slice_adoptions"):
+                agg[k] += st.get(k, 0)
+            if mp == "" or not agg["rows_per_slice"]:
+                agg["slice_rows"] = st.get("slice_rows", 0)
+                agg["rows_per_slice"] = st.get("rows_per_slice", [])
+                agg["addressable"] = st.get("addressable", [])
+                agg["last_route"] = st.get("last_route", {})
+        return agg
+
+    def adopt_slices(self, slice_ids, epoch) -> int:
+        """Slice-map adoption fan-in: replay newly-owned slices' rows on
+        every mountpoint's mesh matcher (exactly once per adoption token;
+        the seat guards). Returns total rows marked."""
+        total = 0
+        for m in self._matchers.values():
+            fn = getattr(m, "adopt_slices", None)
+            if fn is not None:
+                total += fn(slice_ids, epoch)
+        return total
 
     def close(self) -> None:
         """Close every mountpoint's matcher (:meth:`GpuMatcher.close`)."""

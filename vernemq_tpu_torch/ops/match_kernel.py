@@ -20,6 +20,8 @@ whatever device its tensors are on; nothing falls back to another device.
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -104,6 +106,12 @@ def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
     global plain_cuda_packs
     plain_cuda_packs += mask.is_cuda
     B, S = mask.shape
+    if not mask.is_cuda and S % 32 == 0:
+        # the same words from numpy's little-endian bit-pack (the weighted
+        # sum below costs ~60x more on the CPU)
+        return torch.from_numpy(np.packbits(
+            mask.contiguous().numpy(), axis=-1,
+            bitorder="little").view("<i4").astype(np.int32))
     bits = mask.reshape(B, S // 32, 32).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
         << torch.arange(32, device=mask.device)
@@ -256,26 +264,25 @@ def _dense_region0(F_t, t1, sub_eff_len, has_hash, first_wild, active,
         glob_pad=glob_pad), k)
 
 
-def _flat_combine(real, k, C, g: Parts, a: Parts, b: Parts):
-    """Flat compaction of the three per-publish parts: an exclusive prefix
-    sum over the k-clamped totals gives each real publish the range
-    ``[pre, pre+total)`` of one ``[C]`` buffer. Entries past ``C`` are
-    dropped (the reference's ``mode="drop"``) and flag ``overflow``."""
-    (gidx, gvalid, gcount), (aidx, avalid, acnt), (bidx, bvalid, bcnt) = \
-        g, a, b
-    clip = (gcount > k) | (acnt > k) | (bcnt > k)
-    gcnt = torch.where(real, gcount, 0).clamp(max=k)
-    acnt = torch.where(real, acnt, 0).clamp(max=k)
-    bcnt = torch.where(real, bcnt, 0).clamp(max=k)
-    total = (gcnt + acnt + bcnt).to(torch.int32)
+def _flat_combine(real, k, C, *parts: Parts):
+    """Flat compaction of the per-publish parts (dense region 0 and the
+    probes; a mesh shard's dense chunk and probe): an exclusive prefix sum
+    over the k-clamped totals gives each real publish the range ``[pre,
+    pre+total)`` of one ``[C]`` buffer, each part's entries after the
+    previous parts'. Entries past ``C`` are dropped (the reference's
+    ``mode="drop"``) and flag ``overflow``, as does a part clipped at k."""
+    clip = functools.reduce(operator.or_, (c > k for _, _, c in parts))
+    cnts = [torch.where(real, c, 0).clamp(max=k) for _, _, c in parts]
+    total = functools.reduce(operator.add, cnts).to(torch.int32)
     pre = total.cumsum(0, dtype=torch.int32) - total
     j = torch.arange(k, device=real.device)[None, :]
     # one spare slot past the end takes every dropped entry (a masked
     # scatter needs no device→host sync, unlike boolean indexing)
     flat = torch.zeros(C + 1, dtype=torch.int32, device=real.device)
-    for base, idx, valid, cnt in ((pre, gidx, gvalid, gcnt),
-                                  (pre + gcnt, aidx, avalid, acnt),
-                                  (pre + gcnt + acnt, bidx, bvalid, bcnt)):
+    base = pre
+    for i, ((idx, valid, _), cnt) in enumerate(zip(parts, cnts)):
+        if i:
+            base = base + cnts[i - 1]
         pos = base[:, None] + j
         keep = valid & real[:, None] & (j < cnt[:, None]) & (pos < C)
         flat.scatter_(0, torch.where(keep, pos, C).reshape(-1),
@@ -354,6 +361,49 @@ def apply_delta_fused_nometa(dev_arrays, operands, slots, d_words, d_eff_len,
         F_d, t1_d = build_operands(d_words, d_eff_len, id_bits)
         F_t.index_copy_(1, slots, F_d)
         t1.index_copy_(0, slots, t1_d)
+
+
+def apply_delta_windowed_fused(state, slots, d_words, d_eff_len, d_has_hash,
+                               d_first_wild, d_active, *, id_bits: int,
+                               glob: int, row_lo: int = 0,
+                               copy: bool = False) -> tuple:
+    """The sharded matcher's delta on one shard (the reference's
+    ``apply_delta_windowed_fused``, which updates the whole sharded state
+    in one scatter). ``state`` is the shard's twelve tensors in the
+    reference's order: its table rows ``[row_lo, row_lo + Sl)`` of ``F_t``
+    (columns), ``t1``, ``eff_len``, ``has_hash``, ``first_wild`` and
+    ``active``, then its replicated mirrors of the g-zone (rows ``<
+    glob``). ``slots`` and the ``d_*`` rows are host (numpy) arrays of
+    global rows; a slot outside the shard's rows or the zone is dropped,
+    as the reference's ``mode="drop"`` drops it. The coded operand columns
+    of the dirty rows are built once on the shard's device. Updates in
+    place (``index_copy_``), or, with ``copy`` (a match in flight still
+    reads the tensors: the reference's ``_copy`` variant), updates copies
+    of the touched tensors. Returns the twelve tensors."""
+    dev = state[0].device
+    slots = np.asarray(slots, np.int64)
+    hi = row_lo + state[0].shape[1]
+    parts = ((0, (slots >= row_lo) & (slots < hi), row_lo),
+             (6, slots < glob, 0))
+    if not any(m.any() for _, m, _ in parts):
+        return tuple(state)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    F_d, t1_d = build_operands(put(d_words), put(d_eff_len), id_bits)
+    vals = (put(d_eff_len), put(d_has_hash), put(d_first_wild),
+            put(d_active))
+    out = list(state)
+    for o, mask, lo in parts:
+        if not mask.any():
+            continue
+        sel = put(np.nonzero(mask)[0])
+        idx = put(slots[mask] - lo)
+        src = [F_d.index_select(1, sel), t1_d.index_select(0, sel)] \
+            + [v.index_select(0, sel) for v in vals]
+        for i, v in enumerate(src):
+            t = out[o + i].clone() if copy else out[o + i]
+            t.index_copy_(1 if i == 0 else 0, idx, v)
+            out[o + i] = t
+    return tuple(out)
 
 
 # ----------------------------------------------------- stacked transport
