@@ -1,9 +1,12 @@
 """Chip smoke run of the PyTorch/CUDA port (vernemq_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase broker|cluster [--repeat N]
 
 from the root of a checkout, on a machine with a CUDA card (Hopper: the
-kernels are built for sm_90a). It
+kernels are built for sm_90a). ``--phase`` builds the kernels and runs
+one serving phase alone, ``N`` times (``broker`` with ``[admin]`` and
+``[plugins]``), and prints no ``ok`` line. With no arguments it
 
 1. prints the card's name and power limit and builds every kernel of the
    port from the sources in the checkout (``nvcc``); then, in a fresh
@@ -109,7 +112,23 @@ kernels are built for sm_90a). It
    exactly, all served by the trie) and ``breaker reset`` (256 more,
    served on the card), a client trace, a ``ql query`` of one subscriber
    id (its 100 filters) and a Graphite reporter into a local sink
-   carrying the device counters; then two port nodes on the one card
+   carrying the device counters; then on the same broker the bundled
+   plugins (``[plugins]``): over the admin API ``config set
+   allow_anonymous=off``, ``plugin enable`` vmq_passwd (``$6$`` entries)
+   and vmq_acl (a read rule for all, a user block, a ``%c`` pattern), 16
+   authenticated subscribers and 8 authenticated publishers in a second
+   process sending 4,096 zipf publishes, a quarter at QoS 1, every
+   delivery exact against the trie; a wrong password and an anonymous
+   client refused at CONNACK, an ACL-denied SUBSCRIBE answered 0x80 and
+   ACL-denied publishes delivered to no one, as the reference broker
+   answers; 64 publishes rewritten by a Lua ``auth_on_publish``
+   (vmq_diversity, ``script load``) and 64 by an ``auth_on_publish``
+   webhook's ``topic`` modifier, and a bridge each way to a second broker
+   on the card: every rewritten and bridged publish matched on the card
+   and delivered as the trie of its final topic gives it, the host-served
+   counters unmoved, the tile and extraction kernels launched; then every
+   plugin disabled and anonymous clients allowed again; then two port
+   nodes on the one card
    (``[cluster]``): two broker processes started through
    ``start_broker(cluster_listen=, join=)`` with the SWC store, the same
    corpus split by subscriber id so each node's GPU table holds its
@@ -244,6 +263,26 @@ ADMIN_DRILL_PUBS = 256
 ADMIN_DRILL_SUBS = 8
 ADMIN_TRACE_PUBS = 8
 ADMIN_QL_ID = "bulk7"
+# plugins phase, on the broker phase's broker after [admin]: the shipped
+# defaults (allow_anonymous off, vmq_passwd, vmq_acl) turned on over the
+# admin API, PLUGIN_LIVE authenticated subscribers and PLUGIN_PUBLISHERS
+# authenticated publishers sending PLUGIN_PUBS zipf publishes (a
+# BROKER_QOS1 share at QoS 1); then the refusals, PLUGIN_STEP publishes
+# rewritten by a Lua script (vmq_diversity) and by a webhook, and
+# PLUGIN_STEP publishes each way over a bridge to a second broker
+PLUGIN_LIVE = 16
+PLUGIN_PUBLISHERS = 8
+PLUGIN_PUBS = 4096
+PLUGIN_STEP = 64
+PLUGIN_USERS = {"plug-sub": "sub-secret", "plug-pub": "pub-secret"}
+#: mosquitto-style: every user reads the corpus' topics, the publishers
+#: write them, and a client writes under its own client id
+PLUGIN_ACL = ("topic read +/+/+\ntopic read +/+/#\nuser plug-pub\n"
+              "topic write +/+/+\npattern write own/%c/#\n")
+#: the reference broker's answers (tests/test_plugins.py): a wrong
+#: password and an anonymous client at CONNACK (v3.1.1), a SUBSCRIBE the
+#: ACL denies
+RC_BAD_PASSWORD, RC_NOT_AUTHORIZED, SUBACK_DENIED = 4, 5, 0x80
 # cluster phase: two broker processes on the one card, each started through
 # start_broker(cluster_listen=, join=) with the SWC metadata store; the
 # broker phase's corpus split by subscriber id (the first half on node A),
@@ -357,7 +396,8 @@ EARLIER_MS = 7.32
 # past glob_pad, slice 0 with windows across glob_pad, and the guard off
 # over a whole slice (match_local_slices); ``row_base`` in the options is
 # the slice's first global row
-MESH_SL = 1_613_824 // 4
+HEADLINE_S = 1_613_824  # the path phase's table S at the headline corpus
+MESH_SL = HEADLINE_S // 4
 MESH_GLOB = 174_080
 KERNEL_SHAPES = [
     ("probe A K=40", 16, 8, 1_613_824, 24, 256, 262_144, "a", {}, 2048),
@@ -1582,7 +1622,8 @@ class FrozenHeap:
                 (time.perf_counter() - self._t0) * 1e3)
 
     def summary(self) -> str:
-        young = self.pauses[0] + self.pauses[1]
+        young = sorted(self.pauses[0] + self.pauses[1])
+        p99 = young[int(0.99 * (len(young) - 1))] if young else 0.0
         return (f"set-up heap of {self.frozen} objects frozen out of the "
                 f"cyclic collector (one full collection over it took "
                 f"{self.full_ms:.1f} ms, against the {EXPIRY_MS:.0f} ms "
@@ -1590,7 +1631,9 @@ class FrozenHeap:
                 f"collections (longest "
                 f"{max(self.pauses[2], default=0.0):.2f} ms) and "
                 f"{len(young)} young ones (longest "
-                f"{max(young, default=0.0):.2f} ms)")
+                f"{max(young, default=0.0):.2f} ms, p99 {p99:.2f} ms, "
+                f"{sum(x > 50 for x in young)} past 50 ms, "
+                f"{sum(young):.0f} ms in all)")
 
     def close(self) -> str:
         import gc
@@ -1600,6 +1643,145 @@ class FrozenHeap:
             gc.callbacks.remove(self._timed)
             gc.unfreeze()
         return self.summary()
+
+
+class StackSampler:
+    """A sampling profile of this process's threads during a counted load:
+    a daemon thread reads every other thread's Python stack
+    (``sys._current_frames``) every ``period`` seconds. A sample whose
+    innermost frame waits (``select``, a condition, a pipe) counts as
+    idle; of the busy ones it counts, per thread, each function on the
+    stack once (inclusive) and the innermost ``depth`` frames (leaf
+    stacks). A thread that waits for the interpreter lock is busy where
+    it waits. :meth:`stop` ends it and returns the counts."""
+
+    IDLE = frozenset(("select", "wait", "_recv", "_wait_for_tstate_lock",
+                      "accept", "poll", "_poll"))
+
+    def __init__(self, period: float = 0.005, depth: int = 5) -> None:
+        import collections
+        import threading
+
+        self.period, self.depth = period, depth
+        self.samples = collections.Counter()
+        self.busy = collections.Counter()
+        self.inclusive = collections.Counter()
+        self.leaves = collections.Counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stack-sampler")
+        self._thread.start()
+
+    def _run(self) -> None:
+        import threading
+
+        me = threading.get_ident()
+        while not self._stop.wait(self.period):
+            names = {t.ident: t.name.split("_")[0]
+                     for t in threading.enumerate()}
+            for ident, f in sys._current_frames().items():
+                if ident == me:
+                    continue
+                name = names.get(ident, "?")
+                self.samples[name] += 1
+                if f.f_code.co_name in self.IDLE:
+                    continue
+                self.busy[name] += 1
+                stack, seen = [], set()
+                while f is not None:
+                    code = f.f_code
+                    where = (f"{os.path.basename(code.co_filename)}:"
+                             f"{code.co_qualname}")
+                    if len(stack) < self.depth:
+                        stack.append(f"{where}:{f.f_lineno}")
+                    if where not in seen:
+                        seen.add(where)
+                        self.inclusive[(name, where)] += 1
+                    f = f.f_back
+                self.leaves[(name, " < ".join(stack))] += 1
+
+    def stop(self, top: int = 16) -> dict:
+        self._stop.set()
+        self._thread.join(5)
+        n = self.busy["MainThread"]
+        return dict(
+            samples={t: (self.busy[t], c) for t, c in self.samples.items()},
+            main=[(w, c) for (t, w), c in self.inclusive.most_common()
+                  if t == "MainThread" and c < n][:top],
+            leaves=[(t, s, c) for (t, s), c in self.leaves.most_common()
+                    if t == "MainThread"][:top // 2]
+            + [(t, s, c) for (t, s), c in self.leaves.most_common()
+               if t != "MainThread"][:top // 4])
+
+
+def stack_profile(name: str, prof: dict) -> str:
+    """A node's :class:`StackSampler` counts as printed lines."""
+    n = prof["samples"].get("MainThread", (0, 0))[0] or 1
+    main = "; ".join(f"{w} {c / n:.1%}" for w, c in prof["main"])
+    leaves = "\n    ".join(f"{c} {t}: {s}" for t, s, c in prof["leaves"])
+    return (f"node {name} stack samples (busy, all) per thread "
+            f"{prof['samples']}; of the event loop thread's busy samples, "
+            f"inclusive: {main}\n  busy leaf stacks (samples, thread: "
+            f"innermost first):\n    {leaves}")
+
+
+def time_cluster_batches(b, out: dict) -> None:
+    """Time every inbound ``vmq-send`` batch of a node's cluster channel
+    (``ClusterCom._process``): its wall and sub-frames go to
+    ``out["batches"]``, and each sub-frame's ``_dispatch`` to
+    ``out["kinds"]`` (count, ms in all, longest ms per frame kind)."""
+    import asyncio
+
+    from vernemq_tpu_torch.cluster import com as CC
+
+    com = b.cluster._com
+    process, dispatch = com._process, com._dispatch
+
+    def done(t0: float, blob: bytes) -> None:
+        out["batches"].append(((time.perf_counter() - t0) * 1e3,
+                               CC._count_subframes(blob)))
+
+    if asyncio.iscoroutinefunction(process):
+        async def timed(origin, blob):
+            t0 = time.perf_counter()
+            try:
+                await process(origin, blob)
+            finally:
+                done(t0, blob)
+    else:
+        def timed(origin, blob):
+            t0 = time.perf_counter()
+            try:
+                process(origin, blob)
+            finally:
+                done(t0, blob)
+
+    def timed_dispatch(origin, cmd, term):
+        t0 = time.perf_counter()
+        try:
+            dispatch(origin, cmd, term)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            n, tot, top = out["kinds"].get(cmd, (0, 0.0, 0.0))
+            out["kinds"][cmd] = (n + 1, tot + ms, max(top, ms))
+
+    com._process, com._dispatch = timed, timed_dispatch
+
+
+def batch_summary(out: dict) -> str:
+    """:func:`time_cluster_batches`' record of one load as a line."""
+    import numpy as np
+
+    ms = np.array([w for w, _ in out["batches"]] or [0.0])
+    frames = np.array([n for _, n in out["batches"]] or [0])
+    kinds = {k.decode(): (n, round(tot, 1), round(top, 2))
+             for k, (n, tot, top) in sorted(out["kinds"].items())}
+    return (f"{len(out['batches'])} inbound vmq-send batches: wall max "
+            f"{ms.max():.2f} ms p99 {np.percentile(ms, 99):.2f} ms, "
+            f"{ms.sum():.0f} ms in all; sub-frames a batch max "
+            f"{frames.max()} p99 {np.percentile(frames, 99):.0f}, "
+            f"{frames.sum()} in all; per kind (frames, ms in all, longest "
+            f"ms) {kinds}")
 
 
 def cold_start_child(conn) -> None:
@@ -1899,30 +2081,34 @@ def cluster_clients(live, pubs, expect, conn, sub_ports, pub_ports,
     conn.close()
 
 
-def live_load(rng: random.Random, pools, label: str):
-    """The live client load of the broker phases: BROKER_LIVE subscribers
+def live_load(rng: random.Random, pools, label: str, n_live=None,
+              n_pubs=None, n_publishers=None):
+    """The live client load of the broker phases: ``n_live`` subscribers
     (v3.1.1 and v5 alternating) of 4 filters from the hot end of the pools,
-    BROKER_PUBS zipf publishes (a BROKER_QOS1 share at QoS 1) split over
-    BROKER_PUBLISHERS publishers, and each subscriber's stop count."""
+    ``n_pubs`` zipf publishes (a BROKER_QOS1 share at QoS 1) split over
+    ``n_publishers`` publishers, and each subscriber's stop count; by
+    default BROKER_LIVE, BROKER_PUBS and BROKER_PUBLISHERS."""
     from vernemq_tpu_torch.models.trie import SubscriptionTrie
 
+    n_live = n_live or BROKER_LIVE
+    n_pubs = n_pubs or BROKER_PUBS
+    n_publishers = n_publishers or BROKER_PUBLISHERS
     l0, l1, l2 = pools
     live = []
-    for j in range(BROKER_LIVE):
+    for j in range(n_live):
         w = lambda pool: pool[rng.randrange(BROKER_HOT)]  # noqa: E731
         live.append(([f"{w(l0)}/{w(l1)}/{w(l2)}",
                       f"{w(l0)}/+/{w(l2)}", f"+/{w(l1)}/{w(l2)}",
                       f"{w(l0)}/{w(l1)}/#"], j % 2 == 0))
-    topics = ["/".join(t) for t in zipf_topics(rng, pools, BROKER_PUBS)]
+    topics = ["/".join(t) for t in zipf_topics(rng, pools, n_pubs)]
     qos = [int(rng.random() < BROKER_QOS1) for _ in topics]
-    pubs = [[(i, topics[i], qos[i]) for i in
-             range(k, BROKER_PUBS, BROKER_PUBLISHERS)]
-            for k in range(BROKER_PUBLISHERS)]
+    pubs = [[(i, topics[i], qos[i]) for i in range(k, n_pubs, n_publishers)]
+            for k in range(n_publishers)]
     local = SubscriptionTrie()  # the stop condition of the clients
     for j, (filters, _) in enumerate(live):
         for f in filters:
             local.add(f.split("/"), j, None)
-    expect = [0] * BROKER_LIVE
+    expect = [0] * n_live
     for t in topics:
         for _f, j, _v in local.match(t.split("/")):
             expect[j] += 1
@@ -2183,10 +2369,464 @@ def phase_broker(card: str, path_S: int) -> dict:
                                          polls, live, pools, rng,
                                          (scrape_ms, n_metrics, walk_ms,
                                           nodes))
+        res["plugins"] = await phase_plugins(card, b, m, port, api_key,
+                                             pools, rng)
         heap.close()
         return res
 
     return asyncio.run(run())
+
+
+def plugin_clients(port: int, live, pubs, expect, conn) -> None:
+    """The MQTT clients of the plugins phase, in a process of their own:
+    the live subscribers and publishers connect to ``port`` with the
+    phase's credentials; after ``"ready"`` and a word back,
+    :func:`live_traffic`, whose result goes back over ``conn``. Then they
+    serve commands until ``"done"``: ``("connect", cid, user, password)``
+    answers a v3.1.1 CONNACK's code; ``("subscribe", j, filters)`` the
+    SUBACK's codes of live subscriber ``j``; ``("send", port, k, [(topic,
+    qos)], want)`` publishes each topic from publisher ``k`` (``port`` 0)
+    or from a client of the broker at ``port``, with payload ``b"<tag>
+    <i>"``, and answers every live subscriber's deliveries
+    {j: [(topic, payload)]} once the subscribers of ``want`` ({j: n}) hold
+    n each and half a second more; ``("sink",)`` starts a webhook endpoint
+    that answers ``auth_on_publish`` with the topic less its first word
+    and answers its URL, ``("calls",)`` the endpoint's calls so far;
+    ``("watch", port, filter)`` subscribes a client of the broker at
+    ``port``, ``("watched", n)`` answers its first ``n`` deliveries."""
+    import asyncio
+    import json as _json
+
+    from vernemq_tpu_torch.client import MQTTClient
+
+    sub_user, pub_user = list(PLUGIN_USERS)
+    calls = [0]
+
+    async def sink_handle(reader, writer):
+        try:
+            while True:
+                if not await reader.readline():
+                    return
+                length = 0
+                while True:
+                    h = await reader.readline()
+                    if h in (b"\r\n", b"\n", b""):
+                        break
+                    k, _, v = h.decode().partition(":")
+                    if k.strip().lower() == "content-length":
+                        length = int(v)
+                body = _json.loads(await reader.readexactly(length))
+                calls[0] += 1
+                resp = _json.dumps({"result": "ok", "modifiers": {
+                    "topic": body["topic"].split("/", 1)[1]}}).encode()
+                writer.write(b"HTTP/1.1 200 OK\r\nContent-Length: %d\r\n"
+                             b"\r\n%s" % (len(resp), resp))
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+
+    async def connect(cid, v5, user, port_=port):
+        c = MQTTClient("127.0.0.1", port_, client_id=cid, keepalive=0,
+                       proto_ver=5 if v5 else 4, username=user,
+                       password=(PLUGIN_USERS[user].encode()
+                                 if user else None))
+        ack = await c.connect(timeout=60)
+        if ack.rc:
+            fail(f"plugins: {cid} refused at CONNACK ({ack.rc})")
+        return c
+
+    async def run():
+        subs = []
+        for j, (filters, v5) in enumerate(live):
+            c = await connect(f"plug-sub{j}", v5, sub_user)
+            await c.subscribe(filters, qos=1 if v5 else 0, timeout=60)
+            subs.append(c)
+        publishers = [await connect(f"plug-pub{k}", k % 2 == 0, pub_user)
+                      for k in range(len(pubs))]
+        conn.send("ready")
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, conn.recv)
+        conn.send(await live_traffic(subs, publishers, pubs, expect))
+        others, sink, watcher = {}, None, None
+        while True:
+            cmd = await loop.run_in_executor(None, conn.recv)
+            if cmd == "done":
+                break
+            if cmd[0] == "connect":
+                _, cid, user, word = cmd
+                c = MQTTClient("127.0.0.1", port, client_id=cid, keepalive=0,
+                               username=user, password=word)
+                conn.send((await c.connect(timeout=60)).rc)
+                await c.close()
+            elif cmd[0] == "subscribe":
+                _, j, filters = cmd
+                conn.send((await subs[j].subscribe(
+                    filters, qos=0, timeout=60)).reason_codes)
+            elif cmd[0] == "send":
+                _, port_, k, sends, want = cmd
+                if port_:
+                    if port_ not in others:
+                        others[port_] = await connect(f"plug-ext{port_}",
+                                                      False, None, port_)
+                    c = others[port_]
+                else:
+                    c = publishers[k]
+                for i, (topic, qos) in enumerate(sends):
+                    await c.publish(topic, b"%s %d" % (cmd[0].encode(), i),
+                                    qos=qos, timeout=120)
+                got = {j: [] for j in range(len(subs))}
+
+                def drain():
+                    for j, sc in enumerate(subs):
+                        while not sc.messages.empty():
+                            m = sc.messages.get_nowait()
+                            if m is not None:
+                                got[j].append((m.topic, bytes(m.payload)))
+
+                deadline = time.monotonic() + 120
+                while time.monotonic() < deadline:
+                    drain()
+                    if all(len(got[j]) >= n for j, n in want.items()):
+                        break
+                    await asyncio.sleep(0.02)
+                await asyncio.sleep(0.5)
+                drain()
+                conn.send(got)
+            elif cmd[0] == "sink":
+                sink = await asyncio.start_server(sink_handle, "127.0.0.1", 0)
+                conn.send(f"http://127.0.0.1:"
+                          f"{sink.sockets[0].getsockname()[1]}/hook")
+            elif cmd[0] == "calls":
+                conn.send(calls[0])
+            elif cmd[0] == "watch":
+                _, port_, filt = cmd
+                watcher = await connect("plug-watch", True, None, port_)
+                await watcher.subscribe(filt, qos=1, timeout=60)
+                conn.send("watching")
+            elif cmd[0] == "watched":
+                out = []
+                for _ in range(cmd[1]):
+                    m = await asyncio.wait_for(watcher.messages.get(), 120)
+                    out.append((m.topic, bytes(m.payload)))
+                await asyncio.sleep(0.5)
+                while not watcher.messages.empty():
+                    m = watcher.messages.get_nowait()
+                    if m is not None:
+                        out.append((m.topic, bytes(m.payload)))
+                conn.send(out)
+        for c in subs + publishers + list(others.values()) \
+                + ([watcher] if watcher is not None else []):
+            await c.disconnect()
+        if sink is not None:
+            sink.close()
+
+    asyncio.run(run())
+    conn.close()
+
+
+async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
+                        rng) -> dict:
+    """[plugins], on the broker phase's broker after [admin] (999,447 GPU
+    rows): the shipped defaults turned on over the admin API (``config set
+    allow_anonymous=off``, ``plugin enable`` vmq_passwd with ``$6$``
+    entries for the phase's users and vmq_acl with PLUGIN_ACL); a load of
+    PLUGIN_PUBS publishes from authenticated clients in a second process,
+    every delivery exact against the registry trie; the refusals answered
+    as the reference broker answers them; a vmq_diversity Lua script
+    (``script load``) whose ``auth_on_publish`` rewrites ``rw/<topic>`` to
+    ``<topic>``; a webhook (``webhooks register``) in the clients' process
+    that answers ``auth_on_publish`` with a ``topic`` modifier; a bridge
+    to a second broker on the card, each way with a prefix; every
+    rewritten and bridged publish matched on the card and delivered
+    exactly as the trie of its final topic gives it. Every host-served
+    counter stays at 0 (read over the admin API), the tile and extraction
+    kernels launch, and the broker is left with no plugin and anonymous
+    clients allowed again."""
+    import asyncio
+    import collections
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from vernemq_tpu_torch.admin.cli import run_remote
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.plugins import passwd
+
+    t_start = time.perf_counter()
+    loop = asyncio.get_running_loop()
+    base = f"http://127.0.0.1:{b.http.port}"
+
+    async def admin(*words):
+        res = await loop.run_in_executor(None, run_remote, base, api_key,
+                                         list(words), 30)
+        if "error" in res:
+            fail(f"plugins: {' '.join(words)}: {res['error']}")
+        return res
+
+    async def host_metrics():
+        rows = (await admin("metrics", "show"))["table"]
+        return {r["metric"]: r["value"] for r in rows
+                if r["metric"] in HOST_METRICS + ("tpu_match_publishes",)}
+
+    tmp = tempfile.mkdtemp(prefix="vmq-plugins-")
+    pw_file, acl_file, lua_file = (os.path.join(tmp, n) for n in (
+        "vmq.passwd", "vmq.acl", "rewrite.lua"))
+    with open(pw_file, "w") as f:
+        f.writelines(passwd.make_entry(u, w) + "\n"
+                     for u, w in PLUGIN_USERS.items())
+    with open(acl_file, "w") as f:
+        f.write(PLUGIN_ACL)
+    with open(lua_file, "w") as f:
+        f.write('function auth_on_publish(pub)\n'
+                '    if string.sub(pub.topic, 1, 3) == "rw/" then\n'
+                '        return {topic = string.sub(pub.topic, 4)}\n'
+                '    end\n'
+                'end\n'
+                'hooks = { auth_on_publish = auth_on_publish }\n')
+    before = await host_metrics()
+    reset_counts()
+    await admin("config", "set", "allow_anonymous=off")
+    await admin("plugin", "enable", "name=vmq_passwd",
+                f"passwd_file={pw_file}")
+    await admin("plugin", "enable", "name=vmq_acl", f"acl_file={acl_file}")
+
+    live, topics, qos, pubs, expect = live_load(
+        rng, pools, "plugins", PLUGIN_LIVE, PLUGIN_PUBS, PLUGIN_PUBLISHERS)
+    trie = b.registry.trie("")
+    sids = {("", f"plug-sub{j}"): j for j in range(PLUGIN_LIVE)}
+
+    def rows_of(topic_list, tag: str):
+        """Each live subscriber's deliveries of ``topic_list`` (publish i
+        carrying ``b"<tag> <i>"``) as the trie gives them, and counts."""
+        want = [collections.Counter() for _ in range(PLUGIN_LIVE)]
+        for i, t in enumerate(topic_list):
+            for _f, key, _o in trie.match(t.split("/")):
+                j = sids.get(key)
+                if j is not None:
+                    want[j][(t, b"%s %d" % (tag.encode(), i))] += 1
+        return want, {j: sum(w.values()) for j, w in enumerate(want) if w}
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=plugin_clients,
+                       args=(port, live, pubs, expect, child), daemon=True)
+    proc.start()
+    child.close()
+
+    async def ask(cmd=None):
+        if cmd is not None:
+            conn.send(cmd)
+        deadline = time.monotonic() + BROKER_WAIT_S + 120
+        while not await loop.run_in_executor(None, conn.poll, 1.0):
+            if time.monotonic() > deadline or not proc.is_alive():
+                fail(f"plugins: the clients did not answer "
+                     f"{cmd[0] if isinstance(cmd, tuple) else cmd} (exit "
+                     f"code {proc.exitcode})")
+        return await loop.run_in_executor(None, conn.recv)
+
+    b2 = s2 = None
+    try:
+        await ask()  # every authenticated client connected and subscribed
+        want = [collections.Counter() for _ in live]
+        for i, t in enumerate(topics):
+            for _f, key, _o in trie.match(t.split("/")):
+                j = sids.get(key)
+                if j is not None:
+                    want[j][(i % PLUGIN_PUBLISHERS, i)] += 1
+        if [sum(w.values()) for w in want] != expect:
+            fail("plugins: the clients' stop counts disagree with the trie")
+        n0, t0 = m.match_publishes, time.perf_counter()
+        conn.send("go")
+        got, acks, wall, _ = await ask()
+        check_live(got, want, "plugins")
+        n_del = sum(len(g) for g in got)
+        load_pubs = m.match_publishes - n0
+        if load_pubs != PLUGIN_PUBS:
+            fail(f"plugins: the card matched {load_pubs} of the load's "
+                 f"{PLUGIN_PUBS} publishes")
+
+        # ---- refusals, as the reference broker answers them
+        refused = dict(
+            bad_password=await ask(("connect", "plug-bad", "plug-pub",
+                                    b"wrong")),
+            anonymous=await ask(("connect", "plug-anon", None, None)),
+            subscribe=await ask(("subscribe", 1, "secret")),
+            watch=await ask(("subscribe", 0, "own/+/x/y")))
+        if (refused["bad_password"] != RC_BAD_PASSWORD
+                or refused["anonymous"] != RC_NOT_AUTHORIZED
+                or refused["subscribe"] != [SUBACK_DENIED]
+                or refused["watch"] != [0]):
+            fail(f"plugins: refusals {refused}")
+        l0, l1, l2 = pools
+        # under plug-sub0's ".../#" filter: delivered to it if routed
+        deep = live[0][0][3][:-1] + "x/y"
+        # 4 levels: only the pattern rule lets plug-pub1 write them
+        mine, other = "own/plug-pub1/x/y", "own/plug-pub3/x/y"
+        sends = [(mine, 0), (other, 0), (deep, 0), (mine, 0)]
+        seen = await ask(("send", 0, 1, sends, {0: 2}))
+        leaked = {j: g for j, g in seen.items()
+                  if g != ([(mine, b"send 0"), (mine, b"send 3")] if j == 0
+                           else [])}
+        if leaked:
+            fail(f"plugins: an ACL-denied publish was delivered: {leaked}")
+
+        async def rewritten(tag: str, prefix: str, port_: int = 0):
+            """PLUGIN_STEP zipf publishes sent as ``prefix`` + topic, or
+            (``prefix`` None) into the second broker at ``port_`` less
+            their first word, which the bridge's ``in_word`` prefix puts
+            back; returns the card's publishes and tile launches for them
+            and the deliveries, after checking every live subscriber's
+            deliveries against the trie of the final topics."""
+            from vernemq_tpu_torch.ops import tile_match as TM
+
+            final = ["/".join(t) for t in zipf_topics(rng, pools,
+                                                      PLUGIN_STEP)]
+            if prefix is None:
+                final = [in_word + "/" + t.split("/", 1)[1] for t in final]
+            want, counts = rows_of(final, "send")
+            if not counts:
+                fail(f"plugins: the {tag} publishes match no subscriber")
+            sent = [(prefix + t if prefix else t.split("/", 1)[1], i % 2)
+                    for i, t in enumerate(final)]
+            n, launches = m.match_publishes, TM.launches
+            seen = await ask(("send", port_, 1, sent, counts))
+            if m.match_publishes - n != PLUGIN_STEP \
+                    or TM.launches <= launches:
+                fail(f"plugins: {tag}: {m.match_publishes - n} of "
+                     f"{PLUGIN_STEP} matched on the card, tile launches "
+                     f"+{TM.launches - launches}")
+            for j in range(PLUGIN_LIVE):
+                if collections.Counter(seen[j]) != want[j]:
+                    fail(f"plugins: {tag}: plug-sub{j} got "
+                         f"{len(seen[j])} deliveries, the trie of the "
+                         f"final topics gives {sum(want[j].values())}")
+            return (m.match_publishes - n, TM.launches - launches,
+                    sum(counts.values()))
+
+        out_word, in_word = l0[0], l0[1]  # the bridge's two prefixes
+
+        # ---- vmq_diversity: a Lua auth_on_publish rewrites rw/<topic>
+        await admin("plugin", "enable", "name=vmq_diversity")
+        await admin("script", "load", f"path={lua_file}")
+        lua = await rewritten("the Lua rewrite", "rw/")
+
+        # ---- vmq_webhooks: an auth_on_publish webhook's topic modifier
+        url = await ask(("sink",))
+        await admin("plugin", "enable", "name=vmq_webhooks")
+        await admin("webhooks", "register", "hook=auth_on_publish",
+                    f"endpoint={url}")
+        hook = await rewritten("the webhook rewrite", "wh/")
+        hook_calls = await ask(("calls",))
+        await admin("webhooks", "deregister", "hook=auth_on_publish",
+                    f"endpoint={url}")
+        if hook_calls != PLUGIN_STEP:
+            fail(f"plugins: the webhook was called {hook_calls} times for "
+                 f"{PLUGIN_STEP} publishes")
+
+        # ---- vmq_bridge: a second broker on the card, bridged each way
+        cfg2 = broker_config()
+        cfg2.set("tpu_initial_capacity", 1 << 13)
+        cfg2.set("http_enabled", False)
+        b2, s2 = await start_broker(cfg2, port=0, device=DEVICE)
+        plugin = b.plugins.enable("vmq_bridge", bridges=[{
+            "name": "plug-br", "host": "127.0.0.1", "port": s2.port,
+            "restart_timeout": 0.2, "topics": [
+                {"pattern": f"{out_word}/+/+", "direction": "out",
+                 "qos": 1, "remote_prefix": "big"},
+                {"pattern": "+/+", "direction": "in", "qos": 1,
+                 "local_prefix": in_word}]}])
+        deadline = time.monotonic() + 60
+        while not (plugin.bridges["plug-br"].info()["connected"]
+                   and b2.registry.trie("").match(["x", "y"])):
+            if time.monotonic() > deadline:
+                fail("plugins: the bridge never linked the two brokers")
+            await asyncio.sleep(0.05)
+        shown = (await admin("bridge", "show"))["table"]
+        if [r["name"] for r in shown] != ["plug-br"] \
+                or not shown[0]["connected"]:
+            fail(f"plugins: bridge show lists {shown}")
+        await ask(("watch", s2.port, "big/#"))
+        out_topics = [f"{out_word}/{l1[rng.randrange(BROKER_HOT)]}/"
+                      f"{l2[rng.randrange(BROKER_HOT)]}"
+                      for _ in range(PLUGIN_STEP)]
+        want_out, counts_out = rows_of(out_topics, "send")
+        n = m.match_publishes
+        seen = await ask(("send", 0, 1, [(t, 1) for t in out_topics],
+                          counts_out))
+        if any(collections.Counter(seen[j]) != want_out[j]
+               for j in range(PLUGIN_LIVE)):
+            fail("plugins: the bridged-out publishes' local deliveries "
+                 "differ from the trie's")
+        remote = await ask(("watched", PLUGIN_STEP))
+        if sorted(remote) != sorted(
+                (f"big/{t}", b"send %d" % i)
+                for i, t in enumerate(out_topics)):
+            fail(f"plugins: the second broker's subscriber got "
+                 f"{len(remote)} of {PLUGIN_STEP} bridged publishes")
+        bridge_out = m.match_publishes - n
+        if bridge_out != PLUGIN_STEP:
+            fail(f"plugins: {bridge_out} of the {PLUGIN_STEP} bridged-out "
+                 f"publishes matched on the card")
+        bridged_in = await rewritten("the bridged-in publishes",
+                                     None, s2.port)
+        hs2 = host_served(b2.batch_collector(),
+                          b2.registry.reg_view("tpu").matcher(""))
+
+        # ---- restore: no plugin, anonymous clients allowed
+        for name in ("vmq_bridge", "vmq_webhooks", "vmq_diversity",
+                     "vmq_acl", "vmq_passwd"):
+            await admin("plugin", "disable", f"name={name}")
+        if (await admin("plugin", "show"))["table"]:
+            fail("plugins: plugins left enabled")
+        await admin("config", "set", "allow_anonymous=on")
+        conn.send("done")
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        if b2 is not None:
+            await b2.stop()
+            await s2.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = await host_metrics()
+    moved = {k: after[k] - before[k] for k in HOST_METRICS
+             if after[k] != before[k]}
+    if moved or any(hs2.values()):
+        fail(f"plugins: publishes served by the host: {moved}, second "
+             f"broker {hs2}")
+    launches, ex, dense = forward_counts("plugins")
+    card_pubs = after["tpu_match_publishes"] - before["tpu_match_publishes"]
+    total = time.perf_counter() - t_start
+    print(f"[plugins] {card} | the shipped defaults over the admin API "
+          f"(allow_anonymous off, vmq_passwd with $6$ entries, vmq_acl): "
+          f"{PLUGIN_PUBS} publishes ({sum(qos)} at QoS 1) from "
+          f"{PLUGIN_PUBLISHERS} authenticated publishers to {PLUGIN_LIVE} "
+          f"authenticated subscribers (v3.1.1 and v5) at "
+          f"{PLUGIN_PUBS / wall:.0f} publishes/s ({wall:.2f}s), {n_del} "
+          f"deliveries exact against the trie; refusals as the reference "
+          f"broker answers them: wrong password CONNACK "
+          f"{refused['bad_password']}, anonymous {refused['anonymous']}, "
+          f"denied SUBSCRIBE {refused['subscribe']}, ACL-denied publishes "
+          f"delivered to no one", flush=True)
+    print(f"[plugins] {card} | {PLUGIN_STEP} publishes rewritten by a Lua "
+          f"auth_on_publish (vmq_diversity, `script load`): {lua[0]} "
+          f"matched on the card ({lua[1]} tile launches), {lua[2]} "
+          f"deliveries exact against the trie of the rewritten topics; "
+          f"{PLUGIN_STEP} rewritten by an auth_on_publish webhook "
+          f"({hook_calls} endpoint calls): {hook[0]} on the card, {hook[2]} "
+          f"deliveries exact; bridge `plug-br` to a second broker on the "
+          f"card: {bridge_out} publishes out (all {PLUGIN_STEP} at the "
+          f"remote subscriber under big/), {bridged_in[0]} in through the "
+          f"bridge matched on the card, {bridged_in[2]} deliveries exact",
+          flush=True)
+    print(f"[plugins] {card} | exact, 0 host-served (deltas over the admin "
+          f"API), {card_pubs} publishes on the card, {launches} tile / "
+          f"{dense} dense-mode / {ex} extraction launches, no plain "
+          f"extraction or bit-pack on the card; every plugin disabled, "
+          f"allow_anonymous on; [plugins] took {total:.1f}s", flush=True)
+    return dict(launches=launches, extract_launches=ex, seconds=total,
+                pubs_per_s=PLUGIN_PUBS / wall, card_pubs=card_pubs)
 
 
 def cluster_config():
@@ -2312,6 +2952,8 @@ def cluster_node(name: str, join, conn) -> None:
             b, ["api-key", "create"])["table"][0]["key"]
         conn.send(("up", server.port, b.http.port, api_key, os.getpid()))
         base = {}
+        inbound = dict(batches=[], kinds={})
+        time_cluster_batches(b, inbound)
         while True:
             cmd = await loop.run_in_executor(None, conn.recv)
             if cmd[0] == "load":
@@ -2363,13 +3005,17 @@ def cluster_node(name: str, join, conn) -> None:
                                 "cluster_frames_dropped"))
                 seen = dict(max_lag_ms=0.0, lags=0, max_buf=0, events=[],
                             before=node_state(b))
+                inbound["batches"].clear()
+                inbound["kinds"].clear()
                 watcher = loop.create_task(watch_node(b, seen))
+                sampler = StackSampler()
                 conn.send("reset")
             elif cmd[0] == "read":
                 watcher.cancel()
                 seen["after"] = node_state(b)
                 conn.send(dict(
-                    watch=seen,
+                    watch=seen, profile=sampler.stop(),
+                    inbound=batch_summary(inbound),
                     launches=TM.launches, extract_launches=EX.launches,
                     plain_extractions=TK.plain_cuda_extractions,
                     dense_launches=TM.dense_launches,
@@ -2592,6 +3238,10 @@ def phase_cluster(card: str, single: dict) -> dict:
                   f"anti-entropy rounds {w1['exchanges'] - w0['exchanges']}"
                   f"; (s into the load, lag ms, level, buffer bytes): "
                   f"{w['events']}", flush=True)
+            print(f"[cluster] {card} | node {name} cluster channel: "
+                  f"{r['inbound']}", flush=True)
+            print(f"[cluster] {card} | {stack_profile(name, r['profile'])}",
+                  flush=True)
         inversions = check_live(got, want, "cluster")
         over_http = []
         for (name, _, _), u in zip(nodes, ups):
@@ -4499,9 +5149,45 @@ def phase_reverse_kernel(compiled: bool):
     return reverse_err, reverse_ptxas
 
 
-def main() -> int:
+def run_alone(card: str, phase: str, repeat: int) -> int:
+    """``--phase`` ``broker`` (with ``[admin]`` and ``[plugins]``) or
+    ``cluster`` on its own, ``repeat`` times after the kernels' build:
+    each run passes or fails as in the whole script. Exits non-zero if
+    any run failed, and prints no ``ok`` line."""
+    from vernemq_tpu_torch.ops import _build
+
+    _build.build(["tile_match", "extract", "reverse_match", "predicate"])
+    passed = 0
+    for i in range(repeat):
+        t0 = time.perf_counter()
+        try:
+            if phase == "broker":
+                phase_broker(card, HEADLINE_S)
+            else:
+                phase_cluster(card, {"pubs_per_s": float("nan")})
+            passed += 1
+            verdict = "passed"
+        except SystemExit:
+            verdict = "FAILED"
+        release(card, f"after {phase} run {i + 1}")
+        print(f"[alone] {card} | {phase} run {i + 1} of {repeat} {verdict} "
+              f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"[alone] {card} | {phase}: {passed} of {repeat} runs passed",
+          flush=True)
+    return 0 if passed == repeat else 1
+
+
+def main(argv=()) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="chip smoke run of the port")
+    ap.add_argument("--phase", choices=("broker", "cluster"),
+                    help="run this serving phase alone (no ok line)")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="runs of --phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4520,6 +5206,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.phase:
+        return run_alone(card, args.phase, args.repeat)
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -4846,7 +5534,8 @@ def main() -> int:
         "dense_launches": path_dense,
         "launches_per_path": {
             "path": path_launches, "mesh": mesh["tile"],
-            "mesh_legacy": mesh["legacy_tile"]},
+            "mesh_legacy": mesh["legacy_tile"],
+            "plugins": broker["plugins"]["launches"]},
         "dense_launches_per_path": {
             "path": path_dense, "burst": burst_dense, "churn": churn_dense,
             "broker": broker["dense_launches"],
@@ -4928,6 +5617,7 @@ def main() -> int:
         "launches_per_path": {
             "path": path_ex, "burst": burst_ex, "churn": churn_ex,
             "broker": broker["extract_launches"],
+            "plugins": broker["plugins"]["extract_launches"],
             "cluster": cluster["node_extract_launches"],
             "workers": workers["extract_launches"],
             "retained": ret["extract_launches"],
@@ -4998,4 +5688,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -355,22 +355,78 @@ def test_prometheus_and_graphite_carry_the_device_counters(transcripts):
         assert name.startswith("vmq.node1.") and float(value) == float(value)
 
 
-def test_plugin_commands_answer_as_without_the_plugin():
-    """The bundled plugins are not ported (ROADMAP Queue 1 item 11b):
-    their commands answer as the reference answers when the plugin is not
-    enabled (compared above), and enabling one is refused by name."""
-    from vernemq_tpu_torch.broker.broker import Broker
+async def _plugin_script(port_side: bool, tmp) -> list:
+    """Every bundled plugin enabled, driven and disabled through the admin
+    commands on one broker; returns each command's answer (or error)."""
+    start = start_broker if port_side else ref_start_broker
+    conf = Config if port_side else RefConfig
+    commands = (register_core_commands(CommandRegistry()) if port_side
+                else ref_commands(RefRegistry()))
+    errors = (CommandError, ValueError) if port_side else (Exception,)
+    kw = {"device": "cpu"} if port_side else {}
+    acl, passwd, lua = tmp / "acl", tmp / "passwd", tmp / "s.lua"
+    acl.write_text("topic read a/#\n")
+    passwd.write_text("")
+    lua.write_text("function auth_on_register(reg) return true end\n"
+                   "hooks = { auth_on_register = auth_on_register }\n")
+    b, s = await start(conf(**BASE), port=0, **kw)
+    out = []
+    try:
+        for words in (
+                ["plugin", "show"], ["webhooks", "show"], ["script", "show"],
+                ["bridge", "show"],
+                ["plugin", "enable", "name=vmq_acl", f"acl_file={acl}"],
+                ["plugin", "enable", "name=vmq_passwd",
+                 f"passwd_file={passwd}"],
+                ["plugin", "enable", "name=vmq_webhooks"],
+                ["webhooks", "register", "hook=auth_on_publish",
+                 "endpoint=http://127.0.0.1:9/hook"],
+                ["webhooks", "show"], ["webhooks", "cache"],
+                ["plugin", "enable", "name=vmq_diversity"],
+                ["script", "load", f"path={lua}"], ["script", "show"],
+                ["plugin", "enable", "name=vmq_mqtt5_demo_plugin"],
+                ["plugin", "enable", "name=vmq_bridge"], ["bridge", "show"],
+                ["plugin", "show"], ["plugin", "enable", "name=vmq_acl"],
+                ["webhooks", "deregister", "hook=auth_on_publish",
+                 "endpoint=http://127.0.0.1:9/hook"], ["webhooks", "show"],
+                *(["plugin", "disable", f"name={n}"] for n in (
+                    "vmq_acl", "vmq_passwd", "vmq_webhooks", "vmq_diversity",
+                    "vmq_mqtt5_demo_plugin", "vmq_bridge")),
+                ["plugin", "show"], ["webhooks", "show"]):
+            try:
+                res = commands.run(b, list(words))
+            except errors as e:
+                res = {"error": type(e).__name__, "text": str(e)}
+            out.append((" ".join(words[:2]), res))
+    finally:
+        await b.stop()
+        await s.stop()
+    pkg = "vernemq_tpu_torch." if port_side else "vernemq_tpu."
+    return json.loads(json.dumps(out).replace(str(tmp), "<tmp>")
+                      .replace(pkg, "<pkg>."))
 
-    b = Broker(Config())
-    reg = register_core_commands(CommandRegistry())
-    for name in ("vmq_acl", "vmq_passwd", "vmq_webhooks", "vmq_bridge",
-                 "vmq_diversity", "vmq_mqtt5_demo_plugin"):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            reg.run(b, ["plugin", "enable", f"name={name}"])
-    assert reg.run(b, ["plugin", "show"]) == {"table": []}
-    with pytest.raises(CommandError, match="vmq_webhooks plugin is not "
-                                           "enabled"):
-        reg.run(b, ["webhooks", "show"])
+
+@pytest.mark.asyncio
+async def test_plugin_commands_answer_as_without_the_plugin(tmp_path):
+    """The bundled plugins are ported (ROADMAP Queue 1 item 11b): before
+    a plugin is enabled its commands answer as the reference's do without
+    it, and with it enabled ``plugin enable|show|disable``, ``webhooks
+    register|show|cache|deregister``, ``script load|show`` and ``bridge
+    show`` answer as the reference's do (the plugins' module paths aside),
+    down to ``plugin show`` empty again after every plugin is disabled."""
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    ref = await _plugin_script(False, tmp_path / "ref")
+    port = await _plugin_script(True, tmp_path / "port")
+    assert port == ref
+    shown = dict(port)
+    assert shown["plugin show"] == {"table": []}
+    assert [r["plugin"] for r in port[16][1]["table"]] == [
+        "vmq_acl", "vmq_passwd", "vmq_webhooks", "vmq_diversity",
+        "vmq_mqtt5_demo_plugin", "vmq_bridge"]
+    assert port[8][1]["table"] == [{
+        "hook": "auth_on_publish", "endpoint": "http://127.0.0.1:9/hook",
+        "base64payload": True}]
 
 
 def test_trie_stats_keep_the_reference_node_count():

@@ -478,6 +478,34 @@ async def test_per_publisher_order_preserved_under_slow_device():
         await s.stop()
 
 
+@pytest.mark.asyncio
+@pytest.mark.parametrize("qos", [0, 1])
+async def test_stop_returns_after_an_empty_payload_delivery(qos):
+    """A PUBLISH with an empty payload delivered to a client that then
+    disconnects does not hang ``Broker.stop()``/``MQTTServer.stop()``:
+    the transport drops an empty last chunk before the socket transport's
+    buffer would keep it forever (ROADMAP Queue 3). Bounded by a time
+    limit, so a regression fails instead of hanging the run."""
+    b, s = await start_broker(Config(**BASE, default_reg_view="tpu"),
+                              port=0, device="cpu")
+    stopped = False
+    try:
+        sub = await _client(s.port, "empty-sub")
+        await sub.subscribe("e/#", qos=qos)
+        pub = await _client(s.port, "empty-pub", v5=True)
+        await pub.publish("e/x", b"", qos=qos)
+        m = await sub.recv(10.0)
+        assert (m.topic, bytes(m.payload), m.qos) == ("e/x", b"", qos)
+        await sub.disconnect()
+        await pub.disconnect()
+        await asyncio.wait_for(b.stop(), 10)
+        await asyncio.wait_for(s.stop(), 10)
+        stopped = True
+    finally:
+        if not stopped:
+            s._server.close()
+
+
 def test_gpu_view_without_a_card_raises(monkeypatch):
     """No probe, no silent trie: the default device is the card, and a
     broker whose default view is the GPU view raises without one."""
@@ -489,11 +517,6 @@ def test_gpu_view_without_a_card_raises(monkeypatch):
     assert Broker(Config()).device is None  # the trie view needs no card
 
 
-#: the configurations the port still refuses: bridges and the bundled
-#: plugins (ROADMAP Queue 1 item 11b)
-REFUSED = ("bridges", "plugins")
-
-
 @pytest.mark.asyncio
 @pytest.mark.parametrize("knob", [
     dict(tpu_mesh="2x4"), dict(metadata_plugin="swc"),
@@ -501,21 +524,24 @@ REFUSED = ("bridges", "plugins")
     dict(bridges=[{"name": "br0", "host": "127.0.0.1", "port": 1}]),
     dict(plugins=[{"name": "vmq_acl"}]), dict(observability_enabled=False)],
     ids=lambda k: next(iter(k)))
-async def test_unported_configs_raise(knob):
-    """Bridges and the bundled plugins (ROADMAP item 11b) are not ported:
-    asking for either raises, naming the item, before a broker is built.
-    The knobs items 8, 11a and 11c ported are served: a device mesh (the
-    mesh-native seat, on the CPU repeated), the SWC metadata store, the
-    admin HTTP API, the Graphite reporter and observability off each boot
-    a broker on the GPU view that delivers a publish. (Worker mode, item
-    9, is served too: test_torch_workers.py.)"""
+async def test_unported_configs_raise(knob, tmp_path):
+    """No configuration is refused since the bundled plugins were ported
+    (ROADMAP Queue 1 item 11b): each of these knobs boots a broker on the
+    GPU view that delivers a publish. A device mesh (the mesh-native seat,
+    on the CPU repeated), the SWC metadata store, the admin HTTP API, the
+    Graphite reporter, observability off, a conf-file bridge (to a remote
+    that is not there: its link retries while local traffic is served) and
+    a conf-file plugin (vmq_acl with an ACL file that lets the client read
+    and write its topics) each boot as the reference's do. (Worker mode,
+    item 9, is served too: test_torch_workers.py.)"""
     from vernemq_tpu_torch.observability import histogram as hist
 
     name = next(iter(knob))
-    if name in REFUSED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            Broker(Config(default_reg_view="tpu", **knob), device="cpu")
-        return
+    if name == "plugins":
+        acl = tmp_path / "acl"
+        acl.write_text("topic k/#\n")
+        knob = dict(plugins=[{"name": "vmq_acl",
+                              "opts": {"acl_file": str(acl)}}])
     b, s = await start_broker(Config(**BASE, default_reg_view="tpu",
                                      http_port=0, **knob),
                               port=0, device="cpu")
@@ -543,6 +569,10 @@ async def test_unported_configs_raise(knob):
             assert b.graphite is not None and not b.graphite._task.done()
         elif name == "observability_enabled":
             assert not hist.enabled()
+        elif name == "bridges":
+            assert b.plugins.get("vmq_bridge").show()[0]["name"] == "br0"
+        elif name == "plugins":
+            assert [n for n, _ in b.plugins.show()] == ["vmq_acl"]
         elif name == "tpu_mesh":
             from vernemq_tpu_torch.parallel.mesh_match import MeshGpuMatcher
 

@@ -197,3 +197,62 @@ def test_two_node_cluster_delivers_as_reference(side, reference_deliveries):
     assert folds == {"A": ["B"], "B": [("", "sub2")]}
     for name, (pubs, fallbacks, host) in served.items():
         assert pubs > 0 and fallbacks == 0 and not any(host), (name, host)
+
+
+async def _gate_script(side: str):
+    """The is_ready gate of node A through membership changes, on a
+    two-node cluster whose store holds 2,000 subscriber records: its
+    answers, and how many times A's store was folded for 500 gates."""
+    if side == "ref":
+        from vernemq_tpu.cluster.cluster import MEMBERS
+        from vernemq_tpu.protocol.types import SubOpts
+    else:
+        from vernemq_tpu_torch.cluster.cluster import MEMBERS
+        from vernemq_tpu_torch.protocol.types import SubOpts
+
+    (a, sa), (b, sb) = await _nodes(side)
+    cl = a.cluster
+    try:
+        for i in range(2000):
+            a.registry.subscribe(("", f"rec{i}"), [("r/%d" % i, SubOpts())])
+        folds = [0]
+        fold = a.metadata.fold
+
+        def counted(prefix):
+            folds[0] += 1
+            return fold(prefix)
+
+        a.metadata.fold = counted
+        gates = [all(cl.is_ready() for _ in range(500))]
+        busy = folds[0]
+        cl._status["B"] = "down"  # B's data channel drops
+        gates.append(cl.is_ready())
+        cl._status["B"] = "up"
+        gates.append(cl.is_ready())
+        # a third member joins (its channel never comes up), leaves, and
+        # its record is deleted
+        rec = {"addr": ["127.0.0.1", 9], "state": "joined",
+               "joined_at": time.time()}
+        a.metadata.put(MEMBERS, "C", rec)
+        gates.append(cl.is_ready())
+        a.metadata.put(MEMBERS, "C", dict(rec, state="leaving"))
+        gates.append(cl.is_ready())
+        a.metadata.put(MEMBERS, "C", dict(rec))
+        gates.append(cl.is_ready())
+        a.metadata.delete(MEMBERS, "C")
+        gates.append(cl.is_ready())
+        return gates, busy
+    finally:
+        await _stop([(a, sa), (b, sb)])
+
+
+def test_is_ready_folds_the_store_once_per_member_change():
+    """``Cluster.is_ready`` (the CAP gate of every publish) answers as the
+    reference's through a member's channel going down and up and a third
+    member joining, leaving, rejoining and being deleted; but it folds the
+    metadata store (every record, each subscriber's too) only when a
+    member record changed, not on each call as the reference does."""
+    want, _ = asyncio.run(_gate_script("ref"))
+    got, busy = asyncio.run(_gate_script("port"))
+    assert got == want == [True, False, True, False, True, False, True]
+    assert busy <= 1

@@ -1,8 +1,8 @@
 """The port's copies of the reference's host modules stay verbatim: each
 copied module equals the reference's source after the listed changes,
 which are the port's names (logger names, module paths in docstrings and
-launcher hints) and a few comment lines reworded (``LINES``), nothing of
-substance."""
+launcher hints), a few comment lines reworded (``LINES``) and the
+departures ROADMAP lists, each marked where it is replaced."""
 
 import pathlib
 
@@ -45,6 +45,44 @@ COPIES = {
     "cluster/swc_db.py": [],
     "cluster/swc_kernel.py": [],
     "cluster/swc_store.py": _loggers("swc"),
+    "native/bcrypt.py": [],
+    "plugins/__init__.py": _loggers("plugins"),
+    "plugins/acl.py": _loggers("acl"),
+    "plugins/bridge.py": _loggers("bridge") + [
+        ("``vernemq_tpu.client.ReconnectingClient``",
+         "``vernemq_tpu_torch.client.ReconnectingClient``"),
+        (":class:`~vernemq_tpu.client.ReconnectingClient`",
+         ":class:`~vernemq_tpu_torch.client.ReconnectingClient`"),
+        # a departure (ROADMAP "Departures"): under the GPU view a bridged
+        # publish is matched on the card, not on the host trie
+        ("                self.broker.registry.publish(msg, "
+         "from_sid=self.sid)\n",
+         "                reg = self.broker.registry\n"
+         "                if reg.batched_view_active():\n"
+         "                    # matched on the card in arrival order, as a\n"
+         "                    # session's publish is, not on the host trie\n"
+         "                    reg.publish_nowait(msg, from_sid=self.sid)\n"
+         "                else:\n"
+         "                    reg.publish(msg, from_sid=self.sid)\n"),
+    ],
+    "plugins/connectors.py": [],
+    "plugins/lua/auth_commons.lua": [
+        ("(vernemq_tpu edition)", "(vernemq_tpu_torch edition)"),
+    ],
+    "plugins/lua_bridge.py": _loggers("lua") + [
+        ('getLogger(f"vernemq_tpu.lua.', 'getLogger(f"vernemq_tpu_torch.lua.'),
+        (":class:`~vernemq_tpu.plugins.scripting.ScriptingPlugin`",
+         ":class:`~vernemq_tpu_torch.plugins.scripting.ScriptingPlugin`"),
+    ],
+    "plugins/mqtt5_demo.py": [],
+    "plugins/passwd.py": _loggers("passwd"),
+    "plugins/scripting.py": _loggers("scripting") + [
+        ('getLogger(f"vernemq_tpu.script.',
+         'getLogger(f"vernemq_tpu_torch.script.'),
+    ],
+    "plugins/webhooks.py": _loggers("webhooks"),
+    "utils/__init__.py": [],
+    "utils/lua.py": [],
 }
 
 #: module -> {line number (1-based): the port's line} for comment lines

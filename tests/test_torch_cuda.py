@@ -648,6 +648,94 @@ def test_broker_serves_mqtt_through_the_tile_kernel():
 
 
 @pytest.mark.cuda
+def test_publish_rewritten_by_a_plugin_is_matched_on_the_card(tmp_path):
+    """A Lua ``auth_on_publish`` (vmq_diversity) rewrites ``old/...`` to
+    ``r1/...``: the rewritten topic is what the card matches. The
+    subscriber receives exactly the trie's rows of the rewritten topics,
+    the tile kernel launches, nothing is served by the host, and the
+    matcher's rows of the rewritten topics equal the trie's."""
+    import asyncio
+
+    from vernemq_tpu_torch.broker.config import Config
+    from vernemq_tpu_torch.broker.server import start_broker
+    from vernemq_tpu_torch.client import MQTTClient
+    from vernemq_tpu_torch.protocol.types import SubOpts
+
+    _card()
+    script = tmp_path / "rewrite.lua"
+    script.write_text("""
+function auth_on_publish(pub)
+    if string.sub(pub.topic, 1, 4) == "old/" then
+        return {topic = "r1/" .. string.sub(pub.topic, 5)}
+    end
+    return true
+end
+hooks = { auth_on_publish = auth_on_publish }
+""")
+    filters = ["r1/+/m2", "+/d3/m4", "r1/d3/#", "old/#"]
+    tails = [f"d{i % 8}/m{i % 5}" for i in range(60)]
+
+    async def main():
+        b, s = await start_broker(
+            Config(allow_anonymous=True, systree_enabled=False,
+                   sysmon_enabled=False, default_reg_view="tpu",
+                   tpu_initial_capacity=8192, tpu_max_fanout=64,
+                   tpu_host_batch_threshold=0,
+                   watchdog_collector_expiry_budgets=100),
+            port=0, device="cuda")
+        try:
+            b.plugins.enable("vmq_diversity", scripts=[str(script)])
+            b.registry.subscribe(("", "bulk"), [
+                (f, SubOpts()) for f in bucket_corpus()])
+            m = b.registry.reg_view("tpu").matcher("")
+            sub = MQTTClient(s.host, s.port, "sub", proto_ver=5)
+            await sub.connect()
+            await sub.subscribe(filters, qos=1)
+            pub = MQTTClient(s.host, s.port, "pub")
+            await pub.connect()
+            TM.launches = 0
+            for i, t in enumerate(tails):
+                await pub.publish("old/" + t, b"%d" % i, qos=i % 2)
+            trie = b.registry.trie("")
+            want = sorted(
+                ("r1/" + t, b"%d" % i) for i, t in enumerate(tails)
+                for _f, key, _o in trie.match(["r1", *t.split("/")])
+                if key == ("", "sub"))
+            got = []
+            while len(got) < len(want):
+                f = await sub.recv(10.0)
+                got.append((f.topic, bytes(f.payload)))
+            late = []
+            try:
+                late.append(await sub.recv(0.5))
+            except asyncio.TimeoutError:
+                pass
+            launches = TM.launches
+            col = b.batch_collector()
+            host = {k: getattr(col, k) for k in dir(col)
+                    if k.endswith("_host_pubs")}
+            host.update(host_fallbacks=m.host_fallbacks,
+                        device_failures=m.device_failures)
+            rewritten = [["r1", *t.split("/")] for t in tails]
+            rows = m.match_batch(rewritten)
+            parity = all(
+                sorted((f, str(k)) for f, k, _ in r)
+                == sorted((f, str(k)) for f, k, _ in trie.match(t))
+                for r, t in zip(rows, rewritten))
+            await sub.disconnect()
+            await pub.disconnect()
+            return want, sorted(got), late, launches, host, parity
+        finally:
+            await b.stop()
+            await s.stop()
+
+    want, got, late, launches, host, parity = asyncio.run(main())
+    assert want and got == want and not late
+    assert launches > 0 and not any(host.values()), (launches, host)
+    assert parity
+
+
+@pytest.mark.cuda
 def test_broker_starts_on_the_card_in_a_fresh_process():
     """A broker process that has imported nothing else starts on the card
     with the GPU view, the retained index and the predicate phase (each

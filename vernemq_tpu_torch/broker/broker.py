@@ -25,7 +25,7 @@ from .message import Msg, SubscriberId
 from .metrics import Metrics
 from .plugins import HookError, HookRegistry
 from .queue import SubscriberQueue
-from .reg import Registry, refuse_unported
+from .reg import Registry
 from .retain import RetainStore
 from ..device import DeviceLike, resolve_device
 
@@ -46,7 +46,6 @@ class Broker:
         card; the CPU serves it only when asked (``device="cpu"``)."""
         self.config = config or Config()
         self.node_name = node_name
-        refuse_unported(self.config)
         # a worker whose tpu view is the match service's ring stub runs
         # on no device: the service process owns the card
         self.device = (resolve_device(device)
@@ -1880,10 +1879,13 @@ class Broker:
 
             self.graphite = GraphiteReporter(self)
             self.graphite.start()
-        # bridges and the bundled plugins are not ported (refused in
-        # __init__, ROADMAP Queue 1 item 11b); conf-file listeners
+        if self.config.get("bridges"):
+            self.plugins.enable("vmq_bridge")
+        # conf-file plugins (plugins.<name> = on) and listeners
         # (listener.<kind>.<name> = ip:port) — the boot-time half of the
         # vernemq.conf layer (broker/conf.py)
+        for p in self.config.get("plugins", []):
+            self.plugins.enable(p["name"], **p.get("opts", {}))
         conf_listeners = self.config.get("listeners", [])
         if conf_listeners:
             if self.listeners is None:

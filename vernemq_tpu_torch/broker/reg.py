@@ -86,21 +86,6 @@ class TrieRegView:
         return self._registry.trie(mountpoint).match(topic)
 
 
-def refuse_unported(config) -> None:
-    """Configurations the port cannot serve raise ``NotImplementedError``
-    naming the ROADMAP Queue 1 item that ports them, before a broker is
-    built, instead of failing later on a module that was never copied:
-    bridges and the bundled plugins."""
-    unported = {
-        "bridges (plugins/bridge)": bool(config.get("bridges")),
-        "plugins (the bundled plugins)": bool(config.get("plugins")),
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what}: not ported yet (ROADMAP Queue 1 item 11)")
-
-
 class Registry:
     def __init__(self, broker: "Broker"):
         self.broker = broker

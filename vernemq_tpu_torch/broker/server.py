@@ -75,6 +75,15 @@ class StreamTransport(Transport):
         if self.closed or not self._chunks:
             return
         chunks, self._chunks = self._chunks, []
+        # an empty last chunk (a PUBLISH with no payload) would stay in
+        # the socket transport's buffer forever: CPython's
+        # _adjust_leftover_buffer stops popping at 0 bytes left, so the
+        # buffer never drains, close() never reaches connection_lost and
+        # wait_closed() never returns
+        while not len(chunks[-1]):
+            chunks.pop()
+            if not chunks:
+                return
         try:
             if len(chunks) == 1:
                 self._writer.write(chunks[0])

@@ -125,6 +125,11 @@ class Cluster:
             self.planner = RebalancePlanner(self, self.health)
             self.health.planner = self.planner
         self._com = ClusterCom(self)
+        # the joined peers the is_ready gate reads, kept while member
+        # records' change events reach this object
+        self._ready_peers: Optional[List[str]] = None
+        self._watching = True
+        self.metadata.subscribe(MEMBERS, self._members_changed)
         self.metadata.subscribe(MEMBERS, self._on_member_change)
         if hasattr(self.metadata, "attach_cluster"):  # SWC backend
             self.metadata.attach_cluster(self)
@@ -206,7 +211,9 @@ class Cluster:
         # broadcast fn, the SWC transport ref — or a later restart would
         # feed two clusters (and local puts would flood dead writers).
         if hasattr(self.metadata, "unsubscribe"):
+            self.metadata.unsubscribe(MEMBERS, self._members_changed)
             self.metadata.unsubscribe(MEMBERS, self._on_member_change)
+        self._watching, self._ready_peers = False, None
         if getattr(self.metadata, "broadcast", None) == self._broadcast_meta:
             self.metadata.broadcast = None
         if getattr(self.metadata, "cluster", None) is self:
@@ -383,6 +390,9 @@ class Cluster:
             if rec.get("state") == "joined" and (include_self or node != self.node_name):
                 out.append(node)
         return sorted(out)
+
+    def _members_changed(self, node, old, new, origin) -> None:
+        self._ready_peers = None
 
     def member_info(self) -> Dict[str, Any]:
         """hlo payload: identity, capabilities (spool negotiation — old
@@ -589,8 +599,16 @@ class Cluster:
 
     def is_ready(self) -> bool:
         """Consistency gate (vmq_cluster:is_ready/0): every joined member's
-        data channel is up."""
-        for node in self.members(include_self=False):
+        data channel is up. The gate is asked on every publish and a fold
+        of the membership walks every record of the store (each
+        subscriber's too), so the joined peers are kept until a member
+        record changes."""
+        peers = self._ready_peers
+        if peers is None:
+            peers = self.members(include_self=False)
+            if self._watching:
+                self._ready_peers = peers
+        for node in peers:
             if self._status.get(node) != "up":
                 return False
         return True

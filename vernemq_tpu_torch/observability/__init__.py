@@ -41,9 +41,8 @@ envelope, so ONE ``chrome_trace()`` dump renders per-node process
 tracks for a publish that crossed the wire (per-peer clock offsets
 estimated by :class:`~.recorder.ClockSync` from the spool ack RTT).
 
-The port keeps the subsystem always on: a broker configured with
-``observability_enabled`` off raises (``broker/reg.py``
-``refuse_unported``).
+The whole subsystem is gated by one flag (``observability_enabled``):
+off, every seam pays a single module-global boolean test.
 """
 
 from . import events, histogram

@@ -25,12 +25,6 @@ class PluginManager:
         (vmq_plugin_mgr:enable_plugin)."""
         if name in self._enabled:
             raise ValueError(f"plugin {name} already enabled")
-        if name in self.BUNDLED:
-            # their modules are not copied into the port yet: refuse
-            # before an import of a module that is not there
-            raise NotImplementedError(
-                f"plugin {name}: the bundled plugins are not ported yet "
-                f"(ROADMAP Queue 1 item 11b)")
         if name == "vmq_acl":
             from .acl import AclPlugin
 
