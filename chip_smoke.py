@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (vernemq_tpu_torch) on one card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase broker|cluster [--repeat N]
+    python3 chip_smoke.py --phase broker|cluster|replay [--repeat N]
 
 from the root of a checkout, on a machine with a CUDA card (Hopper: the
 kernels are built for sm_90a). ``--phase`` builds the kernels and runs
@@ -81,6 +81,17 @@ one serving phase alone, ``N`` times (``broker`` with ``[admin]`` and
 8. holds ``match_many``'s ``[K, C + 3B]`` result for K = 8 windows of one
    snapshot against K single dispatches element for element, and times
    both (CUDA events) and ``fold_many`` against K ``fold_batch`` calls;
+   then the operator tools (``[tools]``, ``vernemq_tpu_torch/tools/``):
+   the kernel-resident scan probe (``PackedScan``: K staged windows
+   captured in one CUDA graph) at K = 1, 4 and 16, its replayed rows
+   bit-equal to ``match_many_staged`` on the same staged block and its
+   ``(chk, tot)`` equal to the host's int32 sums, the tile and extraction
+   kernels counted at the capture (no plain extraction or bit-pack); the
+   roofline's K ladder (K = 1..16: ``W(K) = a + b·K`` of
+   ``call_match_many`` beside the graph's time per window and the bound);
+   and ``collector_latency`` at 2,000 and 20,000 publishes/s for 2.5 s
+   each, every publish's rows equal to the trie's, none served on the
+   host;
 9. breaker drill: a fault plan fails ``device.dispatch`` as often as the
    breaker's threshold; the collector's flushes go to the trie with exact
    parity and the breaker opens; with the plan cleared, one half-open
@@ -127,7 +138,12 @@ one serving phase alone, ``N`` times (``broker`` with ``[admin]`` and
    on the card: every rewritten and bridged publish matched on the card
    and delivered as the trie of its final topic gives it, the host-served
    counters unmoved, the tile and extraction kernels launched; then every
-   plugin disabled and anonymous clients allowed again; then two port
+   plugin disabled and anonymous clients allowed again; each counted
+   load (``[broker]``, each ``[cluster]`` node, ``[replay]``) runs under
+   the broker's own full-collection policy, which freezes the heap its
+   bulk load left (``broker/heap.py``): the phase fails if the policy
+   froze nothing, and prints every full and young collection of the
+   load; then two port
    nodes on the one card
    (``[cluster]``): two broker processes started through
    ``start_broker(cluster_listen=, join=)`` with the SWC store, the same
@@ -182,7 +198,7 @@ one serving phase alone, ``N`` times (``broker`` with ``[admin]`` and
    the service holds a GPU device node; publishes/s, PUBLISH->delivery and
    PUBACK p50/p99 and the load time printed beside the broker phase's;
 15. the predicate phase (``[predicate]``, bench.py config 13): 512 ``$gt``,
-   128 ``$avg`` and 32 host-escape conjunction subscriptions, 24 batches
+   128 ``$avg`` and 32 host-escape conjunction subscriptions, 6 batches
    of 2048 publishes through ``FilterEngine.filter_batch`` with every
    verdict pair of a batch (1,048,576) on the device (``max_pairs`` 2^20):
    pairs/s beside the host evaluator's, the kernel held against its plain
@@ -207,6 +223,14 @@ import subprocess
 import sys
 import time
 
+# the headline corpus and its zipf publish stream (bench.py's mix), the
+# roofline's tile-kernel bound and the card's data-sheet rates: one code
+# with the port's operator tools
+from vernemq_tpu_torch.tools.corpus import build_corpus, zipf_topics
+from vernemq_tpu_torch.tools.roofline import (BF16_FLOP_PER_S,
+                                              HBM_BYTES_PER_S, tile_bound,
+                                              window_rows)
+
 SEED = 42
 N_SUBS = 1_000_000
 BATCH = 4096
@@ -224,6 +248,13 @@ CHURN_ROUNDS = 2
 CHURN_STEP = 100
 CHURN_LIVE = 2000
 MANY_K = 8
+# [tools]: PackedScan at these K against match_many_staged, the roofline's
+# K ladder, and collector_latency at TOOLS_RATES publishes/s for TOOLS_SECS
+# seconds each
+TOOLS_KS = (1, 4, 16)
+TOOLS_LADDER = (1, 2, 4, 8, 16)
+TOOLS_RATES = (2000.0, 20000.0)
+TOOLS_SECS = 2.5
 # drills: breaker backoff (s) and the smaller view of the rebuild drill
 # mesh phase: windows of BATCH zipf publishes through the 4-slice mesh seat
 # (each held to the single-GPU view and the trie), subscribes and as many
@@ -346,7 +377,8 @@ RET_WAIT_S = 300
 # batches. PRED_MAX_PAIRS: the bench builds its engine with the default
 # max_pairs 65,536, below a batch's 1,048,576 verdict pairs, so there every
 # batch goes to the host evaluator; here every pair rides the device.
-# PRED_REPS is a cut of depth (24 before): each dispatch's ~4 s is host
+# PRED_REPS and PRED_HOST_REPS are cuts of depth (24 and 2 before, then
+# 12 and 2; 6 and 1 since the [tools] phase): each dispatch's ~4 s is host
 # pair build, and the script must stay inside its time limit.
 PRED_SENSORS = 64
 PRED_GT = 512
@@ -354,8 +386,8 @@ PRED_AGG = 128
 PRED_CONJ = 32
 PRED_BATCH = 2048
 PRED_BATCHES = 6
-PRED_REPS = 12
-PRED_HOST_REPS = 2
+PRED_REPS = 6
+PRED_HOST_REPS = 1
 PRED_WINDOW_CAP = 1 << 14
 PRED_MAX_PAIRS = 1 << 20
 PRED_DRILL = 16  # publishes per batch of the outage drill
@@ -367,15 +399,14 @@ PREDICATE_DESIGN = (
     "add of (count, value) and min/max atomics only where the value moves "
     "them; the merge, a programmatic dependent launch, writes the partials, "
     "updates acc in place and zeroes the scratch (no memset)")
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate. The
+# HBM_BYTES_PER_S and BF16_FLOP_PER_S (tools/roofline.py) are the NVIDIA
+# H100 SXM data sheet's HBM3 bandwidth and dense bf16 tensor rate. The
 # reverse kernel's integer compares run on the INT32 lanes, 64 per SM per
 # clock (the Hopper architecture white paper): int32_ops_per_s() takes that
 # rate from the card (SMs and the max SM clock). FP32_OPS_PER_S, the CUDA
 # cores' float32 rate (an FMA counted as two), is the rate the first
 # reverse kernel's bounds used; it is printed beside the INT32 bound so the
 # row's history compares.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 INT32_LANES_PER_SM = 64
 DEVICE = "cuda"
@@ -481,38 +512,6 @@ EXTRACT_SHAPES = [
     ("one row", 8, 8192, 256, False, 1),
     ("one row, counts", 8, 8192, 256, True, 1),
 ]
-
-
-def build_corpus(rng: random.Random, n_subs: int, add):
-    """The bench.py headline mix over a 3-level topic tree (a copy of its
-    ``build_corpus``): ``add(filter_words, key)`` per subscription."""
-    l0 = [f"region{i}" for i in range(64)]
-    l1 = [f"dev{i}" for i in range(256)]
-    l2 = [f"metric{i}" for i in range(64)]
-    for i in range(n_subs):
-        r = rng.random()
-        w0, w1, w2 = rng.choice(l0), rng.choice(l1), rng.choice(l2)
-        if r < 0.60:
-            f = [w0, w1, w2]
-        elif r < 0.80:
-            f = [w0, "+", w2]
-        elif r < 0.90:
-            f = ["+", w1, w2]
-        else:
-            f = [w0, w1, "#"]
-        add(f, i)
-    return l0, l1, l2
-
-
-def zipf_topics(rng: random.Random, pools, n: int):
-    """bench.py's skewed publish stream (a copy of its ``zipf_topics``)."""
-    l0, l1, l2 = pools
-
-    def pick(pool):
-        z = min(int(rng.paretovariate(1.2)) - 1, len(pool) - 1)
-        return pool[z]
-
-    return [(pick(l0), pick(l1), pick(l2)) for _ in range(n)]
 
 
 class Registry:
@@ -742,29 +741,15 @@ def ptxas_kernels(text: str, names) -> dict:
     return out
 
 
-def window_rows(starts, seg: int) -> int:
-    """Distinct table rows in the windows [s, s + seg) of ``starts``."""
-    rows, hi = 0, -1
-    for s in sorted(int(x) for x in starts):
-        lo = max(s, hi)
-        if s + seg > lo:
-            rows += s + seg - lo
-        hi = max(hi, s + seg)
-    return rows
-
-
 def probe_bound(inputs, seg: int):
-    """(bytes, FLOP) the tile function must move and do: every table row
-    the windows touch read once (its K bf16 operands, t1, eff, flags), the
-    tile operands read once, the packed mask written once; 2·K FLOP per
+    """(bytes, FLOP) the tile function must move and do on ``inputs``
+    (``tools/roofline.py`` ``tile_bound``): every table row the windows
+    touch read once (its K bf16 operands, t1, eff, flags), the tile
+    operands read once, the packed mask written once; 2·K FLOP per
     (publish, window row)."""
     F_t, _t1, _eff, _flags, Gt, _plt, _pdt, start = inputs
-    K = F_t.shape[0]
     T, TP, _ = Gt.shape
-    rows = window_rows(start.cpu().tolist(), seg)
-    nbytes = (rows * (2 * K + 12) + T * TP * (2 * K + 8) + T * 4
-              + T * TP * seg // 8)
-    return nbytes, 2.0 * T * TP * seg * K
+    return tile_bound(F_t.shape[0], T, TP, start.cpu().tolist(), seg)
 
 
 def time_dense_region0(card: str, F_t, t1, eff, hh, fw, act, flags, pw,
@@ -1436,6 +1421,125 @@ def phase_many(view, m, rng, pools, card: str) -> None:
           f"{', '.join(f'{x:.1f}' for x in fb)})", flush=True)
 
 
+def phase_tools(view, m, trie, rng, pools, card: str) -> dict:
+    """The port's operator tools on the headline matcher: the
+    kernel-resident scan probe (``match_kernel.PackedScan``: K staged
+    windows captured in one CUDA graph) at K = 1, 4 and 16, its replayed
+    ``[K, C + 3B]`` rows bit-equal to ``match_many_staged`` on the same
+    staged block and its ``(chk, tot)`` equal to the host's int32 sums of
+    those rows, the tile and extraction kernels counted at the capture (no
+    plain extraction or bit-pack); the roofline's K ladder (``W(K) = a +
+    b·K`` of ``call_match_many`` beside the graph's time per window and the
+    bound); a two-rate ``collector_latency`` run exact against the trie.
+    Returns the captured launches and the ladder's numbers."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from vernemq_tpu_torch.ops import match_kernel as TK
+    from vernemq_tpu_torch.tools import collector_latency as CL
+    from vernemq_tpu_torch.tools import roofline as RF
+    from vernemq_tpu_torch.tools.corpus import staged_windows
+
+    t0 = time.perf_counter()
+    head = (*m._operands, *m._dev_arrays[1:])
+    captured = dict(tile=0, dense=0, extract=0)
+    for k in TOOLS_KS:
+        preps, statics, _ = staged_windows(m, pools, rng, k, BATCH)
+        staged = TK.stage_many(preps, DEVICE)
+        reset_counts()
+        scan = TK.PackedScan(*head, staged, preps, statics)
+        forward_counts(f"tools K={k}")
+        cap = scan.captured
+        two = 2 if statics["seg2_max"] else 1
+        if cap != dict(tile=two * k, dense=k, extract=(two + 1) * k):
+            fail(f"tools: the K={k} graph captured {cap} launches, not "
+                 f"{two} probe, 1 dense and {two + 1} extraction launches a "
+                 f"window")
+        for key in captured:
+            captured[key] += cap[key]
+        want = TK.match_many_staged(*head, staged, preps, statics)
+        scan.run()
+        torch.cuda.synchronize()
+        got = scan.rows.cpu().numpy()
+        ref = want.cpu().numpy()
+        if got.shape != ref.shape or (got != ref).any():
+            fail(f"tools: the K={k} graph's rows differ from "
+                 f"match_many_staged in {int((got != ref).sum())} elements")
+        B, C = preps[0][0].shape[0], statics["C"]
+        h = ref.astype(np.int64)
+        wrap = lambda x: int((x + 2**31) % 2**32 - 2**31)
+        sums = (wrap(h[:, :C].sum()), wrap(h[:, C + B:C + 2 * B].sum()))
+        if scan.result() != sums:
+            fail(f"tools: the K={k} graph's (chk, tot) {scan.result()} "
+                 f"against the host's int32 sums {sums}")
+        ms = event_ms(scan.run, 5) / k
+        print(f"[tools] {card} | PackedScan K={k}: [{k}, C + 3B] = "
+              f"{tuple(got.shape)} replayed from its CUDA graph, bit-equal "
+              f"to match_many_staged; (chk, tot) = {sums} equal to the "
+              f"host's int32 sums; captured tile / dense-mode / extraction "
+              f"launches {cap['tile']} / {cap['dense']} / {cap['extract']}, "
+              f"plain extractions and bit-packs 0; {ms:.4f} ms a window "
+              f"from the graph", flush=True)
+        del scan, staged, want
+    torch.cuda.empty_cache()
+    lad = RF.k_ladder(m, pools, rng, TOOLS_LADDER, 3, BATCH)
+    steps = "; ".join(
+        f"K={r['K']}: {r['match_many_ms']:.3f} ms "
+        f"({r['match_many_ms_per_window']:.3f} a window), graph "
+        f"{r['graph_ms_per_window']:.4f} a window" for r in lad["ladder"])
+    print(f"[tools] {card} | roofline K ladder, {BATCH}-publish windows: "
+          f"{steps}", flush=True)
+    print(f"[tools] {card} | W(K) = a + b·K of call_match_many (host clock, "
+          f"best of 3; staging, upload, K dispatches, one download): a = "
+          f"{lad['fit_a_ms']:.3f} ms per dispatch, b = {lad['fit_b_ms']:.3f} "
+          f"ms per window; the graph's time per window "
+          f"{lad['graph_ms_per_window']:.4f} ms (CUDA events); the bound "
+          f"per window {lad['bound_ms_per_window']:.4f} ms (tools/roofline.py"
+          f" at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s)", flush=True)
+
+    async def ladder():
+        return await CL.ladder(view, m, trie,
+                               lambda n: zipf_topics(rng, pools, n),
+                               TOOLS_RATES, TOOLS_SECS)
+
+    fb0 = m.host_fallbacks
+    rows = asyncio.run(ladder())
+    for r in rows:
+        if r["mismatched"] or r["failed"] or r["host_served_pubs"]:
+            fail(f"tools: collector_latency at {r['rate_pubs_per_sec']:.0f}"
+                 f"/s: {r['mismatched']} publishes' rows differ from the "
+                 f"trie's, {r['failed']} failed, {r['host_served_pubs']} "
+                 f"served on the host ({r['host']})")
+        print(f"[tools] {card} | collector_latency at "
+              f"{r['rate_pubs_per_sec']:.0f} publishes/s for {TOOLS_SECS}s "
+              f"(achieved {r['achieved_device_rate']:.0f}/s): added p50 "
+              f"{r['added_ms_p50']:.2f} ms p99 {r['added_ms_p99']:.2f} ms "
+              f"(collector {r['device_ms_p50']:.2f} / "
+              f"{r['device_ms_p99']:.2f}, trie {r['trie_ms_p50']:.4f} / "
+              f"{r['trie_ms_p99']:.4f}); {r['served_device_pubs']} served "
+              f"on the card, 0 on the host; queue wait at flush start p50 "
+              f"{r['queue_wait_ms_p50']:.2f} p99 "
+              f"{r['queue_wait_ms_p99']:.2f} ms over {r['flushes']:.0f} "
+              f"flushes; every publish's rows equal to the trie's "
+              f"({r['checked']})", flush=True)
+    if m.host_fallbacks != fb0:
+        fail(f"tools: {m.host_fallbacks - fb0} publishes fell back to the "
+             f"host")
+    secs = time.perf_counter() - t0
+    print(f"[tools] {card} | phase {secs:.1f}s", flush=True)
+    return dict(captured=captured, fit_a_ms=lad["fit_a_ms"],
+                fit_b_ms=lad["fit_b_ms"],
+                graph_ms=lad["graph_ms_per_window"],
+                bound_ms=lad["bound_ms_per_window"],
+                latency=[{k: r[k] for k in (
+                    "rate_pubs_per_sec", "added_ms_p50", "added_ms_p99",
+                    "queue_wait_ms_p50", "queue_wait_ms_p99")}
+                    for r in rows], seconds=secs)
+
+
 def phase_breaker(view, m, trie, rng, pools) -> None:
     """Fail device.dispatch as often as the threshold: flushes go to the
     trie and the breaker opens; cleared, one half-open probe closes it and
@@ -1587,28 +1691,30 @@ def release(card: str, when: str) -> None:
           flush=True)
 
 
-class FrozenHeap:
-    """The set-up's heap kept out of CPython's cyclic collector for a
-    counted load. A full collection walks every tracked object and holds
-    the interpreter lock while it does: over a broker process holding a
-    million subscriptions that pause outlasts the queued-publish expiry,
-    and the publishes queued across it are answered by the trie. The
-    set-up (the corpus load, the table build) leaves a heap that the
-    counted load does not free, so it is collected once here, timed (the
-    pause a full collection would cost during the load, with the set-up's
-    own garbage), and moved to the
-    permanent generation (``gc.freeze``); what the load allocates is
-    collected as usual, and every collection during the load is timed
-    through ``gc.callbacks``. :meth:`close` unfreezes it."""
+class HeapWatch:
+    """CPython's collections during a counted load, timed through
+    ``gc.callbacks``. The broker freezes the heap its bulk load leaves by
+    its own policy (``vernemq_tpu_torch/broker/heap.py``: after a GPU
+    matcher's first build, a rebuild swapped in or a cluster join's
+    metadata exchange, one timed full collection and ``gc.freeze``; never
+    on a delta): a full collection over a broker
+    process holding a million subscriptions holds the interpreter lock
+    longer than the queued-publish expiry, and the publishes queued across
+    it are answered by the trie. This only reads what the policy did
+    (``policy``: the process's ``broker.heap.POLICY``) and times every full and
+    young collection during the load; it freezes nothing. :meth:`check`
+    fails the phase if the policy never froze the loaded heap."""
 
-    def __init__(self) -> None:
+    def __init__(self, policy, label: str) -> None:
         import gc
 
-        t0 = time.perf_counter()
-        gc.collect()
-        self.full_ms = (time.perf_counter() - t0) * 1e3
-        gc.freeze()
-        self.frozen = gc.get_freeze_count()
+        self.policy = policy
+        self.label = label
+        # the policy's own count: gc.get_freeze_count() walks the frozen
+        # heap with the interpreter lock held (CPython 3.12)
+        st = policy.status()
+        self.frozen = st["frozen_objects"]
+        self.refreezes0 = st["refreezes"]
         self.pauses = {0: [], 1: [], 2: []}
         self._t0 = 0.0
         self._open = True
@@ -1621,13 +1727,24 @@ class FrozenHeap:
             self.pauses[info["generation"]].append(
                 (time.perf_counter() - self._t0) * 1e3)
 
+    def check(self) -> None:
+        st = self.policy.status()
+        if not st["refreezes"] or not self.frozen:
+            fail(f"{self.label}: the broker's heap policy froze nothing "
+                 f"after the bulk load ({st})")
+
     def summary(self) -> str:
+        st = self.policy.status()
         young = sorted(self.pauses[0] + self.pauses[1])
         p99 = young[int(0.99 * (len(young) - 1))] if young else 0.0
-        return (f"set-up heap of {self.frozen} objects frozen out of the "
-                f"cyclic collector (one full collection over it took "
-                f"{self.full_ms:.1f} ms, against the {EXPIRY_MS:.0f} ms "
-                f"expiry); during the load {len(self.pauses[2])} full "
+        return (f"the broker's heap policy froze {self.frozen} objects "
+                f"({st['refreezes']} re-freeze(s), the last after "
+                f"{st['last_reason']}: its full collection took "
+                f"{st['last_pause_ms']:.1f} ms, the longest "
+                f"{st['max_pause_ms']:.1f} ms, against the {EXPIRY_MS:.0f} "
+                f"ms expiry); during the load "
+                f"{st['refreezes'] - self.refreezes0} re-freezes, "
+                f"{len(self.pauses[2])} full "
                 f"collections (longest "
                 f"{max(self.pauses[2], default=0.0):.2f} ms) and "
                 f"{len(young)} young ones (longest "
@@ -1641,7 +1758,6 @@ class FrozenHeap:
         if self._open:
             self._open = False
             gc.callbacks.remove(self._timed)
-            gc.unfreeze()
         return self.summary()
 
 
@@ -1667,6 +1783,7 @@ class StackSampler:
         self.busy = collections.Counter()
         self.inclusive = collections.Counter()
         self.leaves = collections.Counter()
+        self.max_gap_ms, self.max_gap_at = 0.0, 0.0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="stack-sampler")
@@ -1676,7 +1793,15 @@ class StackSampler:
         import threading
 
         me = threading.get_ident()
+        last = time.perf_counter()
         while not self._stop.wait(self.period):
+            # a wake far past the period: the interpreter lock was held
+            # (a C call such as a collection) or the process descheduled
+            now = time.perf_counter()
+            gap = (now - last - self.period) * 1e3
+            last = now
+            if gap > self.max_gap_ms:
+                self.max_gap_ms, self.max_gap_at = gap, now
             names = {t.ident: t.name.split("_")[0]
                      for t in threading.enumerate()}
             for ident, f in sys._current_frames().items():
@@ -1723,6 +1848,80 @@ def stack_profile(name: str, prof: dict) -> str:
             f"{prof['samples']}; of the event loop thread's busy samples, "
             f"inclusive: {main}\n  busy leaf stacks (samples, thread: "
             f"innermost first):\n    {leaves}")
+
+
+class StepWatch:
+    """One step of a serving phase, watched from the event loop it runs
+    on: CPython's collections (:class:`HeapWatch`), the loop's lags past a
+    5 ms sleep, a :class:`StackSampler`, and the heap policy's and the
+    matcher's log records (a re-freeze or its skip, a publish expired to
+    the trie), each at its offset into the step. :meth:`stop` returns one
+    line; :meth:`detail` the longest lags, the log records and the stack
+    sample."""
+
+    def __init__(self, policy) -> None:
+        import asyncio
+        import logging
+
+        self.t0 = time.perf_counter()
+        self.heap = HeapWatch(policy, "step")
+        self.sampler = StackSampler()
+        self.lags: list = []
+        self.records: list = []
+        watch = self
+
+        class Keep(logging.Handler):
+            def emit(self, rec):
+                watch.records.append((watch.at(), rec.name.rsplit(".")[-1],
+                                      rec.getMessage()[:160]))
+
+        self.handler = Keep(logging.DEBUG)
+        self.loggers = [logging.getLogger(n) for n in (
+            "vernemq_tpu_torch.heap", "vernemq_tpu_torch.matcher")]
+        self.levels = [lg.level for lg in self.loggers]
+        for lg in self.loggers:
+            lg.addHandler(self.handler)
+            lg.setLevel(logging.DEBUG)
+        self.task = asyncio.get_running_loop().create_task(self._lags())
+        self.line = ""
+
+    def at(self) -> float:
+        return round((time.perf_counter() - self.t0) * 1e3, 1)
+
+    async def _lags(self) -> None:
+        import asyncio
+
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.005)
+            lag = (time.perf_counter() - t - 0.005) * 1e3
+            if lag > 20:
+                self.lags.append((self.at(), round(lag, 1)))
+
+    def stop(self, note: str = "") -> str:
+        if self.line:
+            return self.line
+        self.task.cancel()
+        for lg, lv in zip(self.loggers, self.levels):
+            lg.removeHandler(self.handler)
+            lg.setLevel(lv)
+        self.prof = self.sampler.stop()
+        gap = (self.sampler.max_gap_ms,
+               round((self.sampler.max_gap_at - self.t0) * 1e3, 1))
+        st = self.heap.policy.status()
+        self.line = (
+            f"{self.at():.0f} ms; {note}; heap policy {st}; event-loop lags "
+            f"past 20 ms {len(self.lags)}, the longest "
+            f"{max((x for _, x in self.lags), default=0.0):.1f} ms; the "
+            f"sampler's longest wake gap {gap[0]:.1f} ms at {gap[1]} ms; "
+            f"{self.heap.close()}")
+        return self.line
+
+    def detail(self) -> str:
+        top = sorted(self.lags, key=lambda x: -x[1])[:8]
+        return (f"  lags (ms into the step, ms): {top}\n  log records: "
+                f"{self.records[:12]}\n  " + stack_profile("(this process)",
+                                                    self.prof))
 
 
 def time_cluster_batches(b, out: dict) -> None:
@@ -2241,7 +2440,8 @@ def phase_broker(card: str, path_S: int) -> dict:
         if nodes != reg.trie("").stats()["nodes"]:
             fail(f"admin: the trie's kept node count "
                  f"{reg.trie('').stats()['nodes']} against a walk's {nodes}")
-        heap = FrozenHeap()
+        heap = HeapWatch(b.heap, "broker")
+        heap.check()
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=broker_clients,
@@ -2624,7 +2824,7 @@ async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
                      f"code {proc.exitcode})")
         return await loop.run_in_executor(None, conn.recv)
 
-    b2 = s2 = None
+    b2 = s2 = step = None
     try:
         await ask()  # every authenticated client connected and subscribed
         want = [collections.Counter() for _ in live]
@@ -2723,7 +2923,11 @@ async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
             fail(f"plugins: the webhook was called {hook_calls} times for "
                  f"{PLUGIN_STEP} publishes")
 
-        # ---- vmq_bridge: a second broker on the card, bridged each way
+        # ---- vmq_bridge: a second broker on the card, bridged each way;
+        # the step is watched (collections, event-loop lags, a stack
+        # sample, the heap policy's and the collectors' log lines): the
+        # second broker's first build lands in it
+        step = StepWatch(b.heap)
         cfg2 = broker_config()
         cfg2.set("tpu_initial_capacity", 1 << 13)
         cfg2.set("http_enabled", False)
@@ -2764,9 +2968,13 @@ async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
             fail(f"plugins: the second broker's subscriber got "
                  f"{len(remote)} of {PLUGIN_STEP} bridged publishes")
         bridge_out = m.match_publishes - n
+        warm2 = b2.registry.reg_view("tpu").matcher("").warm_ms
+        policy = step.stop(f"the second broker's warm dispatch "
+                           f"{warm2:.1f} ms")
         if bridge_out != PLUGIN_STEP:
             fail(f"plugins: {bridge_out} of the {PLUGIN_STEP} bridged-out "
-                 f"publishes matched on the card")
+                 f"publishes matched on the card; the bridge step: "
+                 f"{policy}\n{step.detail()}")
         bridged_in = await rewritten("the bridged-in publishes",
                                      None, s2.port)
         hs2 = host_served(b2.batch_collector(),
@@ -2785,6 +2993,8 @@ async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
         if proc.is_alive():
             proc.kill()
             proc.join()
+        if step is not None:
+            step.stop()
         if b2 is not None:
             await b2.stop()
             await s2.stop()
@@ -2818,8 +3028,8 @@ async def phase_plugins(card: str, b, m, port: int, api_key: str, pools,
           f"deliveries exact; bridge `plug-br` to a second broker on the "
           f"card: {bridge_out} publishes out (all {PLUGIN_STEP} at the "
           f"remote subscriber under big/), {bridged_in[0]} in through the "
-          f"bridge matched on the card, {bridged_in[2]} deliveries exact",
-          flush=True)
+          f"bridge matched on the card, {bridged_in[2]} deliveries exact; "
+          f"the bridge step: {policy}", flush=True)
     print(f"[plugins] {card} | exact, 0 host-served (deltas over the admin "
           f"API), {card_pubs} publishes on the card, {launches} tile / "
           f"{dense} dense-mode / {ex} extraction launches, no plain "
@@ -2980,7 +3190,8 @@ def cluster_node(name: str, join, conn) -> None:
                 t0 = time.perf_counter()
                 settle_sync(m)
                 t_built = time.perf_counter() - t0
-                heap = FrozenHeap()  # frozen until the node stops
+                heap = HeapWatch(b.heap, f"cluster node {name}")
+                heap.check()
                 conn.send(("built", t_built, m.table.count,
                            int(m.table.cap), m.warm_ms))
             elif cmd[0] == "want":
@@ -4610,7 +4821,8 @@ def phase_replay(card: str) -> int:
             want.append(c)
         expect = [sum(c.values()) for c in want]
         col = b.retained_collector()
-        heap = FrozenHeap()
+        heap = HeapWatch(b.heap, "replay")
+        heap.check()
         ctx = multiprocessing.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(target=replay_clients,
@@ -4647,10 +4859,13 @@ def phase_replay(card: str) -> int:
         bad = {k: v for k, v in st.items() if v and k.endswith((
             "degraded_filters", "rebuild_filters", "fallback_filters",
             "stalled_filters", "expired_filters"))}
+        took = np.array([x for x in took if x is not None]) * 1e3
         if bad or st["retained_replay_device_filters"] <= 0:
             fail(f"replay: device filters "
-                 f"{st['retained_replay_device_filters']}, host-served "
-                 f"{bad}")
+                 f"{st['retained_replay_device_filters']} in "
+                 f"{st['retained_replay_device_batches']} flushes, "
+                 f"host-served {bad}; SUBSCRIBE->last replay "
+                 f"{np.sort(took).round(1).tolist()} ms; {heap.close()}")
         if min(launches) <= 0 or plain:
             fail(f"replay: a reverse kernel was never launched (compare, "
                  f"extraction: {launches}) or a plain extraction ran on "
@@ -4659,7 +4874,6 @@ def phase_replay(card: str) -> int:
         if drops:
             fail(f"replay: {drops} queue drops")
         n = sum(expect)
-        took = np.array([x for x in took if x is not None]) * 1e3
         print(f"[replay] {card} | {RET_SUBSCRIBERS} MQTT subscribers "
               f"(v5 and v3.1.1) x one SUBSCRIBE of {RET_FILTERS} storm "
               f"filters at once: {n} retained replays in {wall:.2f}s "
@@ -5150,8 +5364,9 @@ def phase_reverse_kernel(compiled: bool):
 
 
 def run_alone(card: str, phase: str, repeat: int) -> int:
-    """``--phase`` ``broker`` (with ``[admin]`` and ``[plugins]``) or
-    ``cluster`` on its own, ``repeat`` times after the kernels' build:
+    """``--phase`` ``broker`` (with ``[admin]`` and ``[plugins]``),
+    ``cluster`` or ``replay`` on its own, ``repeat`` times after the
+    kernels' build:
     each run passes or fails as in the whole script. Exits non-zero if
     any run failed, and prints no ``ok`` line."""
     from vernemq_tpu_torch.ops import _build
@@ -5163,6 +5378,8 @@ def run_alone(card: str, phase: str, repeat: int) -> int:
         try:
             if phase == "broker":
                 phase_broker(card, HEADLINE_S)
+            elif phase == "replay":
+                phase_replay(card)
             else:
                 phase_cluster(card, {"pubs_per_s": float("nan")})
             passed += 1
@@ -5183,7 +5400,7 @@ def main(argv=()) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke run of the port")
-    ap.add_argument("--phase", choices=("broker", "cluster"),
+    ap.add_argument("--phase", choices=("broker", "cluster", "replay"),
                     help="run this serving phase alone (no ok line)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of --phase")
@@ -5504,6 +5721,7 @@ def main(argv=()) -> int:
     churn_launches, churn_ex, churn_dense = phase_churn(view, m, trie, reg,
                                                         rng, pools, card)
     phase_many(view, m, rng, pools, card)
+    tools = phase_tools(view, m, trie, rng, pools, card)
     phase_breaker(view, m, trie, rng, pools)
     phase_rebuild(SubscriptionTrie, card)
     # the path phases' registry, view and operands are done with: the
@@ -5535,13 +5753,18 @@ def main(argv=()) -> int:
         "launches_per_path": {
             "path": path_launches, "mesh": mesh["tile"],
             "mesh_legacy": mesh["legacy_tile"],
-            "plugins": broker["plugins"]["launches"]},
+            "plugins": broker["plugins"]["launches"],
+            "tools_captured": tools["captured"]["tile"]},
         "dense_launches_per_path": {
             "path": path_dense, "burst": burst_dense, "churn": churn_dense,
             "broker": broker["dense_launches"],
             "cluster": cluster["node_dense_launches"],
             "workers": workers["dense_launches"], "mesh": mesh["dense"],
-            "mesh_legacy": mesh["legacy_dense"]},
+            "mesh_legacy": mesh["legacy_dense"],
+            "tools_captured": tools["captured"]["dense"]},
+        "tools": {k: tools[k] for k in (
+            "fit_a_ms", "fit_b_ms", "graph_ms", "bound_ms", "latency",
+            "seconds")},
         "mesh": {k: mesh[k] for k in (
             "per_shard", "local_launches", "ms", "single_ms", "fold_p50_ms",
             "delta_ms", "seconds")},
@@ -5622,7 +5845,8 @@ def main(argv=()) -> int:
             "workers": workers["extract_launches"],
             "retained": ret["extract_launches"],
             "replay": replay_launches[1], "mesh": mesh["extract"],
-            "mesh_legacy": mesh["legacy_extract"]},
+            "mesh_legacy": mesh["legacy_extract"],
+            "tools_captured": tools["captured"]["extract"]},
         "max_abs_err": max(extract_err, ret["extract_err"],
                            max(e["max_abs_err"] for e in ext.values())),
         "ms": ex_ms,

@@ -216,7 +216,10 @@ async def _script(port_side: bool) -> dict:
         out["/metrics"] = (status, sorted(
             {ln.split()[2] for ln in text.splitlines()
              if ln.startswith("# TYPE")}))
-        while not any("tpu_match_publishes" in ln for ln in glines):
+        # a report taken once the GPU view's matcher exists: the
+        # tpu_match_publishes counter is in every report from the first,
+        # the table's gauges only from then on
+        while not any("tpu_table_rows" in ln for ln in glines):
             await asyncio.sleep(0.05)
         out["graphite"] = {ln.split()[0].rsplit(".", 1)[-1]
                            for ln in glines}

@@ -818,3 +818,159 @@ async def test_flight_recorder_stamps_the_collector_stages():
     finally:
         await b.stop()
         await s.stop()
+
+
+def _walks(kept=(), gen=2):
+    """A ``gc.callbacks`` hook and its record: at the start of each
+    collection of ``gen``, the objects it walks and how many of ``kept``
+    (loaded objects) are among them rather than frozen."""
+    import gc
+
+    seen = []
+
+    def hook(phase, info):
+        if phase == "start" and info["generation"] == gen:
+            walked = gc.get_objects()
+            ids = {id(o) for o in walked}
+            seen.append((len(walked), sum(id(o) in ids for o in kept)))
+
+    return hook, seen
+
+
+async def _bulk_loaded_broker(n_ids=200, per_id=100):
+    """A CPU broker whose GPU view holds ``n_ids * per_id`` subscriptions
+    registered under ``n_ids`` subscriber ids after its matcher exists (so
+    the table fills in order); nothing is built on the device yet."""
+    b, s = await start_broker(Config(**BASE, default_reg_view="tpu"),
+                              port=0, device="cpu")
+    reg = b.registry
+    view = reg.reg_view("tpu")
+    m = view.matcher("")  # empty: the load below fills it in order
+    for i in range(n_ids):
+        reg.subscribe(("", f"bulk{i}"), _bulk_filters(i, per_id))
+    assert m.table.count == n_ids * per_id
+    return b, s, view, m
+
+
+def _bulk_filters(i, per_id):
+    opts = SubOpts(qos=0)
+    return [([f"r{i % 16}", f"d{j}", "+" if j % 3 else f"m{i}"], opts)
+            for j in range(per_id)]
+
+
+def _publish_load(view, n=8):
+    rows = [view.fold_batch("", [(f"r{i % 16}", f"d{j}", f"m{i}")
+                                 for j in range(32)]) for i in range(n)]
+    assert sum(len(r) for batch in rows for r in batch) > 0
+
+
+@pytest.mark.asyncio
+async def test_bulk_load_freezes_the_heap_by_the_brokers_policy():
+    """The broker's full-collection policy (broker/heap.py): after a bulk
+    load of 20,000 subscriptions the GPU view's first build collects once
+    and freezes the heap, so the loaded table sits in the permanent
+    generation and a full collection during the following publish load
+    walks only what the load allocated; the broker's stop unfreezes it.
+    Object counts, not wall time."""
+    import gc
+
+    b, s, view, m = await _bulk_loaded_broker()
+    reg = b.registry
+    try:
+        r0 = b.heap.refreezes
+        view.fold_batch("", [("r1", "d1", "m1")])  # the first build
+        assert b.heap.refreezes == r0 + 1, b.heap.status()
+        assert "first build of 20000 rows" in b.heap.last_reason
+        frozen = gc.get_freeze_count()
+        assert frozen >= m.table.count and b.heap.frozen >= frozen
+        loaded = (m.table.entries, m._entries_snapshot, reg.trie("")._root,
+                  *(e for e in m.table.entries[:64] if gc.is_tracked(e)))
+        unfrozen = {id(o) for o in gc.get_objects()}
+        assert not any(id(o) in unfrozen for o in loaded)
+        hook, walked = _walks(loaded)
+        gc.callbacks.append(hook)
+        try:
+            _publish_load(view)
+            gc.collect()  # a full collection during the load
+        finally:
+            gc.callbacks.remove(hook)
+        assert walked and max(n for n, _ in walked) < frozen // 10, \
+            (walked, frozen)
+        assert all(k == 0 for _, k in walked), walked
+        assert b.heap.refreezes == r0 + 1  # the publish load freezes nothing
+    finally:
+        await b.stop()
+        await s.stop()
+    assert gc.get_freeze_count() == 0
+
+
+@pytest.mark.asyncio
+async def test_a_delta_of_10k_rows_under_publish_load_walks_no_frozen_heap():
+    """A live burst between two flushes (10,000 subscriptions removed and
+    added again, a delta sync of 10,000 slots each way, no resize) during
+    a publish load: the heap policy does not re-freeze, every full
+    collection of the load runs with the loaded heap still frozen and
+    walks only the unfrozen objects. Object counts, not wall time."""
+    import gc
+
+    b, s, view, m = await _bulk_loaded_broker()
+    reg = b.registry
+    try:
+        view.fold_batch("", [("r1", "d1", "m1")])  # the first build
+        r0, frozen, cap = b.heap.refreezes, gc.get_freeze_count(), m.table.cap
+        # the loaded routing trie's nodes, all frozen by the first build
+        kept, stack = [m.table.entries], [reg.trie("")._root]
+        while stack:
+            kept.append(stack.pop())
+            stack.extend(kept[-1].children.values())
+        assert len(kept) > 1000
+        hook, walked = _walks(kept)
+        gc.callbacks.append(hook)
+        try:
+            for i in range(100):  # 10,000 subscriptions go
+                reg.unsubscribe(("", f"bulk{i}"),
+                                [f for f, _ in _bulk_filters(i, 100)])
+            assert len(m.table.dirty) >= 10_000
+            _publish_load(view)  # the delta lands on the first fold
+            gc.collect()
+            for i in range(100):  # and come back
+                reg.subscribe(("", f"bulk{i}"), _bulk_filters(i, 100))
+            assert len(m.table.dirty) >= 10_000
+            _publish_load(view)
+            gc.collect()
+        finally:
+            gc.callbacks.remove(hook)
+        assert m.table.cap == cap and not m.table.dirty
+        assert b.heap.refreezes == r0, b.heap.status()
+        assert len(walked) >= 2
+        assert all(k == 0 for _, k in walked), walked
+        assert max(n for n, _ in walked) < frozen // 4, (walked, frozen)
+        # a second broker of the process (a bridge's far end): its first
+        # build of a few rows is no reason to walk the frozen heap again
+        b2, s2 = await start_broker(Config(**BASE, default_reg_view="tpu"),
+                                    port=0, device="cpu")
+        # nor is the check that skips it: gc.get_freeze_count() walks the
+        # whole permanent generation (CPython 3.12), never asked there
+        counted, real_count = [], gc.get_freeze_count
+        try:
+            skipped = b.heap.skipped
+            b2.registry.subscribe(("", "far"), _bulk_filters(0, 4))
+            gc.get_freeze_count = lambda: counted.append(1) or real_count()
+            try:
+                rows = b2.registry.reg_view("tpu").fold_batch(
+                    "", [("r0", "d1", "m0")])  # b2's first build
+            finally:
+                gc.get_freeze_count = real_count
+            assert not counted
+            assert [k for _f, k, _o in rows[0]] == [("", "far")]
+            assert b2.registry.reg_view("tpu").matcher("").warm_ms \
+                is not None
+            assert b.heap.refreezes == r0 and b.heap.skipped == skipped + 1
+        finally:
+            await b2.stop()
+            await s2.stop()
+        assert gc.get_freeze_count() > 0  # b still holds it
+    finally:
+        await b.stop()
+        await s.stop()
+    assert gc.get_freeze_count() == 0

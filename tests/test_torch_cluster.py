@@ -256,3 +256,28 @@ def test_is_ready_folds_the_store_once_per_member_change():
     got, busy = asyncio.run(_gate_script("port"))
     assert got == want == [True, False, True, False, True, False, True]
     assert busy <= 1
+
+
+def test_a_join_freezes_the_heap_after_its_metadata_exchange():
+    """The broker's full-collection policy (broker/heap.py) at a cluster
+    join: the exchange on B's new channel to A applies A's metadata (the
+    join's bulk load), and that exchange, not a delta or a publish, runs
+    the policy's collection and freezes the heap; the nodes' stop
+    unfreezes it."""
+    import gc
+
+    from vernemq_tpu_torch.broker.heap import POLICY
+
+    async def run():
+        r0 = POLICY.refreezes
+        (a, sa), (b, sb) = await _nodes("port")
+        try:
+            await _until(lambda: POLICY.refreezes > r0)
+            assert "metadata exchange with" in POLICY.last_reason, \
+                POLICY.status()
+            assert gc.get_freeze_count() > 0
+        finally:
+            await _stop([(a, sa), (b, sb)])
+
+    asyncio.run(run())
+    assert gc.get_freeze_count() == 0

@@ -44,7 +44,20 @@ COPIES = {
     ],
     "cluster/swc_db.py": [],
     "cluster/swc_kernel.py": [],
-    "cluster/swc_store.py": _loggers("swc"),
+    "cluster/swc_store.py": _loggers("swc") + [
+        # a departure (ROADMAP "Departures"): the exchange on a new
+        # channel ends a join's bulk load, where the broker's
+        # full-collection policy (broker/heap.py) runs
+        ("from . import swc_kernel as K\n",
+         "from . import swc_kernel as K\nfrom .com import joined\n"),
+        ("                          exc_info=t.exception())\n",
+         "                          exc_info=t.exception())\n"
+         "            elif not t.cancelled():\n"
+         "                # the exchange on a new channel is a join's bulk "
+         "load: the\n"
+         "                # broker's full-collection policy runs after it\n"
+         "                joined(peer, t.result())\n"),
+    ],
     "native/bcrypt.py": [],
     "plugins/__init__.py": _loggers("plugins"),
     "plugins/acl.py": _loggers("acl"),

@@ -21,6 +21,7 @@ from ..protocol.types import Will
 from ..robustness import faults
 from ..storage.msg_store import FileMsgStore, MemoryMsgStore, MsgStore
 from .config import Config
+from .heap import POLICY
 from .message import Msg, SubscriberId
 from .metrics import Metrics
 from .plugins import HookError, HookRegistry
@@ -290,6 +291,10 @@ class Broker:
         self.worker_stats: Optional[Any] = None
         self.match_client: Optional[Any] = None
         self.sysmon: Optional[Any] = None
+        # the process's full-collection policy (broker/heap.py), held from
+        # start to stop: the heap a bulk load leaves is frozen out of the
+        # cyclic collector
+        self.heap = POLICY
         self.overload: Optional[Any] = None  # adaptive overload governor
         self.supervisor: Optional[Any] = None  # crash-restart supervision
         self.crl_refresher: Optional[Any] = None
@@ -1788,6 +1793,7 @@ class Broker:
                 log.warning("syslog sink unavailable: %s", e)
 
     async def start(self) -> None:
+        self.heap.hold(self)
         self._log_handlers: List[Any] = []
         self._setup_logging()
         # observability master switch: off reduces every histogram/
@@ -2109,6 +2115,7 @@ class Broker:
             self._retained_engine.close()
         if self.filter_engine is not None:
             self.filter_engine.close()
+        self.heap.release(self)  # the views that froze the heap are down
         # the fault registry is process-global: a plan THIS broker
         # installed at boot must not keep injecting into other broker
         # instances in the process (multi-node tests, embedding) — but

@@ -77,6 +77,7 @@ from ..parallel.shm_ring import RingClosed, RingFull, ShmRing, \
     WorkerStatsBlock
 from ..robustness import watchdog as watchdog_mod
 from ..robustness.breaker import CircuitBreaker
+from .heap import POLICY
 
 log = logging.getLogger("vernemq_tpu_torch.match_service")
 
@@ -201,6 +202,9 @@ class MatchService:
 
             shim = _ServiceRegistryShim(self)
             opts = dict(tpu_opts or {})
+            # the service process holds the GPU table: the broker's
+            # full-collection policy (broker/heap.py) runs here
+            POLICY.hold(self)
             self._view = GpuRegView(shim, device=device, **opts)
             self._collector = BatchCollector(
                 self._view, window_us=collector_window_us,
@@ -448,6 +452,7 @@ class MatchService:
                 pass
         if self._view is not None:
             self._view.close()
+            POLICY.release(self)
 
 
 _MISSING = object()

@@ -17,10 +17,20 @@ import struct
 from typing import Optional
 
 from . import codec
+from ..broker import heap
 from ..robustness import faults
 from .node import term_to_msg
 
 log = logging.getLogger("vernemq_tpu_torch.cluster")
+
+
+def joined(peer: str, applied: int) -> None:
+    """A metadata exchange on a (re)connected channel applied ``applied``
+    entries from ``peer``: a join's bulk load has ended, the moment of the
+    broker's full-collection policy (``broker/heap.py``)."""
+    if applied:
+        heap.POLICY.settled(
+            f"a metadata exchange with {peer} ({applied} entries)")
 
 
 def _count_subframes(blob: bytes) -> int:
@@ -200,6 +210,7 @@ class ClusterCom:
                 if applied:
                     log.debug("anti-entropy from %s applied %d entries",
                               origin, applied)
+                    joined(origin, applied)
         elif cmd == b"dgq":
             # partial-AE digest vector: answer with entries of buckets
             # whose digest differs (both sides run this symmetric flow)
@@ -222,10 +233,12 @@ class ClusterCom:
                 log.debug("partial AE from %s: %d buckets, %d applied",
                           origin, len(buckets), applied)
                 cluster.send_meta_frame(origin, b"dgp", ours)
+                joined(origin, applied)
         elif cmd == b"dgp":
             ms = cluster.metadata
             if hasattr(ms, "merge_full"):
-                ms.merge_full((p, k, tuple(e)) for p, k, e in term)
+                joined(origin, ms.merge_full(
+                    (p, k, tuple(e)) for p, k, e in term))
         elif cmd == b"swb":
             if hasattr(cluster.metadata, "handle_swc_cast"):
                 cluster.metadata.handle_swc_cast(origin, term)

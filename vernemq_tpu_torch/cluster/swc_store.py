@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from . import codec
 from . import swc_kernel as K
+from .com import joined
 from .swc_kernel import DELETED, DCC, BVV, Dot, DotKeyMap, Watermark
 
 log = logging.getLogger("vernemq_tpu_torch.swc")
@@ -268,6 +269,10 @@ class SWCMetadata:
             if not t.cancelled() and t.exception() is not None:
                 log.error("scheduled exchange with %s failed", peer,
                           exc_info=t.exception())
+            elif not t.cancelled():
+                # the exchange on a new channel is a join's bulk load: the
+                # broker's full-collection policy runs after it
+                joined(peer, t.result())
 
         task.add_done_callback(_done)
 

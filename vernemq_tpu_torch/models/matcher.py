@@ -44,6 +44,7 @@ from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..broker import heap
 from ..device import DeviceLike, resolve_device
 from ..observability import histogram as obs
 from ..observability.profiler import record_dispatch
@@ -445,6 +446,10 @@ class GpuMatcher:
                         return
                     self._install_built(built, state)
                     self._rebuild_thread = None
+                    # under the lock: a sync that sees the install sees
+                    # the heap policy's collection done
+                    heap.POLICY.settled(
+                        f"a rebuild of {self.table.count} rows swapped in")
             finally:
                 if op is not None:
                     wd.deregister(op)
@@ -507,6 +512,7 @@ class GpuMatcher:
             t.dirty.clear()
             if self.warm_ms is None:
                 self._warm_locked()
+                heap.POLICY.settled(f"the first build of {t.count} rows")
             return
         if not t.dirty:
             return

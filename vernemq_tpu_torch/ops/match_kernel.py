@@ -529,3 +529,109 @@ def unpack_many_results(out: np.ndarray, B: int, C: int) -> List[tuple]:
     """Decode a stacked ``[K, C + 3B]`` result into K
     :func:`unpack_flat_result` tuples."""
     return [unpack_flat_result(out[i], B, C) for i in range(out.shape[0])]
+
+
+# ------------------------------------------- kernel-resident scan probe
+
+def scan_sums(rows: torch.Tensor, B: int, C: int) -> torch.Tensor:
+    """``int32 [2]``: ``(chk, tot)`` of stacked ``[K, C + 3B]`` results —
+    the sum of every flat entry and of every per-publish total, with the
+    int32 wrap-around of the reference's ``lax.scan`` over ``jnp.int32``
+    (sums modulo 2^32, read as signed). Computed on the device."""
+    s = torch.stack([rows[:, :C].sum(dtype=torch.int64),
+                     rows[:, C + B:C + 2 * B].sum(dtype=torch.int64)])
+    s = s & 0xFFFFFFFF
+    return (s - ((s >> 31) << 32)).to(torch.int32)
+
+
+class PackedScan:
+    """K staged windows (the ``[K, P]`` block of :func:`stage_many`) run as
+    one unit: :func:`match_many_staged` over every row, then
+    :func:`scan_sums` — the port of the reference's ``match_packed_scan``,
+    its device-resident throughput probe.
+
+    On CUDA the K dispatches and the sums are captured once in a CUDA graph
+    and :meth:`run` replays it: no host work between the windows and no
+    host traffic at all, so the time of a replay is the kernels' and the
+    small operations' between them (the reference runs them inside one
+    executable). Every window bound is checked on the host starts of
+    ``preps`` when the graph is captured, and the capture runs with
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read on the
+    dispatch raises there. The kernel wrappers count their launches at the
+    capture, once per window; a replay launches them again uncounted
+    (``captured`` holds the capture's ``tile`` / ``dense`` / ``extract``
+    launches). On the CPU :meth:`run` is the plain loop. ``rows`` holds
+    the ``[K, C + 3B]`` results of the last run and ``sums`` its ``int32
+    [2]``."""
+
+    def __init__(self, F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                 staged: torch.Tensor, preps: Sequence[tuple],
+                 statics: dict):
+        self._args = (F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                      staged, preps, statics)
+        self.B = _packed_geometry(preps[0])["B"]
+        self.C = statics["C"]
+        self.K = len(preps)
+        self.graph = None
+        self.captured: dict = {}
+        if staged.device.type == "cuda":
+            self._capture(staged.device)
+        else:
+            self.run()
+
+    def _compute(self):
+        self.rows = match_many_staged(*self._args)
+        self.sums = scan_sums(self.rows, self.B, self.C)
+
+    def _capture(self, dev) -> None:
+        from . import extract as EX
+        from . import tile_match as TM
+
+        counts = lambda: dict(tile=TM.launches, dense=TM.dense_launches,
+                              extract=EX.launches)
+        # one eager run first: it loads the kernel modules and fills the
+        # wrappers' per-device buffers, which the graph then reads
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._compute()
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        before = counts()
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            graph.capture_begin()
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                self._compute()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.captured = {k: v - before[k] for k, v in counts().items()}
+        self.graph = graph
+
+    def run(self) -> None:
+        """One pass over the K windows, on the current stream."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._compute()
+
+    def result(self) -> Tuple[int, int]:
+        """``(chk, tot)`` of the last run, read back with one copy."""
+        chk, tot = self.sums.cpu().tolist()
+        return chk, tot
+
+
+def match_packed_scan(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                      staged: torch.Tensor, preps: Sequence[tuple],
+                      statics: dict) -> Tuple[int, int]:
+    """Run the K staged windows once as one unit (:class:`PackedScan`: a
+    CUDA graph on the card, the plain loop on the CPU) and return the
+    reference's ``(chk, tot)`` as int32 values."""
+    scan = PackedScan(F_t, t1, sub_eff_len, has_hash, first_wild, active,
+                      staged, preps, statics)
+    if scan.graph is not None:
+        scan.run()
+    return scan.result()

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..broker import heap
 from ..models.matcher import (TILE_PUBS, GpuMatcher, RebuildInProgress,
                               _pad_pub_block, _pow2ceil, prepare_windows)
 from ..observability import histogram as obs
@@ -783,6 +784,7 @@ class ShardedGpuMatcher(GpuMatcher):
             t.dirty.clear()
             if self.warm_ms is None:
                 self._warm_locked()
+                heap.POLICY.settled(f"the first build of {t.count} rows")
             return
         sw = self._swm
         if t.dirty:

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..broker import heap
 from ..device import DeviceLike, resolve_device
 from ..models.matcher import (
     DeviceDegraded, RebuildInProgress, _is_cuda_fault,
@@ -392,6 +393,10 @@ class RetainedIndex:
                         return
                     self._install(built, state)
                     self._rebuild_thread = None
+                    # under the lock: a sync that sees the install sees
+                    # the heap policy's collection done
+                    heap.POLICY.settled(f"a retained build of "
+                                        f"{self.table.count} rows swapped in")
             finally:
                 if op is not None:
                     wd.deregister(op)
